@@ -4,29 +4,43 @@ H100: the quickest proof that the port builds and serves on the card.
 
     python3 chip_smoke.py        # from the root of a checkout
 
-Phases (any failure is reported and the script exits non-zero):
+Phases (any failure is reported and the script exits non-zero; each
+phase prints its seconds):
 
 1. Require a CUDA device of compute capability 9.0; print the card's name
    and power limit (nvidia-smi) and set float32 matmuls to IEEE (no TF32).
 2. Build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
    source, all at once) and print the build seconds and ptxas' report.
 3. Hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, and time kernel, plain version, ``torch.cdist``
-   (the library yardstick; the port never calls it) and the least time the
-   card could take (``bound_ms``).
-4. The main path: the SISAP colors configuration at paper size (101,414 x
-   112 corpus, 11,268 queries), index built for the card, all queries
-   through ``bss_query_batched(backend="cuda")`` in 512-query batches at
-   the three calibrated thresholds, with every launch count zeroed just
-   before and read just after.  Checked against the plain ``"torch"``
-   backend on the same card and the numpy oracle on 64 queries: a hit that
-   differs must lie within 1e-5 * max(1, t) of t in float64, an ``alive``
-   cell that differs must have its bound within 1e-5 of t.  One batch is
-   repeated for cosine.  Then four batches of each backend at the
-   narrowest and widest threshold run under ``torch.profiler`` and
-   ``cProfile``: device time per kernel, host time per operator and Python
-   function, and the device's idle share.
-5. One JSON line with every kernel's numbers, then the result line
+   main path's shapes, and time kernel, plain version, the library
+   yardstick where one PyTorch call computes the same function
+   (``torch.cdist`` for l2; the port never calls it; none for JSD and
+   Triangular) and the least time the card could take (``bound_ms``).
+   The masked JSD and Triangular tiles are checked after their range
+   paths, at the live-tile share those paths gave them.
+4. The range paths: the SISAP colors configuration at paper size (101,414
+   x 112 corpus, 11,268 queries), one index per metric built for the card,
+   all queries through ``bss_query_batched(backend="cuda")`` in 512-query
+   batches at the three thresholds calibrated per metric, under l2, JSD
+   and Triangular, with every launch count zeroed just before each
+   metric's run and read just after.  Checked against the plain
+   ``"torch"`` backend on the same card and the numpy oracle on 64
+   queries: a hit that differs must lie within 1e-5 * max(1, t) of t in
+   float64, an ``alive`` cell that differs must have its bound within 1e-5
+   of t.  One l2 batch is repeated for cosine.  Four batches of each
+   backend run under ``torch.profiler`` and ``cProfile`` (l2 at the
+   narrowest and widest threshold, JSD at the widest): device time per
+   kernel, host time per operator and Python function, and the device's
+   idle share.
+5. kNN (k = 10): all queries in 512-query batches through
+   ``bss_knn_batched`` under l2, JSD and Triangular on ``"cuda"`` and
+   ``"torch"``, plus one cosine batch; launch counts zeroed and read per
+   metric.  Ids must agree between backends and with a float64 brute force
+   on 64 queries, except where the two candidates' float64 distances lie
+   within 1e-5 of each other (or of the kth); a query whose distance count
+   differs between backends must have kth distances within 1e-5.  One
+   JSD batch of each backend is profiled.
+6. One JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -35,6 +49,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -48,10 +63,22 @@ SRC = ROOT / "src"
 # H100 SXM (NVIDIA data sheet): fp32 outside the tensor cores, HBM3 rate
 FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
+# fp32 operations per (i, j, k) of the JSD / Triangular tiles, an FFMA
+# counted as two, read off `cuobjdump -sass` of csrc/prob_dist.cu for
+# sm_90a (the inner loop: JSD about 11 FFMA and 15 other fp32 instructions,
+# logf inlined with no MUFU; Triangular about 5 FFMA and 8 others, the
+# IEEE division a MUFU.RCP with Newton steps and a fix-up check)
+JSD_OPS = 37
+TRI_OPS = 18
 
 BATCH = 512
 ORACLE_QUERIES = 64
+KNN_K = 10  # as benchmarks/bss_engine.py runs kNN
 RTOL = ATOL = 1e-5  # as tests/test_kernels.py holds the reference kernels
+# the reference's sweep of the unmasked JSD / Triangular tiles
+# (tests/test_kernels.py:91-124); the masked family is held at 1e-5
+PROB_RTOL, PROB_ATOL = 1e-4, 1e-5
+BAND = 1e-5  # fp32 summation order may move a distance this close to t
 
 
 def log(*args) -> None:
@@ -78,27 +105,58 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(torch, got, want) -> tuple[float, bool, bool]:
+def compare(torch, got, want, rtol=RTOL, atol=ATOL) -> tuple[float, bool, bool]:
     """(max abs error over finite entries, same +inf pattern, within
     rtol/atol)."""
     same_inf = bool(torch.equal(torch.isinf(got), torch.isinf(want)))
     fin = torch.isfinite(want)
     diff = (got[fin] - want[fin]).abs()
     err = float(diff.max()) if diff.numel() else 0.0
-    close = bool((diff <= ATOL + RTOL * want[fin].abs()).all())
+    close = bool((diff <= atol + rtol * want[fin].abs()).all())
     return err, same_inf, close
+
+
+def simplex(np, rng, n, k):
+    """(n, k) float32 probability rows like colour histograms: sparse gamma
+    draws with a third of the bins exactly zero and some at 1e-13 and 1e-9,
+    so the xlogx guard at 1e-12 and the x + y floor are exercised."""
+    x = rng.gamma(0.3, size=(n, k))
+    x[rng.random((n, k)) < 0.33] = 0.0
+    tiny = rng.random((n, k))
+    x[tiny < 0.05] = 1e-13
+    x[(tiny >= 0.05) & (tiny < 0.1)] = 1e-9
+    x[:, 0] += 1e-3  # no all-zero row
+    return (x / x.sum(axis=1, keepdims=True)).astype(np.float32)
 
 
 # the main path's shapes: a 512-query batch, 16 pivots, 112 dimensions,
 # 101,504 padded corpus rows in 793 blocks of 128, 24 planes, query tile 128
 MAIN_SHAPES = dict(q=512, p=16, k=112, n=101_504, m=24, b=793, bq=128, blk=128)
 
+# metric -> (unmasked C entry point, fp32 operations per (i, j, k))
+PROB = {"jsd": ("pairwise_jsd", JSD_OPS), "triangular": ("pairwise_tri", TRI_OPS)}
+SOURCE = {"pairwise_l2": "src/repro_torch/csrc/pairwise_dist.cu",
+          "pairwise_jsd": "src/repro_torch/csrc/prob_dist.cu",
+          "pairwise_tri": "src/repro_torch/csrc/prob_dist.cu"}
+# the pallas_call each tile replaces: pairwise_dist.py's unmasked and
+# masked calls, around _l2_tile_kernel, _jsd_tile_kernel (jsd_dist.py:50)
+# or _tri_tile_kernel (tri_dist.py:41)
+REPLACES = ("src/repro/kernels/pairwise_dist.py:140", "src/repro/kernels/pairwise_dist.py:168")
+
+
+def _row(failures, name, entry, masked, err, ok, **numbers) -> dict:
+    if not ok:
+        failures.append(f"{name} disagrees with its plain version (max abs err {err})")
+    return dict(name=name, route="cuda", source=SOURCE[entry],
+                replaces=REPLACES[int(masked)], max_abs_err=err, **numbers)
+
 
 def check_kernels(torch, np, failures: list, dev, shapes=MAIN_SHAPES) -> dict:
-    """Phase 3: every kernel against its plain version at main-path shapes."""
+    """Phase 3: every unmasked kernel and the masked l2 tile against its
+    plain version at main-path shapes."""
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import pairwise_dist as pdist
     from repro_torch.kernels import planar_exclusion as planar
-    from repro_torch.kernels import ref
 
     rng = np.random.default_rng(0)
     out = {}
@@ -113,16 +171,13 @@ def check_kernels(torch, np, failures: list, dev, shapes=MAIN_SHAPES) -> dict:
     want = ref.pairwise_l2_ref(x, piv)
     err, same_inf, close = compare(torch, got, want)
     nb, no = bound_ms(4 * (q * k + p * k + q * p), 2 * q * p * k + 2 * (q + p) * k + 4 * q * p)
-    out["pairwise_l2"] = dict(
-        name="pairwise_l2", route="cuda", source="src/repro_torch/csrc/pairwise_dist.cu",
-        replaces="src/repro/kernels/pairwise_dist.py:140", max_abs_err=err,
+    out["pairwise_l2"] = _row(
+        failures, "pairwise_l2", "pairwise_l2", False, err, same_inf and close,
         ms=time_ms(torch, lambda: pdist.pairwise_l2_kernel_call(x, piv), 200),
         plain_ms=time_ms(torch, lambda: ref.pairwise_l2_ref(x, piv), 200),
         bound_ms=nb, bound_by=no,
         library_ms=time_ms(torch, lambda: torch.cdist(x, piv), 200),
     )
-    if not (same_inf and close):
-        failures.append(f"pairwise_l2 disagrees with its plain version (max abs err {err})")
 
     # planar bound (Q x B), one degenerate plane and one padded block
     d1 = torch.as_tensor(np.abs(rng.normal(size=(q, m))).astype(np.float32) + 1.0, device=dev)
@@ -165,27 +220,93 @@ def check_kernels(torch, np, failures: list, dev, shapes=MAIN_SHAPES) -> dict:
     rows = int(mask_np.any(axis=1).sum()) * bq
     cols = int(mask_np.any(axis=0).sum()) * blk
     nb, no = bound_ms(4 * (rows * k + cols * k + q * n + mask_np.size), 2 * live * k)
-    out["masked_pairwise_l2"] = dict(
-        name="masked_pairwise_l2", route="cuda", source="src/repro_torch/csrc/pairwise_dist.cu",
-        replaces="src/repro/kernels/pairwise_dist.py:168", max_abs_err=err,
+    out["masked_pairwise_l2"] = _row(
+        failures, "masked_pairwise_l2", "pairwise_l2", True, err, same_inf and close,
         ms=time_ms(torch, lambda: pdist.masked_pairwise_l2_kernel_call(x, y, mask, bm=bq, bn=blk)),
         plain_ms=time_ms(torch, lambda: ref.masked_pairwise_l2_ref(x, y, mask, bq, blk)),
         bound_ms=nb, bound_by=no,
         library_ms=time_ms(torch, lambda: torch.cdist(x, y)),
     )
-    if not (same_inf and close):
-        failures.append(
-            f"masked_pairwise_l2 disagrees with its plain version "
-            f"(max abs err {err}, same inf pattern {same_inf})"
+
+    # JSD / Triangular query -> pivot tiles (Q x P) on simplex rows
+    xs, pivs = (torch.as_tensor(simplex(np, rng, r, k), device=dev) for r in (q, p))
+    for metric, (entry, ops_per) in PROB.items():
+        plain = ref.pairwise_jsd_ref if metric == "jsd" else ref.pairwise_tri_ref
+        got = pdist.pairwise_kernel_call(metric, xs, pivs)
+        err, same_inf, close = compare(torch, got, plain(xs, pivs), PROB_RTOL, PROB_ATOL)
+        nb, no = bound_ms(4 * (q * k + p * k + q * p), ops_per * q * p * k)
+        out[entry] = _row(
+            failures, entry, entry, False, err, same_inf and close,
+            ms=time_ms(torch, lambda: pdist.pairwise_kernel_call(metric, xs, pivs), 200),
+            plain_ms=time_ms(torch, lambda: plain(xs, pivs), 50),
+            bound_ms=nb, bound_by=no, library_ms=None,
         )
+
+    # the standalone JSD entry point (jsd_dist.py:91) at the exact phase's
+    # shapes: the same kernel as the query -> pivot tile, unmasked
+    ys = torch.as_tensor(simplex(np, rng, n, k), device=dev)
+    got = ops.pairwise_jsd(xs, ys)
+    err, same_inf, close = compare(torch, got, ref.pairwise_jsd_ref(xs, ys), PROB_RTOL, PROB_ATOL)
+    nb, no = bound_ms(4 * (q * k + n * k + q * n), JSD_OPS * q * n * k)
+    out["ops.pairwise_jsd"] = dict(
+        _row(failures, "ops.pairwise_jsd", "pairwise_jsd", False, err, same_inf and close,
+             ms=time_ms(torch, lambda: ops.pairwise_jsd(xs, ys), 10),
+             plain_ms=time_ms(torch, lambda: ref.pairwise_jsd_ref(xs, ys), 5),
+             bound_ms=nb, bound_by=no, library_ms=None),
+        replaces="src/repro/kernels/jsd_dist.py:91")
     for rec in out.values():
-        log(f"kernel {rec['name']}: max_abs_err {rec['max_abs_err']} ms {rec['ms']:.5f} "
-            f"plain_ms {rec['plain_ms']:.5f} library_ms {rec['library_ms']} "
-            f"bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']})")
+        log_kernel(rec)
     return out
 
 
-def boundary_hit_diffs(np, pairwise_np, corpus, queries, a, b, t) -> tuple[int, list]:
+def check_masked_prob(torch, np, failures: list, dev, live_share: dict,
+                      shapes=MAIN_SHAPES) -> dict:
+    """Phase 3, second half: the masked JSD / Triangular tiles at the
+    exact phase's shapes and at the live-tile share their range path ran
+    with (one all-dead tile row)."""
+    from repro_torch.kernels import pairwise_dist as pdist
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(1)
+    q, k, n, bq, blk = (shapes[s] for s in ("q", "k", "n", "bq", "blk"))
+    x = torch.as_tensor(simplex(np, rng, q, k), device=dev)
+    y = torch.as_tensor(simplex(np, rng, n, k), device=dev)
+    out = {}
+    for metric, (entry, ops_per) in PROB.items():
+        mask_np = rng.random((-(-q // bq), -(-n // blk))) < live_share[metric]
+        mask_np[1] = False
+        log(f"masked {metric}: live tile share {float(mask_np.mean()):.5f} (the range "
+            f"path's {live_share[metric]:.5f}, one of {mask_np.shape[0]} tile rows dead)")
+        mask = torch.as_tensor(mask_np, device=dev)
+        dense = ref.pairwise_jsd_ref if metric == "jsd" else ref.pairwise_tri_ref
+
+        def plain():
+            return ref.masked_pairwise_metric_ref(dense(x, y), mask, bq, blk)
+
+        got = pdist.masked_pairwise_kernel_call(metric, x, y, mask, bm=bq, bn=blk)
+        err, same_inf, close = compare(torch, got, plain())
+        live = int(mask_np.sum()) * bq * blk
+        rows = int(mask_np.any(axis=1).sum()) * bq
+        cols = int(mask_np.any(axis=0).sum()) * blk
+        nb, no = bound_ms(4 * (rows * k + cols * k + q * n + mask_np.size), ops_per * live * k)
+        out["masked_" + entry] = _row(
+            failures, "masked_" + entry, entry, True, err, same_inf and close,
+            ms=time_ms(torch, lambda: pdist.masked_pairwise_kernel_call(
+                metric, x, y, mask, bm=bq, bn=blk), 10),
+            plain_ms=time_ms(torch, plain, 5),
+            bound_ms=nb, bound_by=no, library_ms=None,
+        )
+        log_kernel(out["masked_" + entry])
+    return out
+
+
+def log_kernel(rec: dict) -> None:
+    log(f"kernel {rec['name']}: max_abs_err {rec['max_abs_err']} ms {rec['ms']:.5f} "
+        f"plain_ms {rec['plain_ms']:.5f} library_ms {rec['library_ms']} "
+        f"bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']})")
+
+
+def boundary_hit_diffs(np, pairwise_np, metric, corpus, queries, a, b, t) -> tuple[int, list]:
     """Hits in one list and not the other, and those of them farther than
     1e-5 * max(1, t) from t in float64 (which are faults)."""
     n_diff, bad = 0, []
@@ -197,8 +318,8 @@ def boundary_hit_diffs(np, pairwise_np, corpus, queries, a, b, t) -> tuple[int, 
             bad.append((qi, "order"))
             continue
         n_diff += len(diff)
-        d = pairwise_np("l2", queries[qi], corpus[diff])[0]
-        far = np.abs(d - t) > 1e-5 * max(1.0, t)
+        d = pairwise_np(metric, queries[qi], corpus[diff])[0]
+        far = np.abs(d - t) > BAND * max(1.0, t)
         bad += [(qi, i) for i, f in zip(diff, far) if f]
     return n_diff, bad
 
@@ -219,13 +340,13 @@ def run_queries(flat_index, EngineOpts, index, queries, t, backend):
     return hits, dists, excluded, tiles
 
 
-def profile_batches(torch, flat_index, EngineOpts, index, queries, t, backend,
-                    n_batches: int = 4) -> dict:
-    """Where the time of ``n_batches`` main-path batches goes: host wall
-    time without and with ``torch.profiler``; device time per kernel (the
-    device's own events, so an operator and its kernel are not counted
-    twice); host time per PyTorch operator and CUDA runtime call; and,
-    from a ``cProfile`` pass, host time per Python function."""
+def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dict:
+    """Where the time of ``n_batches`` main-path batches goes
+    (``batch_fn(queries)`` runs one): host wall time without and with
+    ``torch.profiler``; device time per kernel (the device's own events, so
+    an operator and its kernel are not counted twice); host time per
+    PyTorch operator and CUDA runtime call; and, from a ``cProfile`` pass,
+    host time per Python function."""
     import cProfile
     import pstats
     import re
@@ -239,7 +360,7 @@ def profile_batches(torch, flat_index, EngineOpts, index, queries, t, backend,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for qb in batches:
-            flat_index.bss_query_batched(index, qb, t, opts=EngineOpts(backend=backend))
+            batch_fn(qb)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
@@ -272,7 +393,7 @@ def profile_batches(torch, flat_index, EngineOpts, index, queries, t, backend,
     }
 
     return dict(
-        batches=n_batches, t=t, batch_ms=wall_ms / n_batches,
+        **tags, batches=n_batches, batch_ms=wall_ms / n_batches,
         traced_batch_ms=traced_ms / n_batches,
         device_busy_ms_per_batch=busy_ms / n_batches if device else "not measured",
         device_idle_share=1.0 - busy_ms / traced_ms if device else "not measured",
@@ -282,10 +403,29 @@ def profile_batches(torch, flat_index, EngineOpts, index, queries, t, backend,
     )
 
 
-def main_path(torch, np, failures: list, record: dict, dev, cfg=None,
-              backend: str = "cuda") -> dict:
-    """Phase 4: SISAP colors at paper size through the cuda backend."""
-    from repro_torch.configs.supermetric import SISAP_COLORS, build_index, load_corpus
+def expect_launches(failures: list, phase: str, counts: dict, want: dict) -> None:
+    """Every named count equals its expectation; every other count is 0."""
+    for name, got in counts.items():
+        if got != want.get(name, 0):
+            failures.append(f"{phase}: {name} launched {got} times, expected "
+                            f"{want.get(name, 0)} ({counts})")
+
+
+def load(np, cfg):
+    from repro_torch.configs.supermetric import load_corpus
+
+    t0 = time.perf_counter()
+    corpus, queries = load_corpus(cfg)
+    log(f"corpus {corpus.shape} queries {queries.shape} in {time.perf_counter() - t0:.2f} s")
+    return corpus, queries
+
+
+def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, metric: str,
+               cfg, backend: str = "cuda") -> dict:
+    """Phase 4 for one metric: SISAP colors at paper size through the cuda
+    backend.  Returns the metric's launch counts and its mean live-tile
+    share at the widest threshold."""
+    from repro_torch.configs.supermetric import build_index
     from repro_torch.core import flat_index
     from repro_torch.core.backends import EngineOpts
     from repro_torch.core.npdist import pairwise_np
@@ -293,19 +433,17 @@ def main_path(torch, np, failures: list, record: dict, dev, cfg=None,
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.tiles import TILE_BQ
 
-    cfg = cfg or SISAP_COLORS
-    t0 = time.perf_counter()
-    corpus, queries = load_corpus(cfg)
     corpus32, queries32 = corpus.astype(np.float32), queries.astype(np.float32)
-    log(f"corpus {corpus.shape} queries {queries.shape} in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    index = build_index(cfg, corpus, device=dev)
+    index = build_index(dataclasses.replace(cfg, metric=metric), corpus, device=dev)
     _ = index.device
     torch.cuda.synchronize()
-    log(f"build_bss: n_pad {index.data.shape[0]} blocks {index.n_blocks} "
+    log(f"build_bss {metric}: n_pad {index.data.shape[0]} blocks {index.n_blocks} "
         f"planes {index.pairs.shape[0]} in {time.perf_counter() - t0:.2f} s")
-    ts = [calibrate_threshold("l2", corpus, s) for s in cfg.selectivities]
-    log(f"thresholds (selectivity -> t): {dict(zip(cfg.selectivities, ts))}")
+    t0 = time.perf_counter()
+    ts = [calibrate_threshold(metric, corpus, s) for s in cfg.selectivities]
+    log(f"{metric} thresholds (selectivity -> t): {dict(zip(cfg.selectivities, ts))} "
+        f"in {time.perf_counter() - t0:.2f} s")
     nb = index.n_blocks
     nq = len(queries)
 
@@ -322,7 +460,12 @@ def main_path(torch, np, failures: list, record: dict, dev, cfg=None,
         torch.cuda.synchronize()
         cuda_runs.append((run, time.perf_counter() - t0))
     counts = launch_counts()
-    log(f"main path launch counts: {counts}")
+    log(f"{metric} range path launch counts: {counts}")
+    n_batches = -(-nq // BATCH)
+    entry = PROB[metric][0] if metric in PROB else "pairwise_l2"
+    per_form = len(ts) * n_batches
+    expect_launches(failures, f"{metric} range path", counts,
+                    {entry: per_form, "masked_" + entry: per_form, "planar_lower_bound": per_form})
 
     # bounds of both backends, to judge alive cells that differ
     mirror = index.device
@@ -331,15 +474,16 @@ def main_path(torch, np, failures: list, record: dict, dev, cfg=None,
     for name in (backend, "torch"):
         lb[name] = torch.cat([
             flat_index._fused_lower_bounds(
-                "l2", qe[s:s + BATCH], mirror.pivots, mirror.pairs, mirror.deltas,
+                metric, qe[s:s + BATCH], mirror.pivots, mirror.pairs, mirror.deltas,
                 mirror.boxes, backend=name,
             ) for s in range(0, nq, BATCH)
         ]).cpu().numpy()
 
     total_hits = 0
-    n_batches = -(-nq // BATCH)
     qtiles = sum(-(-min(BATCH, nq - s) // TILE_BQ) for s in range(0, nq, BATCH))
     n_pad, dim = index.data.shape
+    ops_per = PROB[metric][1] if metric in PROB else 2
+    live_share = 0.0
     for t, sel, ((hits, dists, excl, tiles), secs) in zip(ts, cfg.selectivities, cuda_runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -348,57 +492,74 @@ def main_path(torch, np, failures: list, record: dict, dev, cfg=None,
         plain_secs = time.perf_counter() - t0
         alive_c, alive_p = lb[backend] <= np.float32(t), lb["torch"] <= np.float32(t)
         alive_diff = alive_c != alive_p
-        bad_alive = int((np.abs(lb["torch"][alive_diff] - t) > 1e-5).sum())
+        bad_alive = int((np.abs(lb["torch"][alive_diff] - t) > BAND).sum())
         n_hit_diff, bad_hits = boundary_hit_diffs(
-            np, pairwise_np, corpus32, queries32, hits, p_hits, t)
+            np, pairwise_np, metric, corpus32, queries32, hits, p_hits, t)
+        t0 = time.perf_counter()
         o_hits, _ = flat_index.bss_query(index, queries[:ORACLE_QUERIES], t)
+        oracle_secs = time.perf_counter() - t0
         n_or_diff, bad_or = boundary_hit_diffs(
-            np, pairwise_np, corpus32, queries32, hits[:ORACLE_QUERIES], o_hits, t)
+            np, pairwise_np, metric, corpus32, queries32, hits[:ORACLE_QUERIES], o_hits, t)
         dists = np.concatenate(dists)
         excl = np.concatenate(excl)
         n_hits = sum(len(h) for h in hits)
+        live_share = sum(tiles) / (qtiles * nb)
         # the exact phase's least time per batch at this run's live tiles:
-        # queries, corpus and the (Q, n_pad) output once, 2 K flops per live
-        # distance (``bound_ms``)
+        # queries, corpus and the (Q, n_pad) output once, the tile's fp32
+        # operations per live distance (``bound_ms``)
         exact_bound, exact_by = bound_ms(
             4 * (nq * dim + n_batches * n_pad * dim + nq * n_pad) / n_batches,
-            2 * sum(tiles) * TILE_BQ * index.block * dim / n_batches,
+            ops_per * sum(tiles) * TILE_BQ * index.block * dim / n_batches,
         )
         row = dict(
             selectivity=sel, t=t, queries=nq, seconds=secs, queries_per_s=nq / secs,
             plain_torch_queries_per_s=nq / plain_secs, hits=n_hits,
             dists_per_query=float(dists.mean()),
             block_exclusion_rate=float(excl.sum() / (nq * nb)),
-            tile_exclusion_rate=1.0 - sum(tiles) / (qtiles * nb),
+            tile_exclusion_rate=1.0 - live_share,
             exact_phase_bound_ms_per_batch=exact_bound, exact_phase_bound_by=exact_by,
             alive_boundary_diffs=int(alive_diff.sum()),
             hit_boundary_diffs_vs_torch=n_hit_diff,
-            hit_boundary_diffs_vs_oracle=n_or_diff,
+            hit_boundary_diffs_vs_oracle=n_or_diff, oracle_seconds=oracle_secs,
         )
-        record.setdefault("l2", []).append(row)
-        log("main path l2 " + json.dumps(row))
+        record.setdefault(metric, []).append(row)
+        log(f"main path {metric} " + json.dumps(row))
         if bad_alive or bad_hits or bad_or:
             failures.append(
-                f"t={t}: {bad_alive} alive cells and {len(bad_hits) + len(bad_or)} "
+                f"{metric} t={t}: {bad_alive} alive cells and {len(bad_hits) + len(bad_or)} "
                 f"hits differ away from the threshold: {(bad_hits + bad_or)[:10]}"
             )
         if not np.isfinite(dists).all():
-            failures.append(f"t={t}: non-finite distance counts")
+            failures.append(f"{metric} t={t}: non-finite distance counts")
         total_hits += n_hits
 
     if total_hits == 0:
-        failures.append("the main path found no hits at any threshold")
+        failures.append(f"the {metric} range path found no hits at any threshold")
 
     try:  # a failed profile fails the run but keeps the checks above
-        for t in (ts[0], ts[-1]):
+        for t in ((ts[0], ts[-1]) if metric == "l2" else (ts[-1],)):
             for name in (backend, "torch"):
-                prof = profile_batches(torch, flat_index, EngineOpts, index, queries, t, name)
-                log(f"profile {name} " + json.dumps(prof))
+                prof = profile_batches(
+                    torch, lambda qb: flat_index.bss_query_batched(
+                        index, qb, t, opts=EngineOpts(backend=name)), queries, t=t)
+                log(f"profile {metric} range {name} " + json.dumps(prof))
     except Exception:
-        failures.append(f"phase profile raised:\n{traceback.format_exc()}")
+        failures.append(f"phase profile {metric} raised:\n{traceback.format_exc()}")
 
-    # cosine: one batch on its own index, at the widest selectivity
+    if metric == "l2":
+        cosine_batch(np, failures, record, dev, corpus, queries32, cfg, backend)
+    return dict(counts=counts, live_share=live_share)
+
+
+def cosine_batch(np, failures, record, dev, corpus, queries32, cfg, backend) -> None:
+    """One cosine range batch on its own index, at the widest selectivity."""
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.core.npdist import pairwise_np
+    from repro_torch.data.metricsets import calibrate_threshold
+
     t0 = time.perf_counter()
+    corpus32 = corpus.astype(np.float32)
     cindex = flat_index.build_bss("cosine", corpus, cfg.n_pivots, cfg.n_pairs, cfg.block,
                                   device=dev)
     tc = calibrate_threshold("cosine", corpus, max(cfg.selectivities))
@@ -408,9 +569,9 @@ def main_path(torch, np, failures: list, record: dict, dev, cfg=None,
     o_hits, _ = flat_index.bss_query(cindex, qb[:ORACLE_QUERIES], tc)
     unit = qb / np.maximum(np.linalg.norm(qb, axis=1, keepdims=True), 1e-12)
     cunit = corpus32 / np.maximum(np.linalg.norm(corpus32, axis=1, keepdims=True), 1e-12)
-    n_cd, bad_c = boundary_hit_diffs(np, pairwise_np, cunit, unit, c_hits, p_hits, tc)
-    n_co, bad_co = boundary_hit_diffs(np, pairwise_np, cunit, unit, c_hits[:ORACLE_QUERIES],
-                                      o_hits, tc)
+    n_cd, bad_c = boundary_hit_diffs(np, pairwise_np, "l2", cunit, unit, c_hits, p_hits, tc)
+    n_co, bad_co = boundary_hit_diffs(np, pairwise_np, "l2", cunit, unit,
+                                      c_hits[:ORACLE_QUERIES], o_hits, tc)
     row = dict(t=tc, queries=len(qb), hits=sum(len(h) for h in c_hits),
                dists_per_query=c_st["dists_per_query"],
                block_exclusion_rate=c_st["block_exclusion_rate"],
@@ -420,6 +581,123 @@ def main_path(torch, np, failures: list, record: dict, dev, cfg=None,
     log("cosine batch " + json.dumps(row))
     if bad_c or bad_co or row["hits"] == 0:
         failures.append(f"cosine: hits differ away from the threshold: {(bad_c + bad_co)[:10]}")
+
+
+def knn_id_diffs(np, pairwise_np, metric, corpus, queries, ids_a, ids_b) -> tuple[int, list]:
+    """Queries whose id lists differ, and the faults among them: a position
+    where the two lists hold different ids is allowed only when the ids'
+    float64 distances lie within 1e-5 of each other, or both within 1e-5
+    of the query's kth distance."""
+    n_diff, bad = 0, []
+    for qi in np.nonzero((ids_a != ids_b).any(axis=1))[0]:
+        n_diff += 1
+        a, b = ids_a[qi], ids_b[qi]
+        if (a < 0).any() or (b < 0).any():
+            bad.append((int(qi), "padding"))
+            continue
+        da = pairwise_np(metric, queries[qi], corpus[a])[0]
+        db = pairwise_np(metric, queries[qi], corpus[b])[0]
+        kth = max(da.max(), db.max())
+        tol = BAND * max(1.0, kth)
+        for pos in np.nonzero(a != b)[0]:
+            near = abs(da[pos] - db[pos]) <= tol
+            at_kth = abs(da[pos] - kth) <= tol and abs(db[pos] - kth) <= tol
+            if not (near or at_kth):
+                bad.append((int(qi), int(pos), float(da[pos]), float(db[pos])))
+    return n_diff, bad
+
+
+def brute_force_knn(np, pairwise_np, metric, corpus, queries, k, chunk=8192):
+    """(Q, k) ids of the float64 brute force, by ascending distance (lowest
+    id first on ties), over corpus chunks: 64 x 101,414 x 112 float64 is
+    5.8 GB per intermediate whole."""
+    d = np.concatenate([pairwise_np(metric, queries, corpus[s:s + chunk])
+                        for s in range(0, len(corpus), chunk)], axis=1)
+    return np.argsort(d, axis=1, kind="stable")[:, :k]
+
+
+def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metric: str,
+             cfg, backend: str = "cuda", n_queries: int | None = None) -> dict:
+    """Phase 5 for one metric: kNN (k = 10) over the queries in 512-query
+    batches on the cuda backend, held to the torch backend and a float64
+    brute force.  Returns the metric's launch counts."""
+    from repro_torch.configs.supermetric import build_index
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.core.npdist import pairwise_np
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    queries = queries[:n_queries] if n_queries else queries
+    corpus32, queries32 = corpus.astype(np.float32), queries.astype(np.float32)
+    t0 = time.perf_counter()
+    index = build_index(dataclasses.replace(cfg, metric=metric), corpus, device=dev)
+    _ = index.device
+    log(f"build_bss {metric} for kNN in {time.perf_counter() - t0:.2f} s")
+    nq = len(queries)
+
+    def run(name):
+        ids, dists, rounds, per_query = [], [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(0, nq, BATCH):
+            i, d, st = flat_index.bss_knn_batched(
+                index, queries[s:s + BATCH], KNN_K, opts=EngineOpts(backend=name))
+            ids.append(i)
+            dists.append(d)
+            rounds.append(st["rounds"])
+            per_query.append(st["per_query_dists"])
+        torch.cuda.synchronize()
+        return (np.concatenate(ids), np.concatenate(dists), rounds, np.concatenate(per_query),
+                time.perf_counter() - t0)
+
+    flat_index.bss_knn_batched(index, queries[:BATCH], KNN_K, opts=EngineOpts(backend=backend))
+    reset_launch_counts()
+    ids, dists, rounds, per_query, secs = run(backend)
+    counts = launch_counts()
+    entry = PROB[metric][0] if metric in PROB else "pairwise_l2"
+    expect_launches(failures, f"{metric} kNN", counts,
+                    {entry: len(rounds), "planar_lower_bound": len(rounds),
+                     "masked_" + entry: sum(rounds)})
+    p_ids, p_dists, p_rounds, p_per_query, p_secs = run("torch")
+
+    space = metric
+    if metric == "cosine":  # the engine's space: the unit sphere under l2
+        space = "l2"
+        corpus32 = corpus32 / np.maximum(np.linalg.norm(corpus32, axis=1, keepdims=True), 1e-12)
+        queries32 = queries32 / np.maximum(np.linalg.norm(queries32, axis=1, keepdims=True), 1e-12)
+    n_diff, bad = knn_id_diffs(np, pairwise_np, space, corpus32, queries32, ids, p_ids)
+    count_diff = np.nonzero(per_query != p_per_query)[0]
+    kth, p_kth = dists[:, -1], p_dists[:, -1]
+    bad_counts = [int(i) for i in count_diff
+                  if abs(kth[i] - p_kth[i]) > BAND * max(1.0, float(p_kth[i]))]
+    t0 = time.perf_counter()
+    truth = brute_force_knn(np, pairwise_np, space, corpus32, queries32[:ORACLE_QUERIES], KNN_K)
+    n_or_diff, bad_or = knn_id_diffs(np, pairwise_np, space, corpus32, queries32,
+                                     ids[:ORACLE_QUERIES], truth)
+    row = dict(
+        k=KNN_K, queries=nq, batches=len(rounds), seconds=secs, queries_per_s=nq / secs,
+        plain_torch_queries_per_s=nq / p_secs,
+        rounds_per_batch=rounds, plain_torch_rounds_per_batch=p_rounds,
+        dists_per_query=float(per_query.mean()),
+        plain_torch_dists_per_query=float(p_per_query.mean()),
+        count_diff_queries=len(count_diff), id_diff_queries_vs_torch=n_diff,
+        id_diff_queries_vs_oracle=n_or_diff, oracle_seconds=time.perf_counter() - t0,
+        finite=bool(np.isfinite(dists).all()),
+    )
+    record.setdefault("knn", {})[metric] = row
+    log(f"knn {metric} " + json.dumps(row))
+    if bad or bad_or or bad_counts or not row["finite"]:
+        failures.append(f"kNN {metric}: ids differ away from ties {(bad + bad_or)[:10]}, "
+                        f"counts differ with kth apart {bad_counts[:10]}, finite {row['finite']}")
+    if metric == "jsd":
+        try:
+            for name in (backend, "torch"):
+                prof = profile_batches(
+                    torch, lambda qb: flat_index.bss_knn_batched(
+                        index, qb, KNN_K, opts=EngineOpts(backend=name)), queries, 1, k=KNN_K)
+                log(f"profile jsd knn {name} " + json.dumps(prof))
+        except Exception:
+            failures.append(f"phase profile jsd knn raised:\n{traceback.format_exc()}")
     return counts
 
 
@@ -453,32 +731,60 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise RuntimeError("TF32 is still enabled")
 
+    from repro_torch.configs.supermetric import SISAP_COLORS
     from repro_torch.kernels import _build
 
     failures: list[str] = []
-    t0 = time.perf_counter()
+    start = time.perf_counter()
     secs = _build.build()
     log(f"build: {len(_build.SOURCES)} sources in {secs:.2f} s "
-        f"(phase {time.perf_counter() - t0:.2f} s)")
+        f"(phase {time.perf_counter() - start:.2f} s)")
     for name in _build.SOURCES:
         for line in _build.compiler_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    kernels, record = {}, {}
+    kernels, record, paths = {}, {}, {}
     dev = torch.device("cuda")
-    for phase, fn in (("kernels", lambda: kernels.update(check_kernels(torch, np, failures, dev))),
-                      ("main path", lambda: record.update(
-                          counts=main_path(torch, np, failures, record, dev)))):
+    data = {}
+
+    def range_phase(metric):
+        paths[metric] = range_path(torch, np, failures, record, dev, *data["colors"],
+                                   metric, SISAP_COLORS)
+
+    def knn_phase():
+        for metric in ("l2", "jsd", "triangular"):
+            knn_path(torch, np, failures, record, dev, *data["colors"], metric, SISAP_COLORS)
+        knn_path(torch, np, failures, record, dev, *data["colors"], "cosine", SISAP_COLORS,
+                 n_queries=BATCH)
+
+    phases = (
+        ("kernels", lambda: kernels.update(check_kernels(torch, np, failures, dev))),
+        ("corpus", lambda: data.update(colors=load(np, SISAP_COLORS))),
+        ("range l2", lambda: range_phase("l2")),
+        ("range jsd", lambda: range_phase("jsd")),
+        ("range triangular", lambda: range_phase("triangular")),
+        ("masked prob kernels", lambda: kernels.update(check_masked_prob(
+            torch, np, failures, dev,
+            {m: paths[m]["live_share"] for m in PROB}))),
+        ("knn", knn_phase),
+    )
+    for phase, fn in phases:
+        t0 = time.perf_counter()
         try:
             fn()
         except Exception:  # report every phase, then fail
             failures.append(f"phase {phase} raised:\n{traceback.format_exc()}")
-    counts = record.get("counts", {})
+        log(f"phase {phase}: {time.perf_counter() - t0:.2f} s")
+
+    # launches of each kernel on its own metric's range path
     for name, rec in kernels.items():
-        rec["launches"] = int(counts.get(name, 0))
+        entry = "pairwise_jsd" if name == "ops.pairwise_jsd" else name
+        metric = next((m for m, (e, _) in PROB.items() if entry.endswith(e)), "l2")
+        rec["launches"] = int(paths.get(metric, {}).get("counts", {}).get(entry, 0))
         if rec["launches"] <= 0:
             failures.append(f"kernel {name} was not launched on the main path")
+    log(f"total: {time.perf_counter() - start:.2f} s")
     log(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}))
     if failures:
         for f in failures:

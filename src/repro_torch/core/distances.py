@@ -11,6 +11,9 @@ registry.
 On a CUDA device a float32 matmul must stay IEEE float32: TF32 would move
 distances by ~1e-3 relative and shift hits that sit near a threshold.
 ``check_ieee_fp32`` refuses to run with TF32 matmuls enabled.
+
+The broadcast metrics (jsd, triangular, l1, linf) evaluate ``y`` in column
+chunks whose (n, chunk, K) transient stays within ``PAIRWISE_CHUNK_BYTES``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ __all__ = [
     "l1",
     "linf",
     "power_transform",
+    "PAIRWISE_CHUNK_BYTES",
+    "pair_chunk_cols",
 ]
 
 _EPS = 1e-12
@@ -95,37 +100,79 @@ def _xlogx(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v > _EPS, v * torch.log(torch.clamp_min(v, _EPS)), 0.0)
 
 
-def _jsd_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Jensen-Shannon distance (sqrt of the base-2 JS divergence) over
-    probability vectors; broadcast over pairs like the reference."""
+# the most bytes one (n, chunk, K) float32 transient of the broadcast
+# metrics (jsd, triangular, l1, linf) may take: they run over column
+# chunks of ``y`` so a (512, 101,504, 112) call -- the exact phase of a
+# 512-query batch at the paper's colors size, 23.3 GB per transient if
+# broadcast whole -- fits on the card
+PAIRWISE_CHUNK_BYTES = 256 * 2**20
+
+
+def pair_chunk_cols(n: int, m: int, k: int) -> int:
+    """Columns of ``y`` per pass so that an (n, cols, K) float32 transient
+    stays within ``PAIRWISE_CHUNK_BYTES`` (at least one column)."""
+    return max(1, min(m, PAIRWISE_CHUNK_BYTES // max(1, 4 * n * k)))
+
+
+def _broadcast_pairwise(
+    body: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    x: torch.Tensor,
+    y: torch.Tensor,
+) -> torch.Tensor:
+    """(n, K), (m, K) -> (n, m): ``body`` on the (n, 1, K) and (1, cols, K)
+    broadcast, one chunk of ``y`` rows at a time.  Every element keeps its
+    arithmetic and order; only the columns per pass change."""
     x = x.float()[:, None, :]
-    y = y.float()[None, :, :]
+    y = y.float()
+    n, m, k = x.shape[0], y.shape[0], y.shape[1]
+    cols = pair_chunk_cols(n, m, k)
+    if cols >= m:
+        return body(x, y[None, :, :])
+    out = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    for s in range(0, m, cols):
+        out[:, s:s + cols] = body(x, y[None, s:s + cols, :])
+    return out
+
+
+def _jsd_body(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     m = 0.5 * (x + y)
     js = torch.sum(0.5 * _xlogx(x) + 0.5 * _xlogx(y) - _xlogx(m), dim=-1)
     js = torch.clamp_min(js, 0.0) / math.log(2.0)
     return torch.sqrt(js)
 
 
-def _triangular_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Triangular distance ``sqrt(0.5 * sum (x-y)^2 / (x+y))`` over
-    probability vectors."""
-    x = x.float()[:, None, :]
-    y = y.float()[None, :, :]
+def _triangular_body(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     num = (x - y) ** 2
     den = torch.clamp_min(x + y, _EPS)
     return torch.sqrt(torch.clamp_min(0.5 * torch.sum(num / den, dim=-1), 0.0))
 
 
-def _l1_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    x = x.float()[:, None, :]
-    y = y.float()[None, :, :]
+def _l1_body(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.abs(x - y), dim=-1)
 
 
-def _linf_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    x = x.float()[:, None, :]
-    y = y.float()[None, :, :]
+def _linf_body(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.amax(torch.abs(x - y), dim=-1)
+
+
+def _jsd_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Jensen-Shannon distance (sqrt of the base-2 JS divergence) over
+    probability vectors; the per-k sum of the reference registry."""
+    return _broadcast_pairwise(_jsd_body, x, y)
+
+
+def _triangular_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Triangular distance ``sqrt(0.5 * sum (x-y)^2 / (x+y))`` over
+    probability vectors."""
+    return _broadcast_pairwise(_triangular_body, x, y)
+
+
+def _l1_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return _broadcast_pairwise(_l1_body, x, y)
+
+
+def _linf_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return _broadcast_pairwise(_linf_body, x, y)
 
 
 l2 = Metric("l2", _l2_pairwise, four_point=True)

@@ -1,6 +1,7 @@
 """Blocked Supermetric Scan (BSS) — the port of ``repro.core.flat_index``:
-fp32 range search for every four-point metric, with the l2 kernels (and
-cosine, served as l2 on the unit sphere) on the H100.
+fp32 range search and kNN for every four-point metric, with the l2, JSD and
+Triangular kernels (and cosine, served as l2 on the unit sphere) on the
+H100.
 
 build:  ``build_bss`` is the reference's host numpy build, carried over as
         is (FFT pivots, the widest pivot-pair planes, a median-split
@@ -17,13 +18,17 @@ query:  ``bss_query_batched`` runs one pass per batch on the device:
         With ``backend="cuda"`` the three steps are the hand-written
         kernels; with ``"torch"`` the same math in plain torch ops.
 
+knn:    ``bss_knn_batched`` runs the same pieces as radius-deepening rounds
+        with a stable top-k, driven by the reference's host radius
+        schedule step for step (dense rounds on both backends).
+
 ``bss_query`` is the reference's numpy oracle (float64 exact phase), kept
 as the correctness check both backends are held to.
 
 Device rule: ``build_bss(device=None)`` builds for the CUDA device and
 raises when there is none; the CPU is used only when the caller asks for
-it.  Not in this slice (ROADMAP.md): kNN, sharding (``mesh``), the bf16
-exact phase, the maintenance path, and CUDA kernels for jsd/triangular.
+it.  Not ported yet (ROADMAP.md): sharding (``mesh``), the bf16 exact
+phase, the reference's cell-gather realisations and the maintenance path.
 Power transforms keep the reference's rule: with no tile kernel their
 distances run as plain pairwise on either backend.
 """
@@ -62,6 +67,7 @@ __all__ = [
     "index_from_arrays",
     "bss_query",
     "bss_query_batched",
+    "bss_knn_batched",
     "bss_lower_bounds",
     "resolve_device",
 ]
@@ -70,10 +76,6 @@ _DEFAULT_BQ = TILE_BQ
 
 # normalisation floor of the cosine -> l2 mapping (the cosine metric's own)
 _MIN_NORM = 1e-12
-
-# metrics whose reference engine runs a tile kernel this slice has not
-# ported: on the cuda backend they raise instead of running plain
-_UNPORTED_KERNEL_METRICS = ("jsd", "triangular")
 
 # the fields ``index_from_arrays`` takes, as the reference BSSIndex names them
 INDEX_FIELDS = (
@@ -593,11 +595,6 @@ def bss_query_batched(
     bq = opts.bq if opts.bq is not None else _DEFAULT_BQ
     backend = resolve_backend(opts.backend, index.torch_device)
     metric_eng = _engine_metric(index.metric_name)
-    if backend == "cuda" and metric_eng in _UNPORTED_KERNEL_METRICS:
-        raise NotImplementedError(
-            f"no CUDA kernel for {metric_eng!r} yet (ROADMAP Queue 2 items "
-            f"4-5); use backend='torch'"
-        )
     queries = _engine_queries(index.metric_name, np.asarray(queries, np.float32))
     nq = queries.shape[0]
     if nq == 0:
@@ -631,3 +628,228 @@ def bss_query_batched(
     stats = _batched_stats(index, alive.cpu().numpy(), tile_mask.cpu().numpy())
     stats["precision"] = "fp32"
     return results, _finish_stats(stats, kind="range", backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# kNN
+# ---------------------------------------------------------------------------
+
+
+def _knn_round(
+    metric_name: str,
+    queries: torch.Tensor,
+    radii: torch.Tensor,
+    lb: torch.Tensor,
+    dev: BSSDeviceArrays,
+    *,
+    k: int,
+    block: int,
+    bq: int,
+    backend: str,
+):
+    """One radius-deepening round over all queries (the reference's dense
+    ``_knn_round_jit``).  ``lb`` is the radius-independent (Q, B) bound
+    matrix.  Returns (cand_idx (Q, k) positions in the permuted layout,
+    cand_dist (Q, k) ascending, kth (Q,), done (Q,), alive (Q, B)).
+
+    The top-k is a stable sort and a slice: on equal distances the lowest
+    position comes first, as ``jax.lax.top_k`` gives it (``torch.topk``
+    promises no order).  ``done`` is sound: if the kth computed distance is
+    <= the query's radius, every unevaluated point lies in a block whose
+    bound exceeds the radius; if every block was alive, nothing is
+    unevaluated."""
+    alive = lb <= radii[:, None]
+    tile_mask = tile_survival(alive, bq)
+    dist = _masked_exact_dists(
+        metric_name, queries, dev.data, dev.valid, tile_mask,
+        backend=backend, block=block, bq=bq,
+    )  # (Q, n_pad), +inf where pruned or padding
+    cand_dist, cand_idx = torch.sort(dist, dim=1, stable=True)
+    cand_dist, cand_idx = cand_dist[:, :k], cand_idx[:, :k]
+    kth = cand_dist[:, -1]
+    done = torch.isfinite(kth) & ((kth <= radii) | alive.all(dim=1))
+    return cand_idx, cand_dist, kth, done, alive
+
+
+def _tiles_computed(alive: np.ndarray, bq: int) -> int:
+    """Live (query tile x block) cells of a (Q, B) survival matrix, on the
+    host (``tile_survival``'s rule)."""
+    nq, nb = alive.shape
+    qtiles = -(-nq // bq)
+    pad = np.zeros((qtiles * bq - nq, nb), bool)
+    return int(np.concatenate([alive, pad]).reshape(qtiles, bq, nb).any(axis=1).sum())
+
+
+def _knn_empty_stats(index: BSSIndex, nq: int, backend: str) -> dict:
+    """Stats of the kNN early returns (no queries, or no valid corpus
+    point): zero rounds, zero work."""
+    stats = {
+        "rounds": 0, "pivot_dists_per_query": 0.0,
+        "exact_dists_per_query": 0.0, "dists_per_query": 0.0,
+        "per_query_dists": np.zeros(nq, np.int64),
+        "tiles_computed": 0, "n_blocks": int(index.n_blocks),
+        "generation": int(index.generation),
+        "precision": "fp32",
+        "excluded": {"hilbert": np.zeros(nq, np.int64)},
+    }
+    return _finish_stats(stats, kind="knn", backend=backend)
+
+
+def bss_knn_batched(
+    index: BSSIndex,
+    queries: np.ndarray,
+    k: int,
+    *,
+    r0: float | None = None,
+    growth: float = 2.0,
+    max_rounds: int = 8,
+    opts: EngineOpts | None = None,
+    bq: int | None = None,
+    backend: str | None = None,
+    realisation: str | None = None,
+    precision: str | None = None,
+) -> tuple[np.ndarray, np.ndarray, dict]:
+    """Exact batched kNN: the range-search reduction run as
+    radius-deepening rounds over all queries at once, on the index's
+    device.  Options travel as in ``bss_query_batched``; ``r0`` /
+    ``growth`` / ``max_rounds`` are the radius schedule.
+
+    The host driver follows the reference (``repro.core.flat_index.
+    bss_knn_batched``) step for step, so radii, rounds and per-query
+    distance counts match it:
+
+    * the (Q, B) bounds are computed once through the backend; the sorted
+      host copy sets each query's initial radius, the ceil(2k/block)-th
+      smallest bound (or ``r0``), and the widening schedule;
+    * each round keeps the blocks with bound <= radius, computes their
+      exact distances and takes a stable top-k; a query is finished when
+      its kth distance is finite and within its radius (or every block was
+      alive) — its result is then frozen and its radius set to -1;
+    * an unfinished query tightens to its kth so far and widens to the
+      radius that at least doubles its surviving blocks (``growth`` x the
+      radius at least); one with more than half the blocks alive, and every
+      query left after ``max_rounds``, runs one exhaustive round.
+
+    Each round runs the dense masked exact phase (the reference's
+    ``realisation="dense"``) on both backends; only the (Q, k) candidates,
+    ``kth``, ``done`` and ``alive`` come back to the host.
+
+    Returns (ids (Q, k) original ids by ascending distance, -1 where the
+    corpus holds fewer than k valid points; dists (Q, k) float32, +inf
+    there; stats with ``kind="knn"``)."""
+    opts = resolve_engine_opts(
+        opts, bq=bq, backend=backend, realisation=realisation,
+        precision=precision,
+    )
+    if opts.precision == "bf16":
+        raise NotImplementedError(
+            "the bf16 exact phase is not ported yet: ROADMAP Queue 1 item 5"
+        )
+    bq = opts.bq if opts.bq is not None else _DEFAULT_BQ
+    backend = resolve_backend(opts.backend, index.torch_device)
+    metric_eng = _engine_metric(index.metric_name)
+    queries = _engine_queries(index.metric_name, np.asarray(queries, np.float32))
+    nq = queries.shape[0]
+    k = int(k)
+    if k <= 0:
+        raise ValueError(f"k must be positive, got {k}")
+    if nq == 0:
+        return (
+            np.zeros((0, k), np.int64),
+            np.zeros((0, k), np.float32),
+            _knn_empty_stats(index, 0, backend),
+        )
+    # clamp to the VALID corpus size: with k_run > n_valid the kth distance
+    # would stay inf and no round could finish early
+    k_run = min(k, index.n_valid)
+    if k_run == 0:
+        return (
+            np.full((nq, k), -1, np.int64),
+            np.full((nq, k), np.inf, np.float32),
+            _knn_empty_stats(index, nq, backend),
+        )
+    dev = index.device
+    q_dev = torch.as_tensor(queries, device=index.torch_device)
+    lb_dev = _fused_lower_bounds(
+        metric_eng, q_dev, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
+        backend=backend,
+    )
+    lb_np = lb_dev.cpu().numpy()
+    lb_sorted = np.sort(lb_np, axis=1)
+    n_blocks = index.n_blocks
+    if r0 is None:
+        j0 = min(n_blocks - 1, max(0, math.ceil(2 * k / index.block) - 1))
+        radii = lb_sorted[:, j0].astype(np.float32)
+    else:
+        radii = np.full(nq, float(r0), np.float32)
+
+    valid_pb = _valid_per_block(index)
+    total_exact = np.zeros(nq, np.int64)
+    excl_pq = np.zeros(nq, np.int64)
+    tiles_total = 0
+    done = np.zeros(nq, bool)
+    cand_idx = np.full((nq, k_run), 0, np.int64)
+    cand_dist = np.full((nq, k_run), np.inf, np.float32)
+    rounds = 0
+    for rounds in range(1, max_rounds + 2):
+        if rounds == max_rounds + 1:
+            # exhaustive fallback for stragglers: radius inf computes every
+            # block, so this round is final for them
+            radii = np.where(done, radii, np.inf).astype(np.float32)
+        ci, cd, kth, dn, alive = (
+            a.cpu().numpy() for a in _knn_round(
+                metric_eng, q_dev, torch.as_tensor(radii, device=index.torch_device),
+                lb_dev, dev, k=k_run, block=index.block, bq=bq, backend=backend,
+            )
+        )
+        upd = ~done  # finished queries are frozen
+        cand_idx[upd] = ci[upd]
+        cand_dist[upd] = cd[upd]
+        total_exact[upd] += alive[upd].astype(np.int64) @ valid_pb
+        excl_pq[upd] += n_blocks - alive[upd].sum(axis=1)
+        tiles_total += _tiles_computed(alive, bq)
+        done = done | dn
+        if done.all():
+            break
+        # widen to the radius that at least doubles the surviving blocks,
+        # tighten to the kth so far where k candidates are held
+        n_alive = alive.sum(axis=1)
+        j_next = np.minimum(
+            n_blocks - 1,
+            np.maximum(np.maximum(2 * n_alive, n_alive + 1), 1),
+        )
+        widened = np.maximum(lb_sorted[np.arange(nq), j_next], radii * growth)
+        # finished queries get a negative radius: lb >= 0, so their rows
+        # leave the remaining rounds
+        radii = np.where(
+            done, np.float32(-1.0),
+            np.where(np.isfinite(kth), np.minimum(kth, widened), widened),
+        ).astype(np.float32)
+        # most blocks already alive: finish exhaustively
+        radii = np.where(
+            ~done & (n_alive > n_blocks // 2), np.float32(np.inf), radii
+        )
+
+    n_pivots = index.pivots.shape[0]
+    stats = {
+        "rounds": rounds,
+        "pivot_dists_per_query": float(n_pivots),
+        "exact_dists_per_query": float(total_exact.mean()),
+        "dists_per_query": float(n_pivots + total_exact.mean()),
+        "per_query_dists": n_pivots + total_exact,
+        "tiles_computed": tiles_total,
+        "n_blocks": int(index.n_blocks),
+        "generation": int(index.generation),
+        "precision": "fp32",
+        # rounds x blocks the Hilbert bound pruned from the exact phase,
+        # per query over its unfinished rounds only
+        "excluded": {"hilbert": excl_pq},
+    }
+    stats = _finish_stats(stats, kind="knn", backend=backend)
+    orig = np.where(np.isfinite(cand_dist), index.perm[cand_idx], -1)
+    if k_run < k:  # corpus smaller than k: pad out to the requested width
+        orig = np.pad(orig, ((0, 0), (0, k - k_run)), constant_values=-1)
+        cand_dist = np.pad(
+            cand_dist, ((0, 0), (0, k - k_run)), constant_values=np.inf
+        )
+    return orig, cand_dist, stats

@@ -30,16 +30,18 @@ __all__ = ["SOURCES", "build", "library", "check", "compiler_log"]
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-SOURCES = ("pairwise_dist", "planar_exclusion")
+SOURCES = ("pairwise_dist", "planar_exclusion", "prob_dist")
 
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 # the planar bound must equal its plain version bit for bit: no FMA
-# contraction of d1*d1 - d2*d2 or dx*dx + dy*dy (never --use_fast_math:
-# sqrtf and division stay IEEE)
-_EXTRA_FLAGS = {"planar_exclusion": ("-fmad=false",)}
+# contraction of d1*d1 - d2*d2 or dx*dx + dy*dy; the JSD / Triangular
+# tiles round every product as their plain versions do (never
+# --use_fast_math anywhere: sqrtf, logf and division stay IEEE and fp32
+# denormals are kept)
+_EXTRA_FLAGS = {"planar_exclusion": ("-fmad=false",), "prob_dist": ("-fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,8 +1,11 @@
 """Public entry points of the port's kernels — the port of
-``repro.kernels.ops``: short aliases and ``bss_query_fused``, the BSS range
-query composed from the three kernels."""
+``repro.kernels.ops``: short aliases (``pairwise_jsd`` / ``pairwise_tri``
+are the JSD and Triangular tiles of the metric-dispatched family) and
+``bss_query_fused``, the BSS range query composed from the kernels."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -24,6 +27,8 @@ __all__ = [
     "KERNEL_METRICS",
     "planar_lower_bound",
     "bss_query_fused",
+    "pairwise_jsd",
+    "pairwise_tri",
 ]
 
 pairwise_l2 = pairwise_l2_kernel_call
@@ -31,6 +36,10 @@ masked_pairwise_l2 = masked_pairwise_l2_kernel_call
 pairwise_metric = pairwise_kernel_call
 masked_pairwise_metric = masked_pairwise_kernel_call
 planar_lower_bound = planar_lower_bound_kernel_call
+# the reference's standalone JSD call (jsd_dist.py:91) computes the same
+# function as its dispatched tile, so both run the one JSD kernel
+pairwise_jsd = functools.partial(pairwise_kernel_call, "jsd")
+pairwise_tri = functools.partial(pairwise_kernel_call, "triangular")
 
 
 def bss_query_fused(
@@ -44,13 +53,16 @@ def bss_query_fused(
     *,
     block: int = TILE_BLOCK,
     bq: int = TILE_BQ,
+    metric_name: str = "l2",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full BSS range query (dense masked form) over the kernels.
+    """Full BSS range query (dense masked form) over the kernels of
+    ``metric_name`` (any of ``KERNEL_METRICS``; cosine arrives as l2 on the
+    unit sphere).
 
     Returns (dist, tile_mask): dist (Q, N) with +inf where tiles were
     pruned, tile_mask (Qtiles, B) the per-tile survival matrix.  Exact:
     every true hit (d <= t) is live by the four-point lower bound."""
-    dqp = pairwise_l2_kernel_call(queries, pivots)  # (Q, P)
+    dqp = pairwise_kernel_call(metric_name, queries, pivots)  # (Q, P)
     pair_idx = pair_idx.long()
     d1 = torch.index_select(dqp, 1, pair_idx[:, 0])
     d2 = torch.index_select(dqp, 1, pair_idx[:, 1])
@@ -61,7 +73,7 @@ def bss_query_fused(
     )
     # a tile survives if ANY of its queries does
     tile_mask = lb_pad.reshape(qtiles, bq, -1).amin(dim=1) <= t
-    dist = masked_pairwise_l2_kernel_call(
-        queries, data, tile_mask, bm=bq, bn=block
+    dist = masked_pairwise_kernel_call(
+        metric_name, queries, data, tile_mask, bm=bq, bn=block
     )
     return dist, tile_mask

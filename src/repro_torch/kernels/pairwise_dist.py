@@ -1,26 +1,35 @@
-"""l2 distance tiles on the H100 — the port of ``repro.kernels.pairwise_dist``.
+"""Distance tiles on the H100 — the port of ``repro.kernels.pairwise_dist``
+and of the JSD / Triangular tiles it dispatches (``jsd_dist``,
+``tri_dist``).
 
-The CUDA kernel (``csrc/pairwise_dist.cu``; its source note says what it
-replaces, what bounds it and how) computes ``sqrt(max(|x|^2 + |y|^2 -
-2 x.y, 0))`` in IEEE fp32 with the reference's epilogue order.  Two entry
+One hand-written CUDA kernel per supermetric tile, each with two entry
 points: the unmasked (m, n) matrix (the query -> pivot distances) and the
 masked exact phase, which writes +inf into every (bm x bn) tile whose flag
 is 0 without computing it.
 
+* l2 (``csrc/pairwise_dist.cu``): ``sqrt(max(|x|^2 + |y|^2 - 2 x.y, 0))``
+  in IEEE fp32 with the reference's epilogue order; it also serves cosine,
+  which the engine maps onto the unit sphere.
+* jsd and triangular (``csrc/prob_dist.cu``): the per-k sums of the
+  reference registry over probability vectors.
+
+Each source note says what it replaces, what bounds it and how.  The
+metric-dispatched entry points take every name in ``KERNEL_METRICS`` (the
+reference's ``_TILE_KERNELS``) and refuse any other: power transforms have
+no tile and run as plain pairwise in the engine on either backend.
+
 Every wrapper runs its plain version (``repro_torch.kernels.ref``) only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-``LAUNCHES`` counts kernel launches per wrapper and nothing else.
-
-This slice ports the l2 tile (which also serves cosine, mapped onto the
-unit sphere by the engine).  The JSD and Triangular tiles of the reference
-family are still to port (ROADMAP Queue 2 items 4-5); the metric-dispatched
-entry points refuse them.
+``LAUNCHES`` counts kernel launches per C entry point and nothing else.
+Only float32 operands: the bf16 ``y`` of the bf16 exact phase is not
+ported yet.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -39,14 +48,38 @@ __all__ = [
 DEFAULT_BM = TILE_BQ
 DEFAULT_BN = TILE_BLOCK
 
-KERNEL_METRICS = ("l2",)
 
-LAUNCHES = {"pairwise_l2": 0, "masked_pairwise_l2": 0}
+class _Tile(NamedTuple):
+    source: str                # csrc/<source>.cu
+    entry: str                 # unmasked C entry point; the masked one is "masked_" + entry
+    plain: Callable[..., torch.Tensor]  # plain version of the unmasked tile
+
+
+# metric -> its tile kernel (the reference's _TILE_KERNELS,
+# src/repro/kernels/pairwise_dist.py:111-115)
+_TILES = {
+    "l2": _Tile("pairwise_dist", "pairwise_l2", ref.pairwise_l2_ref),
+    "jsd": _Tile("prob_dist", "pairwise_jsd", ref.pairwise_jsd_ref),
+    "triangular": _Tile("prob_dist", "pairwise_tri", ref.pairwise_tri_ref),
+}
+KERNEL_METRICS = tuple(_TILES)
+
+LAUNCHES = {
+    name: 0 for tile in _TILES.values() for name in (tile.entry, "masked_" + tile.entry)
+}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# C argument types: x, y, [mask,] out, m, n, k, [bm, bn,] [squared,] stream
 _SIGNATURES = {
-    "pairwise_l2": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "masked_pairwise_l2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pairwise_dist": {
+        "pairwise_l2": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "masked_pairwise_l2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "prob_dist": {
+        **{e: [_P, _P, _P, _I, _I, _I, _P] for e in ("pairwise_jsd", "pairwise_tri")},
+        **{f"masked_{e}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+           for e in ("pairwise_jsd", "pairwise_tri")},
+    },
 }
 
 
@@ -79,27 +112,78 @@ def _mask_shape(m: int, n: int, bm: int, bn: int) -> tuple[int, int]:
     return (math.ceil(m / bm), math.ceil(n / bn))
 
 
-def pairwise_l2_kernel_call(
-    x: torch.Tensor, y: torch.Tensor, *, squared: bool = False
-) -> torch.Tensor:
-    """(m, K), (n, K) float32 -> (m, n) Euclidean (or squared) distances."""
+def _launch(source: str, entry: str, out: torch.Tensor, *args) -> None:
+    """Launch C entry point ``entry`` of ``csrc/<source>.cu`` on the current
+    stream of ``out``'s device; raise if the launch was refused."""
+    with torch.cuda.device(out.device):
+        lib = _build.library(source, _SIGNATURES[source])
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    _build.check(err, entry)
+    LAUNCHES[entry] += 1
+
+
+def _tile(metric_name: str) -> _Tile:
+    tile = _TILES.get(metric_name)
+    if tile is None:
+        raise KeyError(
+            f"no tile kernel for {metric_name!r}; have {KERNEL_METRICS} (the "
+            f"engine serves cosine as l2 and runs power transforms as plain "
+            f"pairwise)"
+        )
+    return tile
+
+
+def _pairwise(metric_name: str, x: torch.Tensor, y: torch.Tensor,
+              squared: bool = False) -> torch.Tensor:
+    tile = _tile(metric_name)
     _check_pair(x, y)
+    l2_args = (int(squared),) if metric_name == "l2" else ()
     if x.device.type == "cpu":
-        return ref.pairwise_l2_ref(x, y, squared=squared)
+        return tile.plain(x, y, *l2_args)
     _check_launchable(x, y)
     (m, k), n = x.shape, y.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m and n:
-        with torch.cuda.device(x.device):
-            lib = _build.library("pairwise_dist", _SIGNATURES)
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.pairwise_l2(
-                x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
-                int(squared), stream,
-            )
-        _build.check(err, "pairwise_l2")
-        LAUNCHES["pairwise_l2"] += 1
+        _launch(tile.source, tile.entry, out,
+                x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, *l2_args)
     return out
+
+
+def _masked(metric_name: str, x: torch.Tensor, y: torch.Tensor,
+            tile_mask: torch.Tensor, bm: int, bn: int,
+            squared: bool = False) -> torch.Tensor:
+    tile = _tile(metric_name)
+    _check_pair(x, y)
+    (m, k), n = x.shape, y.shape[0]
+    if bm <= 0 or bn <= 0:
+        raise ValueError(f"bm and bn must be positive, got {bm}, {bn}")
+    grid = _mask_shape(m, n, bm, bn)
+    if tuple(tile_mask.shape) != grid:
+        raise ValueError(
+            f"tile_mask shape {tuple(tile_mask.shape)} does not match the "
+            f"(m_tiles, n_tiles) grid {grid}"
+        )
+    if tile_mask.device != x.device:
+        raise ValueError(f"tile_mask on {tile_mask.device} but x on {x.device}")
+    l2_args = (int(squared),) if metric_name == "l2" else ()
+    if x.device.type == "cpu":
+        return ref.masked_pairwise_metric_ref(tile.plain(x, y, *l2_args), tile_mask, bm, bn)
+    mask = tile_mask.to(torch.int32).contiguous()
+    _check_launchable(x, y, mask)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m and n:
+        _launch(tile.source, "masked_" + tile.entry, out,
+                x.data_ptr(), y.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                m, n, k, bm, bn, *l2_args)
+    return out
+
+
+def pairwise_l2_kernel_call(
+    x: torch.Tensor, y: torch.Tensor, *, squared: bool = False
+) -> torch.Tensor:
+    """(m, K), (n, K) float32 -> (m, n) Euclidean (or squared) distances."""
+    return _pairwise("l2", x, y, squared)
 
 
 def masked_pairwise_l2_kernel_call(
@@ -115,43 +199,7 @@ def masked_pairwise_l2_kernel_call(
     tiles; dead tiles come out +inf without being computed.  ``tile_mask``
     has shape (ceil(m/bm), ceil(n/bn)) — for BSS, bm is the query tile and
     bn the index block, so the mask is the block-survival matrix."""
-    _check_pair(x, y)
-    (m, k), n = x.shape, y.shape[0]
-    if bm <= 0 or bn <= 0:
-        raise ValueError(f"bm and bn must be positive, got {bm}, {bn}")
-    grid = _mask_shape(m, n, bm, bn)
-    if tuple(tile_mask.shape) != grid:
-        raise ValueError(
-            f"tile_mask shape {tuple(tile_mask.shape)} does not match the "
-            f"(m_tiles, n_tiles) grid {grid}"
-        )
-    if tile_mask.device != x.device:
-        raise ValueError(f"tile_mask on {tile_mask.device} but x on {x.device}")
-    if x.device.type == "cpu":
-        return ref.masked_pairwise_l2_ref(x, y, tile_mask, bm, bn, squared=squared)
-    mask = tile_mask.to(torch.int32).contiguous()
-    _check_launchable(x, y, mask)
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m and n:
-        with torch.cuda.device(x.device):
-            lib = _build.library("pairwise_dist", _SIGNATURES)
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.masked_pairwise_l2(
-                x.data_ptr(), y.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                m, n, k, bm, bn, int(squared), stream,
-            )
-        _build.check(err, "masked_pairwise_l2")
-        LAUNCHES["masked_pairwise_l2"] += 1
-    return out
-
-
-def _require_kernel(metric_name: str) -> None:
-    if metric_name not in KERNEL_METRICS:
-        raise NotImplementedError(
-            f"no CUDA tile kernel for {metric_name!r} yet (this slice has "
-            f"{KERNEL_METRICS}); JSD and Triangular are ROADMAP Queue 2 "
-            f"items 4-5"
-        )
+    return _masked("l2", x, y, tile_mask, bm, bn, squared)
 
 
 def pairwise_kernel_call(
@@ -159,8 +207,7 @@ def pairwise_kernel_call(
 ) -> torch.Tensor:
     """Metric-dispatched (m, K), (n, K) -> (m, n) distance matrix for every
     metric in ``KERNEL_METRICS``."""
-    _require_kernel(metric_name)
-    return pairwise_l2_kernel_call(x, y)
+    return _pairwise(metric_name, x, y)
 
 
 def masked_pairwise_kernel_call(
@@ -173,6 +220,6 @@ def masked_pairwise_kernel_call(
     bn: int = DEFAULT_BN,
 ) -> torch.Tensor:
     """Metric-dispatched masked pairwise: the BSS exact phase for every
-    metric in ``KERNEL_METRICS``."""
-    _require_kernel(metric_name)
-    return masked_pairwise_l2_kernel_call(x, y, tile_mask, bm=bm, bn=bn)
+    metric in ``KERNEL_METRICS``, with the tile-skipping contract of
+    ``masked_pairwise_l2_kernel_call``."""
+    return _masked(metric_name, x, y, tile_mask, bm, bn)

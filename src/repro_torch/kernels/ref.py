@@ -1,10 +1,13 @@
 """Plain PyTorch versions of the port's kernels — the port of
-``repro.kernels.ref`` (:11-51).
+``repro.kernels.ref`` (:11-74).
 
 Each kernel wrapper runs its plain version for tensors on the CPU (the
 tests compare these with the JAX Pallas kernels); ``chip_smoke.py`` holds
 every CUDA kernel against its plain version on the card.  They repeat the
 kernels' arithmetic in the reference's order and are no yardstick of speed.
+The JSD and Triangular versions are the registry's own functions
+(``repro_torch.core.distances``), which run over column chunks of ``y`` so
+a paper-size exact phase fits on the card.
 """
 
 from __future__ import annotations
@@ -12,12 +15,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.constants import DEGENERATE_DELTA, MIN_DELTA
-from repro_torch.core.distances import check_ieee_fp32
+from repro_torch.core.distances import check_ieee_fp32, jsd, triangular
 
 __all__ = [
     "pairwise_l2_ref",
     "masked_pairwise_l2_ref",
     "masked_pairwise_metric_ref",
+    "pairwise_jsd_ref",
+    "pairwise_tri_ref",
     "planar_lower_bound_ref",
 ]
 
@@ -53,6 +58,18 @@ def masked_pairwise_l2_ref(
     return masked_pairwise_metric_ref(
         pairwise_l2_ref(x, y, squared=squared), tile_mask, bm, bn
     )
+
+
+def pairwise_jsd_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``sqrt(max(sum_k (x/2 log x + y/2 log y - m log m), 0) / ln 2)``,
+    m = (x + y) / 2, xlogx guarded at 1e-12 (reference ``ref.py:54-65``)."""
+    return jsd.pairwise(x, y)
+
+
+def pairwise_tri_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``sqrt(max(0.5 * sum_k (x - y)^2 / max(x + y, 1e-12), 0))``
+    (reference ``ref.py:68-74``)."""
+    return triangular.pairwise(x, y)
 
 
 def planar_lower_bound_ref(

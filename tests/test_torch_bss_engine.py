@@ -211,14 +211,33 @@ def test_zero_queries(ref_opts, bq):
 
 @pytest.mark.parametrize("metric,n,dim,block,nq", OTHER_SHAPES)
 def test_range_other_metrics_match_jax_and_oracle(metric, n, dim, block, nq):
-    """jsd / triangular / power transforms on the torch backend (their
-    CUDA kernels are a later slice)."""
+    """jsd / triangular / power transforms on the torch backend against the
+    reference's jnp backend and the oracle."""
     db, q, r_idx, t_idx = _case(metric, n, dim, block, nq)
     t = safe_threshold(pairwise_np(metric, q, db), 0.02)
     want, w_stats = r_flat.bss_query_batched(r_idx, q, t, opts=_JNP)
     got, g_stats = t_flat.bss_query_batched(t_idx, q, t, opts=EngineOpts(backend="torch"))
     assert got == want == t_flat.bss_query(t_idx, q, t)[0]
     _assert_stats_equal(g_stats, w_stats)
+
+
+@pytest.mark.parametrize("metric", ["jsd", "triangular"])
+def test_range_prob_metrics_paper_layout_match_pallas(metric):
+    """The paper's layout, 128-row blocks and 128-query tiles, against the
+    reference's JSD / Triangular Pallas tiles in interpret mode: hits,
+    ``alive`` and every stat identical."""
+    db, q, r_idx, t_idx = _case(metric, 600, 16, 128, 150)
+    t = safe_threshold(pairwise_np(metric, q, db), 0.02)
+    pallas = REngineOpts(backend="pallas", interpret=True, bq=128)
+    want, w_stats = r_flat.bss_query_batched(r_idx, q, t, opts=pallas)
+    got, g_stats = t_flat.bss_query_batched(t_idx, q, t,
+                                            opts=EngineOpts(backend="torch", bq=128))
+    assert got == want == t_flat.bss_query(t_idx, q, t)[0]
+    assert sum(map(len, got)) > 0
+    _assert_stats_equal(g_stats, w_stats)
+    t_vec = np.full(len(q), t, np.float32)
+    np.testing.assert_array_equal(_alive_port(t_idx, q, t_vec, 128),
+                                  _alive_ref(r_idx, q, t_vec, "pallas", 128, True))
 
 
 @pytest.mark.parametrize("t,expect_all", [(-1.0, False), (1e6, True)])
@@ -261,6 +280,12 @@ def test_backend_rules_on_a_cpu_index():
     db, q, _, t_idx = _case("l2", 200, 6, 32, 5)
     with pytest.raises(ValueError, match="CUDA device"):
         t_flat.bss_query_batched(t_idx, q, 0.5, opts=EngineOpts(backend="cuda"))
+    for metric in ("jsd", "triangular"):
+        _, pq, _, p_idx = _case(metric, 200, 6, 32, 5)
+        with pytest.raises(ValueError, match="CUDA device"):
+            t_flat.bss_query_batched(p_idx, pq, 0.5, opts=EngineOpts(backend="cuda"))
+        with pytest.raises(ValueError, match="CUDA device"):
+            t_flat.bss_knn_batched(p_idx, pq, 3, opts=EngineOpts(backend="cuda"))
     auto, stats = t_flat.bss_query_batched(t_idx, q, 0.5, opts=EngineOpts())
     assert stats["backend"] == "torch"
     assert auto == t_flat.bss_query_batched(t_idx, q, 0.5, backend="torch")[0]

@@ -8,9 +8,12 @@ fixture skips it.  The file imports no jax, so on the card it runs as
 
 Tolerances: the l2 tiles sum in another order than the plain version's
 matmul, so rtol = atol = 1e-5 in fp32 (the reference's kernel sweeps,
-``tests/test_kernels.py``) with an identical +inf pattern; the planar
-bound is built without FMA contraction and must be bit-equal.  The input
-shapes and makers are shared with ``tests/test_torch_kernels.py``.
+``tests/test_kernels.py``) with an identical +inf pattern; the JSD and
+Triangular tiles sum K terms in another order than ``torch.sum``, and
+take the reference sweep's rtol = 1e-4 / atol = 1e-5 unmasked and
+1e-5 masked; the planar bound is built without FMA contraction and must be
+bit-equal.  The input shapes and makers are shared with
+``tests/test_torch_kernels.py``.
 """
 
 import math
@@ -25,6 +28,9 @@ from repro_torch.core.npdist import pairwise_np
 from repro_torch.kernels import _build, launch_counts, ops, ref, reset_launch_counts
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+PROB_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_kernels.py:91-124
+PROB_METRICS = ("jsd", "triangular")
+PROB_PLAIN = {"jsd": ref.pairwise_jsd_ref, "triangular": ref.pairwise_tri_ref}
 
 PAIRWISE_SHAPES = [(128, 128, 16), (200, 310, 48), (1, 7, 3), (130, 128, 112),
                    (64, 500, 20), (256, 256, 128)]
@@ -42,6 +48,19 @@ def assert_same(got: np.ndarray, want: np.ndarray, **tol):
     assert np.array_equal(np.isinf(got), np.isinf(want))
     fin = ~np.isinf(want)
     np.testing.assert_allclose(got[fin], want[fin], **tol)
+
+
+def simplex(rng, n, k):
+    """(n, k) float32 probability rows like colour histograms: sparse gamma
+    draws with a third of the bins exactly zero and some at 1e-13 and
+    1e-9, so the xlogx guard at 1e-12 and the x + y floor are exercised."""
+    x = rng.gamma(0.3, size=(n, k))
+    x[rng.random((n, k)) < 0.33] = 0.0
+    tiny = rng.random((n, k))
+    x[tiny < 0.05] = 1e-13
+    x[(tiny >= 0.05) & (tiny < 0.1)] = 1e-9
+    x[:, 0] += 1e-3  # no all-zero row
+    return (x / x.sum(axis=1, keepdims=True)).astype(np.float32)
 
 
 def planar_inputs(q, m, b, seed):
@@ -118,6 +137,39 @@ def test_masked_pairwise_kernel_matches_plain(card, m, n, k, bm, bn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("metric", PROB_METRICS)
+@pytest.mark.parametrize("m,n,k", PAIRWISE_SHAPES + [(512, 16, 112)])
+def test_prob_kernel_matches_plain(card, metric, m, n, k):
+    rng = np.random.default_rng(m + 2 * n + k)
+    x = torch.from_numpy(simplex(rng, m, k)).to(card)
+    y = torch.from_numpy(simplex(rng, n, k)).to(card)
+    entry = _entry(metric)
+    before = launch_counts()[entry]
+    got = ops.pairwise_metric(metric, x, y)
+    torch.cuda.synchronize()
+    assert launch_counts()[entry] == before + 1
+    assert_same(got.cpu().numpy(), PROB_PLAIN[metric](x, y).cpu().numpy(), **PROB_TOL)
+    if metric == "jsd":
+        assert torch.equal(ops.pairwise_jsd(x, y), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", PROB_METRICS)
+@pytest.mark.parametrize("m,n,k,bm,bn", MASKED_CASES + [(512, 101_504, 112, 128, 128)])
+def test_masked_prob_kernel_matches_plain(card, metric, m, n, k, bm, bn):
+    rng = np.random.default_rng(m + n + k)
+    x = torch.from_numpy(simplex(rng, m, k)).to(card)
+    y = torch.from_numpy(simplex(rng, n, k)).to(card)
+    tm = rng.random((math.ceil(m / bm), math.ceil(n / bn))) < 0.3
+    tm[-1] = False  # an all-dead row of tiles
+    tm = torch.from_numpy(tm).to(card)
+    got = ops.masked_pairwise_metric(metric, x, y, tm, bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    want = ref.masked_pairwise_metric_ref(PROB_PLAIN[metric](x, y), tm, bm, bn)
+    assert_same(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("q,m,b", PLANAR_SHAPES + [(512, 24, 793)])
 def test_planar_kernel_bit_equal_to_plain(card, q, m, b):
     args = [torch.from_numpy(a).to(card) for a in planar_inputs(q, m, b, seed=b)]
@@ -127,22 +179,57 @@ def test_planar_kernel_bit_equal_to_plain(card, q, m, b):
     assert torch.isinf(got[:, -1]).all()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("metric", ["l2", "cosine"])
-def test_engine_cuda_backend_matches_torch_backend(card, metric):
-    """The range search through the three kernels returns the plain
-    backend's hit lists and stats on a small index, at a threshold no
-    distance lies near (so fp32 rounding cannot move a hit)."""
+def _entry(metric):
+    """The unmasked C entry point (and launch count) of ``metric``'s tile."""
+    return {"jsd": "pairwise_jsd", "triangular": "pairwise_tri"}.get(metric, "pairwise_l2")
+
+
+def _engine_case(metric, n=3000, nq=70, dim=24):
     rng = np.random.default_rng(3)
-    db = rng.random((3000, 24)).astype(np.float32)
-    q = rng.random((70, 24)).astype(np.float32)
+    if metric in PROB_METRICS:
+        return simplex(rng, n, dim), simplex(rng, nq, dim)
+    return rng.random((n, dim)).astype(np.float32), rng.random((nq, dim)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cosine", "jsd", "triangular"])
+def test_engine_cuda_backend_matches_torch_backend(card, metric):
+    """The range search through the kernels returns the plain backend's
+    hit lists and stats on a small index, at a threshold no distance lies
+    near (so fp32 rounding cannot move a hit)."""
+    db, q = _engine_case(metric)
     index = flat_index.build_bss(metric, db, n_pivots=8, n_pairs=12, block=64, device=card)
     t = safe_threshold(pairwise_np(metric, q, db), 0.01)
     reset_launch_counts()
     got, g_stats = flat_index.bss_query_batched(index, q, t, opts=EngineOpts(backend="cuda"))
-    assert min(launch_counts().values()) == 1
+    counts, entry = launch_counts(), _entry(metric)
+    assert counts[entry] == counts["masked_" + entry] == counts["planar_lower_bound"] == 1
+    assert sum(counts.values()) == 3
     want, w_stats = flat_index.bss_query_batched(index, q, t, opts=EngineOpts(backend="torch"))
     assert got == want == flat_index.bss_query(index, q, t)[0]
     assert sum(map(len, got)) > 0
     np.testing.assert_array_equal(g_stats["per_query_dists"], w_stats["per_query_dists"])
     assert g_stats["backend"] == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cosine", "jsd", "triangular"])
+def test_knn_cuda_backend_matches_torch_backend(card, metric):
+    """kNN through the kernels returns the plain backend's ids, rounds and
+    counts, and the float64 brute force's neighbour sets."""
+    db, q = _engine_case(metric)
+    index = flat_index.build_bss(metric, db, n_pivots=8, n_pairs=12, block=64, device=card)
+    reset_launch_counts()
+    got, g_d, g_stats = flat_index.bss_knn_batched(index, q, 10, opts=EngineOpts(backend="cuda"))
+    counts, entry = launch_counts(), _entry(metric)
+    assert counts[entry] == counts["planar_lower_bound"] == 1
+    assert counts["masked_" + entry] == g_stats["rounds"]
+    want, w_d, w_stats = flat_index.bss_knn_batched(index, q, 10,
+                                                    opts=EngineOpts(backend="torch"))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(g_d, w_d, rtol=1e-5, atol=1e-5)
+    assert g_stats["rounds"] == w_stats["rounds"]
+    np.testing.assert_array_equal(g_stats["per_query_dists"], w_stats["per_query_dists"])
+    truth = pairwise_np(metric, q, db)
+    for i in range(len(q)):
+        assert set(got[i]) == set(np.argsort(truth[i], kind="stable")[:10]), i

@@ -2,6 +2,8 @@
 registry (``repro.core.distances``) on seeded inputs, and the torch
 projection matches the reference's jnp projection."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -86,3 +88,45 @@ def test_torch_projection_matches_jnp(seed):
         np.asarray(r_projection.point_to_box(wx, wy, box)), rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError):
         t_projection.project(d1, d2, delta, xp=jnp)
+
+
+BROADCAST_BODIES = {"jsd": "_jsd_body", "triangular": "_triangular_body",
+                    "l1": "_l1_body", "linf": "_linf_body"}
+
+
+def test_broadcast_budget_at_paper_size():
+    """The exact phase of a 512-query batch at the paper's colors size runs
+    the broadcast metrics in column chunks: one (512, cols, 112) float32
+    transient stays within the budget, against 23.3 GB broadcast whole."""
+    cols = t_dist.pair_chunk_cols(512, 101_504, 112)
+    assert 512 * cols * 112 * 4 <= t_dist.PAIRWISE_CHUNK_BYTES <= 256 * 2**20
+    assert math.ceil(101_504 / cols) > 1
+    assert t_dist.pair_chunk_cols(10**7, 5, 112) == 1  # at least one column
+
+
+@pytest.mark.parametrize("metric", sorted(BROADCAST_BODIES))
+@pytest.mark.parametrize("budget_cols", [1, 7, 64])
+def test_broadcast_metrics_chunk_within_budget(metric, budget_cols, monkeypatch):
+    """With the byte budget lowered to a few columns, every transient the
+    pairwise function builds is within it, the chunks cover ``y`` once, and
+    the result is ``torch.equal`` to the single pass: each element's K-sum
+    (or max) is one reduction over the same contiguous K values, whatever
+    the number of columns beside it."""
+    x, y = (torch.from_numpy(a) for a in _inputs(metric, 23, 150, 112, seed=budget_cols))
+    pairwise = t_dist.get_metric(metric).pairwise
+    whole = pairwise(x, y)
+    seen = []
+    body = getattr(t_dist, BROADCAST_BODIES[metric])
+
+    def recording_body(xb, yb):
+        seen.append(tuple(torch.broadcast_shapes(xb.shape, yb.shape)))
+        return body(xb, yb)
+
+    budget = 4 * 23 * 112 * budget_cols
+    monkeypatch.setattr(t_dist, "PAIRWISE_CHUNK_BYTES", budget)
+    monkeypatch.setattr(t_dist, BROADCAST_BODIES[metric], recording_body)
+    got = pairwise(x, y)
+    assert len(seen) == math.ceil(150 / budget_cols)
+    assert all(4 * math.prod(shape) <= budget for shape in seen)
+    assert sum(shape[1] for shape in seen) == 150
+    assert torch.equal(got, whole)

@@ -3,7 +3,10 @@
 On the CPU every wrapper runs its plain PyTorch version; those are held to
 the JAX Pallas kernels in interpret mode on the shapes of
 ``tests/test_kernels.py`` (odd m/n, degenerate deltas, padded blocks):
-rtol = atol = 1e-5 in fp32 and an identical +inf pattern.
+rtol = atol = 1e-5 in fp32 and an identical +inf pattern for l2, the
+planar bound and every masked tile; rtol = 1e-4 / atol = 1e-5 for the
+unmasked JSD and Triangular tiles, as the reference's own sweep holds
+them (the Pallas JSD tile sums entropies, the port per-k terms).
 
 The CUDA kernels themselves are held to the plain versions on the card by
 ``tests/test_torch_cuda_kernels.py``, which imports no jax.
@@ -17,9 +20,17 @@ import pytest
 import torch
 
 from repro.kernels import ops as r_ops
-from repro_torch.kernels import launch_counts, ops, reset_launch_counts
-from test_torch_cuda_kernels import (MASKED_CASES, PAIRWISE_SHAPES, PLANAR_SHAPES, TOL,
-                                     assert_same, normal, planar_inputs)
+from repro.kernels import pairwise_dist as r_pdist
+from repro_torch.core import distances as t_dist
+from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
+from test_torch_cuda_kernels import (MASKED_CASES, PAIRWISE_SHAPES, PLANAR_SHAPES, PROB_TOL,
+                                     TOL, assert_same, normal, planar_inputs, simplex)
+
+
+def gamma_simplex(rng, n, k):
+    """The reference sweep's probability rows (tests/test_kernels.py:93)."""
+    x = rng.gamma(1.0, size=(n, k)).astype(np.float32)
+    return x / x.sum(axis=1, keepdims=True)
 
 
 # ------------------------------------------------ plain versions vs Pallas
@@ -87,6 +98,112 @@ def test_bss_query_fused_plain_matches_pallas():
     assert_same(got_d.numpy(), np.asarray(want_d), **TOL)
 
 
+@pytest.mark.parametrize("m,n,k", [(64, 64, 16), (100, 70, 48), (3, 130, 24)])
+@pytest.mark.parametrize("maker", [gamma_simplex, simplex])
+def test_pairwise_jsd_plain_matches_pallas(m, n, k, maker):
+    """The standalone JSD call (jsd_dist.py:91); ``simplex`` rows put bins
+    at 0, 1e-13 and 1e-9 around the xlogx guard."""
+    rng = np.random.default_rng(m + n + k)
+    x, y = maker(rng, m, k), maker(rng, n, k)
+    want = np.asarray(r_ops.pairwise_jsd(jnp.asarray(x), jnp.asarray(y), interpret=True))
+    got = ops.pairwise_jsd(torch.from_numpy(x), torch.from_numpy(y))
+    assert_same(got.numpy(), want, **PROB_TOL)
+    np.testing.assert_allclose(
+        ops.pairwise_metric("jsd", torch.from_numpy(x), torch.from_numpy(y)).numpy(),
+        np.asarray(r_ops.pairwise_metric("jsd", jnp.asarray(x), jnp.asarray(y),
+                                         interpret=True)), **PROB_TOL)
+
+
+@pytest.mark.parametrize("m,n,k", [(64, 64, 16), (100, 200, 64), (3, 130, 24),
+                                   (128, 128, 112)])
+@pytest.mark.parametrize("maker", [gamma_simplex, simplex])
+def test_pairwise_tri_plain_matches_pallas(m, n, k, maker):
+    rng = np.random.default_rng(m * 3 + n + k)
+    x, y = maker(rng, m, k), maker(rng, n, k)
+    want = np.asarray(r_pdist.pairwise_kernel_call(
+        "triangular", jnp.asarray(x), jnp.asarray(y), interpret=True))
+    got = ops.pairwise_tri(torch.from_numpy(x), torch.from_numpy(y))
+    assert_same(got.numpy(), want, **PROB_TOL)
+
+
+@pytest.mark.parametrize("metric", ["jsd", "triangular"])
+@pytest.mark.parametrize("m,n,k", [(256, 384, 32), (100, 200, 48)])
+def test_masked_prob_plain_matches_pallas(metric, m, n, k):
+    """The masked family (tests/test_kernels.py:127-156): dead tiles +inf,
+    live tiles within 1e-5 of the Pallas tile."""
+    rng = np.random.default_rng(7 + m)
+    bm = bn = 128
+    x, y = gamma_simplex(rng, m, k), gamma_simplex(rng, n, k)
+    tm = rng.integers(0, 2, size=(math.ceil(m / bm), math.ceil(n / bn))).astype(np.int32)
+    tm[0, 0] = 0
+    want = np.asarray(r_pdist.masked_pairwise_kernel_call(
+        metric, jnp.asarray(x), jnp.asarray(y), jnp.asarray(tm), bm=bm, bn=bn,
+        interpret=True))
+    got = ops.masked_pairwise_metric(metric, torch.from_numpy(x), torch.from_numpy(y),
+                                     torch.from_numpy(tm), bm=bm, bn=bn)
+    assert_same(got.numpy(), want, **TOL)
+    assert np.isinf(got.numpy()[:bm, :bn]).all()
+
+
+@pytest.mark.parametrize("metric", ["jsd", "triangular"])
+def test_prob_plain_chunked_equals_unchunked(metric, monkeypatch):
+    """The plain tiles run over column chunks of ``y``; with the byte budget
+    forced down to a few columns per pass the result is ``torch.equal`` to
+    the single pass: each element's K-sum is one reduction over the same
+    contiguous K values, whatever the number of columns beside it."""
+    rng = np.random.default_rng(4)
+    x, y = torch.from_numpy(simplex(rng, 37, 112)), torch.from_numpy(simplex(rng, 301, 112))
+    plain = {"jsd": ref.pairwise_jsd_ref, "triangular": ref.pairwise_tri_ref}[metric]
+    whole = plain(x, y)
+    monkeypatch.setattr(t_dist, "PAIRWISE_CHUNK_BYTES", 4 * 37 * 112 * 7)
+    assert t_dist.pair_chunk_cols(37, 301, 112) == 7
+    assert torch.equal(plain(x, y), whole)
+    tm = torch.from_numpy(rng.random((3, 10)) < 0.5)
+    assert torch.equal(
+        ops.masked_pairwise_metric(metric, x, y, tm, bm=16, bn=32),
+        ref.masked_pairwise_metric_ref(whole, tm, 16, 32))
+
+
+@pytest.mark.parametrize("metric", ["l2", "jsd", "triangular"])
+def test_bss_query_fused_metric_dispatch_matches_pallas(metric):
+    """``bss_query_fused`` with each tile metric against the reference's
+    composition of the same Pallas kernels (its own ``bss_query_fused`` is
+    l2 only)."""
+    from repro.core import flat_index as r_flat
+
+    rng = np.random.default_rng(12)
+    db, q = gamma_simplex(rng, 1024, 24), gamma_simplex(rng, 40, 24)
+    idx = r_flat.build_bss(metric, db, n_pivots=8, n_pairs=12, block=128, seed=2)
+    args = (idx.pivots, idx.pairs, idx.deltas, idx.boxes, idx.data)
+    dqp = r_pdist.pairwise_kernel_call(metric, jnp.asarray(q), jnp.asarray(idx.pivots),
+                                       interpret=True)
+    pairs = np.asarray(idx.pairs)
+    lb = np.asarray(r_ops.planar_lower_bound(
+        dqp[:, pairs[:, 0]], dqp[:, pairs[:, 1]], jnp.asarray(idx.deltas),
+        jnp.asarray(idx.boxes), interpret=True))
+    tile_min = lb.reshape(5, 8, -1).min(axis=1)
+    v = np.unique(tile_min)  # about half the (tile, block) cells live, and no
+    t = float(0.5 * (v[len(v) // 2 - 1] + v[len(v) // 2]))  # bound ties t
+    tm = tile_min <= t
+    got_d, got_m = ops.bss_query_fused(torch.from_numpy(q), *map(torch.from_numpy, args), t,
+                                       block=128, bq=8, metric_name=metric)
+    np.testing.assert_array_equal(got_m.numpy(), tm)
+    if metric == "l2":
+        want_d, want_m = r_ops.bss_query_fused(jnp.asarray(q), *map(jnp.asarray, args), t,
+                                               block=128, bq=8, interpret=True)
+        np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    want_d = np.asarray(r_pdist.masked_pairwise_kernel_call(
+        metric, jnp.asarray(q), jnp.asarray(idx.data), jnp.asarray(tm), bm=8, bn=128,
+        interpret=True))
+    assert_same(got_d.numpy(), want_d, **TOL)
+    assert tm.any() and not tm.all()
+
+
+def test_kernel_metrics_and_ops_names_match_reference():
+    assert ops.KERNEL_METRICS == r_ops.KERNEL_METRICS == ("l2", "jsd", "triangular")
+    assert set(ops.__all__) == set(r_ops.__all__)
+
+
 # ------------------------------------------------------------- validation
 
 
@@ -100,10 +217,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ops.pairwise_l2(x, y.bfloat16())
     with pytest.raises(TypeError):
         ops.pairwise_l2(x.double(), y.double())
-    with pytest.raises(NotImplementedError, match="jsd"):
-        ops.pairwise_metric("jsd", x, y)
-    with pytest.raises(NotImplementedError, match="triangular"):
-        ops.masked_pairwise_metric("triangular", x, y, torch.ones(1, 1), bm=8, bn=8)
+    for name in ("cosine", "l1^0.5", "nope"):  # no tile: served as l2, or plain
+        with pytest.raises(KeyError, match="no tile kernel"):
+            ops.pairwise_metric(name, x, y)
+    with pytest.raises(KeyError, match="no tile kernel"):
+        ops.masked_pairwise_metric("l1", x, y, torch.ones(1, 1), bm=8, bn=8)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        ops.pairwise_jsd(x, y.bfloat16())
+    with pytest.raises(NotImplementedError, match="bf16"):
+        ops.masked_pairwise_metric("triangular", x, y.bfloat16(), torch.ones(1, 1),
+                                   bm=8, bn=8)
+    with pytest.raises(ValueError, match="does not match"):
+        ops.masked_pairwise_metric("jsd", x, y, torch.ones(2, 2), bm=8, bn=8)
     with pytest.raises(ValueError, match="agree"):
         ops.planar_lower_bound(x, x, torch.ones(4), torch.ones(2, 3, 4))
 
@@ -113,5 +238,10 @@ def test_cpu_runs_count_no_launches():
     d1, d2, delta, boxes = map(torch.from_numpy, planar_inputs(9, 4, 6, seed=0))
     ops.planar_lower_bound(d1, d2, delta, boxes)
     ops.pairwise_l2(d1, d2)
+    p = torch.from_numpy(simplex(np.random.default_rng(0), 9, 4))
+    ops.pairwise_jsd(p, p)
+    ops.masked_pairwise_metric("triangular", p, p, torch.ones(1, 1), bm=16, bn=16)
     assert launch_counts() == {
-        "pairwise_l2": 0, "masked_pairwise_l2": 0, "planar_lower_bound": 0}
+        "pairwise_l2": 0, "masked_pairwise_l2": 0, "pairwise_jsd": 0,
+        "masked_pairwise_jsd": 0, "pairwise_tri": 0, "masked_pairwise_tri": 0,
+        "planar_lower_bound": 0}
