@@ -33,14 +33,42 @@ phase prints its seconds):
    kernel, host time per operator and Python function, and the device's
    idle share.
 5. kNN (k = 10): all queries in 512-query batches through
-   ``bss_knn_batched`` under l2, JSD and Triangular on ``"cuda"`` and
-   ``"torch"``, plus one cosine batch; launch counts zeroed and read per
-   metric.  Ids must agree between backends and with a float64 brute force
-   on 64 queries, except where the two candidates' float64 distances lie
-   within 1e-5 of each other (or of the kth); a query whose distance count
-   differs between backends must have kth distances within 1e-5.  One
-   JSD batch of each backend is profiled.
-6. One JSON line with every kernel's numbers, then the result line
+   ``bss_knn_batched`` under l2, JSD and Triangular on ``"cuda"``, plus one
+   cosine batch; launch counts zeroed and read per metric.  The plain
+   ``"torch"`` backend runs all queries under l2 and the first four
+   batches (2,048 queries) under JSD and Triangular.  Ids must agree
+   between backends and with a float64 brute force on 64 queries, except
+   where the two candidates' float64 distances lie within 1e-5 of each
+   other (or of the kth); a query whose distance count differs between
+   backends must have kth distances within 1e-5.  One JSD batch of each
+   backend is profiled.
+6. bf16 range: ``precision="bf16"`` over all queries on ``"cuda"`` under l2,
+   JSD and Triangular at selectivities 1e-5 and 1e-3, through each
+   metric's range-path index; launch counts zeroed and read per metric.
+   Hits, ``alive``, ``per_query_dists``, ``excluded["hilbert"]`` and
+   ``tiles_computed`` must equal the fp32 ``"cuda"`` pass of phase 4
+   exactly, and ``"torch"`` bf16 must equal ``"torch"`` fp32 exactly on
+   two batches.  Prints ``band_eps``, the re-checked share of the computed
+   tiles, the re-checked points per query, queries/s and one profile per
+   metric.  The bf16 mirror must hold ``bf16_round_np(index.data)`` bit
+   for bit.
+7. The six bf16-corpus kernels against their plain versions fed the same
+   bf16 ``y``, at the main path's shapes, the masked ones at their bf16
+   range path's live-tile share.
+8. bf16 kNN (k = 10) under l2 and JSD over all queries on ``"cuda"``: ids,
+   distances, rounds and ``per_query_dists`` must equal phase 5's fp32
+   ``"cuda"`` run exactly.
+9. The living corpus under l2 and JSD at paper size on ``"cuda"``: build on
+   the first 90% of the corpus rows, ``append`` the other 10%, ``delete``
+   1% of the ids (seeded); at each generation range (selectivity 1e-3)
+   and kNN on two batches in fp32 and bf16, bf16 equal to fp32 exactly and
+   fp32 range held to the numpy oracle on 64 queries; then
+   ``compact(refresh_pivots=True)`` must equal a fresh ``build_bss`` over
+   the live rows field for field, and so must its hits.  Prints each
+   mutation's seconds and ``table_dists``.
+10. One JSON line with every kernel's numbers (``launches`` from the range
+   path of its metric and precision; the unmasked bf16 forms are on no
+   engine path and carry ``"on_main_path": false``), then the result line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -324,20 +352,27 @@ def boundary_hit_diffs(np, pairwise_np, metric, corpus, queries, a, b, t) -> tup
     return n_diff, bad
 
 
-def run_queries(flat_index, EngineOpts, index, queries, t, backend):
-    """All queries in batches of ``BATCH``: hit lists, per-query distance
-    counts, per-query excluded blocks and each batch's live (query tile x
-    block) cells, the tiles its exact phase computed."""
-    hits, dists, excluded, tiles = [], [], [], []
+def run_queries(flat_index, EngineOpts, index, queries, t, backend, precision="fp32"):
+    """All queries in batches of ``BATCH``: hit lists and each batch's
+    stats."""
+    hits, stats = [], []
     for s in range(0, len(queries), BATCH):
         h, st = flat_index.bss_query_batched(
-            index, queries[s:s + BATCH], t, opts=EngineOpts(backend=backend)
+            index, queries[s:s + BATCH], t,
+            opts=EngineOpts(backend=backend, precision=precision),
         )
         hits += h
-        dists.append(st["per_query_dists"])
-        excluded.append(st["excluded"]["hilbert"])
-        tiles.append(st["tiles_computed"])
-    return hits, dists, excluded, tiles
+        stats.append(st)
+    return hits, stats
+
+
+def per_query(stats: list, key: str):
+    """One per-query stats array over all batches (``excluded`` is read
+    for the Hilbert mechanism)."""
+    import numpy as np
+
+    return np.concatenate([st["excluded"]["hilbert"] if key == "excluded" else st[key]
+                           for st in stats])
 
 
 def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dict:
@@ -484,10 +519,12 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
     n_pad, dim = index.data.shape
     ops_per = PROB[metric][1] if metric in PROB else 2
     live_share = 0.0
-    for t, sel, ((hits, dists, excl, tiles), secs) in zip(ts, cfg.selectivities, cuda_runs):
+    for t, sel, ((hits, stats), secs) in zip(ts, cfg.selectivities, cuda_runs):
+        dists, excl = per_query(stats, "per_query_dists"), per_query(stats, "excluded")
+        tiles = [st["tiles_computed"] for st in stats]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        p_hits, _, _, _ = run_queries(flat_index, EngineOpts, index, queries, t, "torch")
+        p_hits, _ = run_queries(flat_index, EngineOpts, index, queries, t, "torch")
         torch.cuda.synchronize()
         plain_secs = time.perf_counter() - t0
         alive_c, alive_p = lb[backend] <= np.float32(t), lb["torch"] <= np.float32(t)
@@ -500,8 +537,6 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
         oracle_secs = time.perf_counter() - t0
         n_or_diff, bad_or = boundary_hit_diffs(
             np, pairwise_np, metric, corpus32, queries32, hits[:ORACLE_QUERIES], o_hits, t)
-        dists = np.concatenate(dists)
-        excl = np.concatenate(excl)
         n_hits = sum(len(h) for h in hits)
         live_share = sum(tiles) / (qtiles * nb)
         # the exact phase's least time per batch at this run's live tiles:
@@ -548,7 +583,10 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
 
     if metric == "l2":
         cosine_batch(np, failures, record, dev, corpus, queries32, cfg, backend)
-    return dict(counts=counts, live_share=live_share)
+    return dict(counts=counts, live_share=live_share, index=index, ts=ts,
+                fp32={t: run for t, (run, _) in zip(ts, cuda_runs)},
+                fp32_secs={t: secs for t, (_, secs) in zip(ts, cuda_runs)},
+                lb=lb[backend])
 
 
 def cosine_batch(np, failures, record, dev, corpus, queries32, cfg, backend) -> None:
@@ -617,10 +655,12 @@ def brute_force_knn(np, pairwise_np, metric, corpus, queries, k, chunk=8192):
 
 
 def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metric: str,
-             cfg, backend: str = "cuda", n_queries: int | None = None) -> dict:
+             cfg, backend: str = "cuda", n_queries: int | None = None,
+             plain_batches: int | None = None) -> dict:
     """Phase 5 for one metric: kNN (k = 10) over the queries in 512-query
-    batches on the cuda backend, held to the torch backend and a float64
-    brute force.  Returns the metric's launch counts."""
+    batches on the cuda backend, held to the torch backend (on its first
+    ``plain_batches`` batches, or all) and a float64 brute force.  Returns
+    the metric's launch counts, index and the cuda run's results."""
     from repro_torch.configs.supermetric import build_index
     from repro_torch.core import flat_index
     from repro_torch.core.backends import EngineOpts
@@ -635,11 +675,11 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
     log(f"build_bss {metric} for kNN in {time.perf_counter() - t0:.2f} s")
     nq = len(queries)
 
-    def run(name):
+    def run(name, n=nq):
         ids, dists, rounds, per_query = [], [], [], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for s in range(0, nq, BATCH):
+        for s in range(0, n, BATCH):
             i, d, st = flat_index.bss_knn_batched(
                 index, queries[s:s + BATCH], KNN_K, opts=EngineOpts(backend=name))
             ids.append(i)
@@ -658,16 +698,18 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
     expect_launches(failures, f"{metric} kNN", counts,
                     {entry: len(rounds), "planar_lower_bound": len(rounds),
                      "masked_" + entry: sum(rounds)})
-    p_ids, p_dists, p_rounds, p_per_query, p_secs = run("torch")
+    n_plain = min(nq, plain_batches * BATCH) if plain_batches else nq
+    p_ids, p_dists, p_rounds, p_per_query, p_secs = run("torch", n_plain)
 
     space = metric
     if metric == "cosine":  # the engine's space: the unit sphere under l2
         space = "l2"
         corpus32 = corpus32 / np.maximum(np.linalg.norm(corpus32, axis=1, keepdims=True), 1e-12)
         queries32 = queries32 / np.maximum(np.linalg.norm(queries32, axis=1, keepdims=True), 1e-12)
-    n_diff, bad = knn_id_diffs(np, pairwise_np, space, corpus32, queries32, ids, p_ids)
-    count_diff = np.nonzero(per_query != p_per_query)[0]
-    kth, p_kth = dists[:, -1], p_dists[:, -1]
+    n_diff, bad = knn_id_diffs(np, pairwise_np, space, corpus32, queries32, ids[:n_plain],
+                               p_ids)
+    count_diff = np.nonzero(per_query[:n_plain] != p_per_query)[0]
+    kth, p_kth = dists[:n_plain, -1], p_dists[:, -1]
     bad_counts = [int(i) for i in count_diff
                   if abs(kth[i] - p_kth[i]) > BAND * max(1.0, float(p_kth[i]))]
     t0 = time.perf_counter()
@@ -676,7 +718,7 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
                                      ids[:ORACLE_QUERIES], truth)
     row = dict(
         k=KNN_K, queries=nq, batches=len(rounds), seconds=secs, queries_per_s=nq / secs,
-        plain_torch_queries_per_s=nq / p_secs,
+        plain_torch_queries=n_plain, plain_torch_queries_per_s=n_plain / p_secs,
         rounds_per_batch=rounds, plain_torch_rounds_per_batch=p_rounds,
         dists_per_query=float(per_query.mean()),
         plain_torch_dists_per_query=float(p_per_query.mean()),
@@ -698,7 +740,346 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
                 log(f"profile jsd knn {name} " + json.dumps(prof))
         except Exception:
             failures.append(f"phase profile jsd knn raised:\n{traceback.format_exc()}")
+    return dict(counts=counts, index=index, ids=ids, dists=dists, rounds=rounds,
+                per_query=per_query, secs=secs)
+
+
+BF16_SELECTIVITIES = (1e-5, 1e-3)
+# the unmasked bf16 forms: no engine path reads them (query -> pivot
+# distances read the fp32 pivots), so their launches on the main path are 0
+OFF_PATH = ("pairwise_l2_bf16", "pairwise_jsd_bf16", "pairwise_tri_bf16")
+
+
+def bf16_range_path(torch, np, failures: list, record: dict, queries, metric: str,
+                    cfg, path: dict, backend: str = "cuda") -> dict:
+    """Phase 6 for one metric: ``precision="bf16"`` over all queries on the
+    metric's range-path index, held to that path's fp32 cuda pass exactly.
+    Returns the launch counts and the live-tile share at 1e-3."""
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.core.precision import bf16_round_np
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.tiles import TILE_BQ
+
+    index = path["index"]
+    nq, nb = len(queries), index.n_blocks
+    n_batches = -(-nq // BATCH)
+    t0 = time.perf_counter()
+    mirror = index.device_bf16
+    eps = index.bf16_margin()
+    torch.cuda.synchronize()
+    log(f"bf16 mirror {metric}: {tuple(mirror.shape)} {mirror.dtype}, band_eps {eps!r} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    if not torch.equal(mirror.float().cpu(), torch.from_numpy(bf16_round_np(index.data))):
+        failures.append(f"bf16 {metric}: device_bf16 is not bf16_round_np(index.data)")
+    chosen = [(s, t) for s, t in zip(cfg.selectivities, path["ts"]) if s in BF16_SELECTIVITIES]
+    bf16 = EngineOpts(backend=backend, precision="bf16")
+    flat_index.bss_query_batched(index, queries[:BATCH], chosen[0][1], opts=bf16)  # warm-up
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    runs = []
+    for _, t in chosen:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = run_queries(flat_index, EngineOpts, index, queries, t, backend, "bf16")
+        torch.cuda.synchronize()
+        runs.append((run, time.perf_counter() - t0))
+    counts = launch_counts()
+    log(f"{metric} bf16 range path launch counts: {counts}")
+    entry = PROB[metric][0] if metric in PROB else "pairwise_l2"
+    per_form = len(chosen) * n_batches
+    expect_launches(failures, f"{metric} bf16 range path", counts,
+                    {entry: per_form, "planar_lower_bound": per_form,
+                     "masked_" + entry + "_bf16": per_form, "masked_" + entry: per_form})
+
+    qtiles = sum(-(-min(BATCH, nq - s) // TILE_BQ) for s in range(0, nq, BATCH))
+    q_dev = torch.as_tensor(queries.astype(np.float32), device=index.torch_device)
+    eps_dev = torch.tensor(eps, dtype=torch.float32, device=index.torch_device)
+    live_share = 0.0
+    for (sel, t), ((hits, stats), secs) in zip(chosen, runs):
+        f_hits, f_stats = path["fp32"][t]
+        same = dict(
+            hits=hits == f_hits,
+            per_query_dists=bool(np.array_equal(per_query(stats, "per_query_dists"),
+                                                per_query(f_stats, "per_query_dists"))),
+            excluded=bool(np.array_equal(per_query(stats, "excluded"),
+                                         per_query(f_stats, "excluded"))),
+            tiles_computed=[st["tiles_computed"] for st in stats]
+            == [st["tiles_computed"] for st in f_stats],
+        )
+        # alive of every bf16 pass against the fp32 pass's bounds (lb <= t)
+        alive_equal = True
+        for s in range(0, nq, BATCH):
+            qb = q_dev[s:s + BATCH]
+            _, alive, _, _, _ = flat_index._query_batched_bf16(
+                metric, qb, torch.full((len(qb),), t, dtype=torch.float32, device=qb.device),
+                index.device, mirror, eps_dev, block=index.block, bq=TILE_BQ, backend=backend)
+            alive_equal &= bool(np.array_equal(alive.cpu().numpy(),
+                                               path["lb"][s:s + BATCH] <= np.float32(t)))
+        same["alive"] = alive_equal
+        # the plain backend on two batches: bf16 equal to fp32 exactly
+        q2 = queries[:2 * BATCH]
+        p16 = run_queries(flat_index, EngineOpts, index, q2, t, "torch", "bf16")
+        p32 = run_queries(flat_index, EngineOpts, index, q2, t, "torch")
+        same["torch_two_batches"] = p16[0] == p32[0] and all(
+            np.array_equal(per_query(p16[1], k), per_query(p32[1], k))
+            for k in ("per_query_dists", "excluded"))
+        tiles = sum(st["tiles_computed"] for st in stats)
+        recheck = sum(st["recheck_tiles"] for st in stats)
+        live_share = tiles / (qtiles * nb)
+        row = dict(
+            selectivity=sel, t=t, queries=nq, seconds=secs, queries_per_s=nq / secs,
+            fp32_queries_per_s=nq / path["fp32_secs"][t],
+            hits=sum(len(h) for h in hits), band_eps=stats[0]["band_eps"],
+            tiles_computed=tiles, recheck_tiles=recheck,
+            recheck_share_of_computed_tiles=recheck / tiles if tiles else 0.0,
+            recheck_points_per_query=float(per_query(stats, "per_query_recheck").mean()),
+            live_tile_share=live_share,
+            masked_bf16_launches=counts["masked_" + entry + "_bf16"],
+            masked_fp32_launches=counts["masked_" + entry],
+            equal_to_fp32=same,
+        )
+        record.setdefault("bf16 range", {}).setdefault(metric, []).append(row)
+        log(f"bf16 range {metric} " + json.dumps(row))
+        if not all(same.values()):
+            failures.append(f"bf16 range {metric} t={t}: differs from fp32: {same}")
+
+    try:  # a failed profile fails the run but keeps the checks above
+        t = chosen[-1][1]
+        prof = profile_batches(torch, lambda qb: flat_index.bss_query_batched(
+            index, qb, t, opts=bf16), queries, t=t, precision="bf16")
+        log(f"profile {metric} range bf16 {backend} " + json.dumps(prof))
+    except Exception:
+        failures.append(f"phase profile {metric} bf16 raised:\n{traceback.format_exc()}")
+    return dict(counts=counts, live_share=live_share)
+
+
+def check_bf16_kernels(torch, np, failures: list, dev, live_share: dict,
+                       shapes=MAIN_SHAPES) -> dict:
+    """Phase 7: the six bf16-corpus entry points against their plain
+    versions on the same bf16 ``y``, at the main path's shapes; the masked
+    ones at the live-tile share of their bf16 range path (one dead tile
+    row).  Bytes count ``y`` at 2 bytes; operations as the fp32 forms."""
+    from repro_torch.kernels import launch_counts, ref
+    from repro_torch.kernels import pairwise_dist as pdist
+
+    rng = np.random.default_rng(2)
+    q, p, k, n, bq, blk = (shapes[s] for s in ("q", "p", "k", "n", "bq", "blk"))
+    before = launch_counts()
+    out = {}
+    plain_of = {"l2": ref.pairwise_l2_ref, "jsd": ref.pairwise_jsd_ref,
+                "triangular": ref.pairwise_tri_ref}
+    ops_of = {"l2": 2, "jsd": JSD_OPS, "triangular": TRI_OPS}
+    for metric, plain in plain_of.items():
+        entry = "pairwise_l2" if metric == "l2" else PROB[metric][0]
+
+        def make(r, metric=metric):
+            if metric == "l2":
+                return torch.as_tensor(rng.normal(size=(r, k)).astype(np.float32), device=dev)
+            return torch.as_tensor(simplex(np, rng, r, k), device=dev)
+
+        x = make(q)
+        # unmasked: the query -> pivot shapes (Q x P)
+        piv16 = make(p).bfloat16()
+        got = pdist.pairwise_kernel_call(metric, x, piv16)
+        tol = (RTOL, ATOL) if metric == "l2" else (PROB_RTOL, PROB_ATOL)
+        err, same_inf, close = compare(torch, got, plain(x, piv16), *tol)
+        extra_ops = 2 * (q + p) * k + 4 * q * p if metric == "l2" else 0
+        nb_, no_ = bound_ms(4 * (q * k + q * p) + 2 * p * k,
+                            ops_of[metric] * q * p * k + extra_ops)
+        out[entry + "_bf16"] = _row(
+            failures, entry + "_bf16", entry, False, err, same_inf and close,
+            ms=time_ms(torch, lambda: pdist.pairwise_kernel_call(metric, x, piv16), 200),
+            plain_ms=time_ms(torch, lambda: plain(x, piv16), 50),
+            bound_ms=nb_, bound_by=no_,
+            library_ms=(time_ms(torch, lambda: torch.cdist(x, piv16.float()), 200)
+                        if metric == "l2" else None),
+        )
+        # masked: the exact phase's shapes at the path's live-tile share
+        y16 = make(n).bfloat16()
+        mask_np = rng.random((-(-q // bq), -(-n // blk))) < live_share[metric]
+        mask_np[1] = False
+        mask = torch.as_tensor(mask_np, device=dev)
+        log(f"masked {metric} bf16: live tile share {float(mask_np.mean()):.5f} (the bf16 range "
+            f"path's {live_share[metric]:.5f}, one of {mask_np.shape[0]} tile rows dead)")
+
+        def plain_masked():
+            return ref.masked_pairwise_metric_ref(plain(x, y16), mask, bq, blk)
+
+        got = pdist.masked_pairwise_kernel_call(metric, x, y16, mask, bm=bq, bn=blk)
+        err, same_inf, close = compare(torch, got, plain_masked())
+        live = int(mask_np.sum()) * bq * blk
+        rows = int(mask_np.any(axis=1).sum()) * bq
+        cols = int(mask_np.any(axis=0).sum()) * blk
+        nb_, no_ = bound_ms(4 * (rows * k + q * n + mask_np.size) + 2 * cols * k,
+                            ops_of[metric] * live * k)
+        heavy = metric != "l2"
+        out["masked_" + entry + "_bf16"] = _row(
+            failures, "masked_" + entry + "_bf16", entry, True, err, same_inf and close,
+            ms=time_ms(torch, lambda: pdist.masked_pairwise_kernel_call(
+                metric, x, y16, mask, bm=bq, bn=blk), 10 if heavy else 20),
+            plain_ms=time_ms(torch, plain_masked, 5 if heavy else 20),
+            bound_ms=nb_, bound_by=no_,
+            library_ms=None if heavy else time_ms(torch, lambda: torch.cdist(x, y16.float())),
+        )
+    after = launch_counts()
+    for name, rec in out.items():
+        rec["check_launches"] = after[name] - before[name]
+        if rec["check_launches"] <= 0:
+            failures.append(f"bf16 kernel {name} was not launched by its check")
+        log_kernel(rec)
+    return out
+
+
+def bf16_knn_path(torch, np, failures: list, record: dict, queries, metric: str,
+                  fp32: dict, backend: str = "cuda") -> dict:
+    """Phase 8 for one metric: bf16 kNN over all queries on the index of
+    phase 5, held to phase 5's fp32 cuda run exactly."""
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    index = fp32["index"]
+    nq = len(queries)
+    opts = EngineOpts(backend=backend, precision="bf16")
+    flat_index.bss_knn_batched(index, queries[:BATCH], KNN_K, opts=opts)  # warm-up
+    reset_launch_counts()
+    ids, dists, rounds, per_q, stats = [], [], [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, nq, BATCH):
+        i, d, st = flat_index.bss_knn_batched(index, queries[s:s + BATCH], KNN_K, opts=opts)
+        ids.append(i)
+        dists.append(d)
+        rounds.append(st["rounds"])
+        per_q.append(st["per_query_dists"])
+        stats.append(st)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    entry = PROB[metric][0] if metric in PROB else "pairwise_l2"
+    expect_launches(failures, f"{metric} bf16 kNN", counts,
+                    {entry: len(rounds), "planar_lower_bound": len(rounds),
+                     "masked_" + entry + "_bf16": sum(rounds), "masked_" + entry: sum(rounds)})
+    ids, dists, per_q = np.concatenate(ids), np.concatenate(dists), np.concatenate(per_q)
+    same = dict(ids=bool(np.array_equal(ids, fp32["ids"])),
+                dists=bool(np.array_equal(dists, fp32["dists"])),
+                rounds=rounds == fp32["rounds"],
+                per_query_dists=bool(np.array_equal(per_q, fp32["per_query"])))
+    tiles = sum(st["tiles_computed"] for st in stats)
+    recheck = sum(st["recheck_tiles"] for st in stats)
+    row = dict(
+        k=KNN_K, queries=nq, seconds=secs, queries_per_s=nq / secs,
+        fp32_queries_per_s=nq / fp32["secs"], rounds_per_batch=rounds,
+        band_eps=stats[0]["band_eps"], tiles_computed=tiles, recheck_tiles=recheck,
+        recheck_share_of_computed_tiles=recheck / tiles if tiles else 0.0,
+        recheck_points_per_query=float(np.concatenate(
+            [st["per_query_recheck"] for st in stats]).mean()),
+        masked_bf16_launches=counts["masked_" + entry + "_bf16"],
+        masked_fp32_launches=counts["masked_" + entry], equal_to_fp32=same,
+    )
+    record.setdefault("bf16 knn", {})[metric] = row
+    log(f"bf16 knn {metric} " + json.dumps(row))
+    if not all(same.values()):
+        failures.append(f"bf16 kNN {metric} differs from fp32: {same}")
     return counts
+
+
+def living_corpus(torch, np, failures: list, record: dict, dev, corpus, queries, metric: str,
+                  cfg, t: float, seed: int = 0) -> None:
+    """Phase 9 for one metric: build on 90% of the rows, append 10%, delete
+    1% of the ids, and compact; every generation checked on two batches."""
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.core.npdist import pairwise_np
+    from repro_torch.core.precision import bf16_round_np
+    from repro_torch.index import append, compact, delete
+
+    corpus32 = corpus.astype(np.float32)
+    queries32 = queries[:2 * BATCH].astype(np.float32)
+    n = len(corpus32)
+    n0 = int(0.9 * n)
+    fp32, bf16 = EngineOpts(backend="cuda"), EngineOpts(backend="cuda", precision="bf16")
+    row = dict(metric=metric, t=t, rows=n, built_on=n0, generations=[])
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def range_hits(index, opts):
+        hits, stats = run_queries(flat_index, EngineOpts, index, queries32, t,
+                                  opts.backend, opts.precision)
+        return hits, per_query(stats, "per_query_dists"), stats
+
+    def check(index, label):
+        h32, d32, _ = range_hits(index, fp32)
+        h16, d16, s16 = range_hits(index, bf16)
+        o_hits, _ = flat_index.bss_query(index, queries32[:ORACLE_QUERIES], t)
+        n_or, bad_or = boundary_hit_diffs(np, pairwise_np, metric, corpus32, queries32,
+                                          h32[:ORACLE_QUERIES], o_hits, t)
+        k32 = [flat_index.bss_knn_batched(index, queries32[s:s + BATCH], KNN_K, opts=fp32)
+               for s in (0, BATCH)]
+        k16 = [flat_index.bss_knn_batched(index, queries32[s:s + BATCH], KNN_K, opts=bf16)
+               for s in (0, BATCH)]
+        knn_same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                       and a[2]["rounds"] == b[2]["rounds"]
+                       and np.array_equal(a[2]["per_query_dists"], b[2]["per_query_dists"])
+                       for a, b in zip(k32, k16))
+        live = set(index.perm[index.valid].tolist())
+        stale = sum(h not in live for hits in h32 for h in hits)
+        gen = dict(label=label, generation=index.generation, n_valid=index.n_valid,
+                   n_blocks=index.n_blocks, hits=sum(map(len, h32)),
+                   band_eps=s16[0]["band_eps"],
+                   bf16_range_equal=h16 == h32 and bool(np.array_equal(d16, d32)),
+                   bf16_knn_equal=bool(knn_same), hit_boundary_diffs_vs_oracle=n_or,
+                   hits_not_live=stale)
+        row["generations"].append(gen)
+        log(f"living corpus {metric} " + json.dumps(gen))
+        if not (gen["bf16_range_equal"] and knn_same) or bad_or or stale or not gen["hits"]:
+            failures.append(f"living corpus {metric} {label}: {gen}, oracle faults {bad_or[:10]}")
+        return h32
+
+    idx0, row["build_seconds"] = timed(lambda: flat_index.build_bss(
+        metric, corpus32[:n0], cfg.n_pivots, cfg.n_pairs, cfg.block, device=dev))
+    check(idx0, "built on 90%")  # makes the fp32 and bf16 mirrors, so append extends both
+    (idx1, ms), row["append_seconds"] = timed(lambda: append(idx0, corpus32[n0:]))
+    row["append"] = dataclasses.asdict(ms)
+    extended = bool(idx1._device is not None and idx1._bf16 is not None and torch.equal(
+        idx1._bf16.float().cpu(), torch.from_numpy(bf16_round_np(idx1.data))))
+    check(idx1, "appended 10%")
+    dead = np.random.default_rng(seed).choice(n, size=n // 100, replace=False)
+    old_valid = idx1._device.valid.clone()
+    (idx2, ms), row["delete_seconds"] = timed(lambda: delete(idx1, dead.tolist()))
+    row["delete"] = dataclasses.asdict(ms)
+    untouched = bool(torch.equal(idx1._device.valid, old_valid))
+    check(idx2, "deleted 1%")
+    (idx3, ms), row["compact_seconds"] = timed(lambda: compact(idx2, refresh_pivots=True))
+    row["compact"] = dataclasses.asdict(ms)
+    h3 = check(idx3, "compacted")
+    live_pos = np.nonzero(idx2.valid)[0]
+    ids = np.sort(idx2.perm[live_pos])
+    fresh = flat_index.build_bss(metric, corpus32[ids], cfg.n_pivots, cfg.n_pairs, cfg.block,
+                                 seed=idx2.seed, device=dev)
+    mapped = np.where(fresh.perm >= 0, ids[np.clip(fresh.perm, 0, len(ids) - 1)], -1)
+    fields = {f: bool(np.array_equal(getattr(idx3, f), getattr(fresh, f)))
+              for f in ("data", "valid", "pivots", "pairs", "deltas", "boxes")}
+    fields["perm"] = bool(np.array_equal(idx3.perm, mapped))
+    fresh_hits = range_hits(fresh, fp32)[0]
+    fields["hits"] = h3 == [[int(ids[h]) for h in hits] for hits in fresh_hits]
+    row.update(mirrors_extended=extended, old_valid_untouched=untouched,
+               compact_equals_fresh_build=fields)
+    record.setdefault("living corpus", {})[metric] = row
+    log(f"living corpus {metric} " + json.dumps(
+        {k: v for k, v in row.items() if k != "generations"}))
+    if not (extended and untouched and all(fields.values())):
+        failures.append(f"living corpus {metric}: mirrors extended {extended}, old valid "
+                        f"untouched {untouched}, compact vs fresh build {fields}")
+    if row["append"]["table_dists"] != (n - n0) * cfg.n_pivots:
+        failures.append(f"living corpus {metric}: append table_dists {row['append']}")
 
 
 def main() -> int:
@@ -744,7 +1125,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    kernels, record, paths = {}, {}, {}
+    kernels, record, paths, bf16_paths, knns = {}, {}, {}, {}, {}
     dev = torch.device("cuda")
     data = {}
 
@@ -754,7 +1135,9 @@ def main() -> int:
 
     def knn_phase():
         for metric in ("l2", "jsd", "triangular"):
-            knn_path(torch, np, failures, record, dev, *data["colors"], metric, SISAP_COLORS)
+            # the plain backend takes 1.7 s a JSD batch: 4 batches for JSD / Triangular
+            knns[metric] = knn_path(torch, np, failures, record, dev, *data["colors"], metric,
+                                    SISAP_COLORS, plain_batches=None if metric == "l2" else 4)
         knn_path(torch, np, failures, record, dev, *data["colors"], "cosine", SISAP_COLORS,
                  n_queries=BATCH)
 
@@ -768,6 +1151,18 @@ def main() -> int:
             torch, np, failures, dev,
             {m: paths[m]["live_share"] for m in PROB}))),
         ("knn", knn_phase),
+        *((f"bf16 range {m}", lambda m=m: bf16_paths.update({m: bf16_range_path(
+            torch, np, failures, record, data["colors"][1], m, SISAP_COLORS, paths[m])}))
+          for m in ("l2", "jsd", "triangular")),
+        ("bf16 kernels", lambda: kernels.update(check_bf16_kernels(
+            torch, np, failures, dev, {m: p["live_share"] for m, p in bf16_paths.items()}))),
+        *((f"bf16 knn {m}", lambda m=m: bf16_knn_path(
+            torch, np, failures, record, data["colors"][1], m, knns[m]))
+          for m in ("l2", "jsd")),
+        *((f"living corpus {m}", lambda m=m: living_corpus(
+            torch, np, failures, record, dev, *data["colors"], m, SISAP_COLORS,
+            paths[m]["ts"][SISAP_COLORS.selectivities.index(1e-3)]))
+          for m in ("l2", "jsd")),
     )
     for phase, fn in phases:
         t0 = time.perf_counter()
@@ -777,12 +1172,15 @@ def main() -> int:
             failures.append(f"phase {phase} raised:\n{traceback.format_exc()}")
         log(f"phase {phase}: {time.perf_counter() - t0:.2f} s")
 
-    # launches of each kernel on its own metric's range path
+    # launches of each kernel on the range path of its metric and precision
     for name, rec in kernels.items():
         entry = "pairwise_jsd" if name == "ops.pairwise_jsd" else name
-        metric = next((m for m, (e, _) in PROB.items() if entry.endswith(e)), "l2")
-        rec["launches"] = int(paths.get(metric, {}).get("counts", {}).get(entry, 0))
-        if rec["launches"] <= 0:
+        metric = next((m for m, (e, _) in PROB.items() if e in entry), "l2")
+        on_path = bf16_paths if entry.endswith("_bf16") else paths
+        rec["launches"] = int(on_path.get(metric, {}).get("counts", {}).get(entry, 0))
+        if entry in OFF_PATH:
+            rec["on_main_path"] = False
+        elif rec["launches"] <= 0:
             failures.append(f"kernel {name} was not launched on the main path")
     log(f"total: {time.perf_counter() - start:.2f} s")
     log(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}))

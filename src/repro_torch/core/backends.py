@@ -50,8 +50,9 @@ class EngineOpts:
     * ``backend`` — ``"auto"`` | ``"cuda"`` | ``"torch"`` (module docstring).
     * ``realisation`` — kept for the reference's signature: the port runs
       one dense masked exact phase, whatever the value.
-    * ``precision`` — ``"fp32"``; ``"bf16"`` is validated here and refused
-      by the engine until the bf16 exact phase is ported.
+    * ``precision`` — ``"fp32"`` | ``"bf16"`` (the exact phase over the
+      bf16 corpus mirror with an fp32 re-check of the margin band; results
+      bit-identical to ``"fp32"``).
 
     The reference's ``interpret`` knob has no torch counterpart."""
 

@@ -1,7 +1,7 @@
 """Blocked Supermetric Scan (BSS) — the port of ``repro.core.flat_index``:
-fp32 range search and kNN for every four-point metric, with the l2, JSD and
-Triangular kernels (and cosine, served as l2 on the unit sphere) on the
-H100.
+fp32 and bf16 range search and kNN for every four-point metric, with the l2,
+JSD and Triangular kernels (and cosine, served as l2 on the unit sphere) on
+the H100.
 
 build:  ``build_bss`` is the reference's host numpy build, carried over as
         is (FFT pivots, the widest pivot-pair planes, a median-split
@@ -22,13 +22,22 @@ knn:    ``bss_knn_batched`` runs the same pieces as radius-deepening rounds
         with a stable top-k, driven by the reference's host radius
         schedule step for step (dense rounds on both backends).
 
+bf16:   ``precision="bf16"`` streams the index's bfloat16 corpus mirror
+        (``device_bf16``) through the exact phase and re-checks the
+        boundary band ``|d16 - t| <= eps`` (range) or ``d16 <= kth16 +
+        2 eps`` (kNN) against the fp32 corpus, over only the tiles that hold
+        a band point; ``eps`` is ``repro_torch.core.precision``'s margin.
+        Hits, kNN results and per-query distance counts are bit-identical
+        to the fp32 path of the same backend.
+
 ``bss_query`` is the reference's numpy oracle (float64 exact phase), kept
 as the correctness check both backends are held to.
 
 Device rule: ``build_bss(device=None)`` builds for the CUDA device and
 raises when there is none; the CPU is used only when the caller asks for
-it.  Not ported yet (ROADMAP.md): sharding (``mesh``), the bf16 exact
-phase, the reference's cell-gather realisations and the maintenance path.
+it.  Not ported yet (ROADMAP.md): sharding (``mesh``) and the reference's
+cell-gather realisations (fp32 and bf16).  The living corpus (append,
+delete, compact) is ``repro_torch.index``.
 Power transforms keep the reference's rule: with no tile kernel their
 distances run as plain pairwise on either backend.
 """
@@ -51,6 +60,7 @@ from repro_torch.core.backends import (
 )
 from repro_torch.core.distances import Metric, get_metric
 from repro_torch.core.npdist import pairwise_np
+from repro_torch.core.precision import bf16_margin, bf16_round_np
 from repro_torch.core.refpoints import select_fft
 from repro_torch.kernels.pairwise_dist import (
     KERNEL_METRICS,
@@ -144,6 +154,16 @@ class BSSIndex:
     _device: BSSDeviceArrays | None = dataclasses.field(
         default=None, repr=False, compare=False
     )
+    # bf16 exact-phase mirror (lazy): the corpus rounded to bfloat16, and
+    # the comparison margin measured on those very bits.  Pivots, deltas and
+    # boxes stay fp32, so survival sets and distance counts are the fp32
+    # engine's.  ``repro_torch.index`` keeps both across mutations.
+    _bf16: torch.Tensor | None = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+    _bf16_eps: float | None = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
     def __post_init__(self):
         self.torch_device = resolve_device(self.torch_device)
@@ -155,6 +175,12 @@ class BSSIndex:
     @property
     def n_valid(self) -> int:
         return int(self.valid.sum())
+
+    @property
+    def tombstone_frac(self) -> float:
+        """Deleted fraction of the rows the layout still carries — the
+        compaction trigger (``repro_torch.index.maybe_compact``)."""
+        return self.tombstones / max(self.tombstones + self.n_valid, 1)
 
     @property
     def metric(self) -> Metric:
@@ -174,6 +200,28 @@ class BSSIndex:
                 valid=torch.as_tensor(self.valid, dtype=torch.bool, device=dev),
             )
         return self._device
+
+    @property
+    def device_bf16(self) -> torch.Tensor:
+        """(n_pad, dim) bfloat16 corpus mirror on ``torch_device``, built
+        once.  The rounding happens on the host (``bf16_round_np``), so the
+        mirror holds exactly the bits ``bf16_margin`` measured; the device
+        cast of those bf16-representable float32 values is exact."""
+        if self._bf16 is None:
+            self._bf16 = torch.as_tensor(
+                bf16_round_np(self.data), device=self.torch_device
+            ).to(torch.bfloat16)
+        return self._bf16
+
+    def bf16_margin(self) -> float:
+        """Threshold margin of the bf16 phase (``repro_torch.core.
+        precision``), measured in the ENGINE metric over the engine-space
+        valid rows, once per index."""
+        if self._bf16_eps is None:
+            self._bf16_eps = bf16_margin(
+                _engine_metric(self.metric_name), self.data, self.valid
+            )
+        return self._bf16_eps
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +572,61 @@ def _query_batched(
     return dist, alive, tile_mask
 
 
+def _query_batched_bf16(
+    metric_name: str,
+    queries: torch.Tensor,
+    t: torch.Tensor,
+    dev: BSSDeviceArrays,
+    data16: torch.Tensor,
+    eps: torch.Tensor,
+    *,
+    block: int,
+    bq: int,
+    backend: str,
+):
+    """One bf16 range pass with the fp32 re-check of the boundary band (the
+    reference's dense ``_query_batched_bf16_jit``).
+
+    The bound phase is the fp32 one, so ``alive`` and ``tile_mask`` are the
+    fp32 pass's.  The exact phase runs over the bf16 mirror and splits each
+    distance ``d16`` by the margin ``eps``:
+
+    * ``d16 <= t - eps``: a sure hit;
+    * ``t - eps < d16 <= t + eps``: the band, re-checked in fp32 over only
+      the tiles that hold a band point, through the same masked kernel, so
+      each re-checked value is the very value the fp32 pass computes (a
+      live tile is computed alike whatever its neighbours are);
+    * anything else: a sure miss.
+
+    Returns (hit (Q, n_pad) bool, alive (Q, B), tile_mask, recheck_tiles
+    (0-d), band_counts (Q,) int32)."""
+    lb = _fused_lower_bounds(
+        metric_name, queries, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
+        backend=backend,
+    )
+    alive = lb <= t[:, None]
+    tile_mask = tile_survival(alive, bq)
+    d16 = _masked_exact_dists(
+        metric_name, queries, data16, dev.valid, tile_mask,
+        backend=backend, block=block, bq=bq,
+    )
+    t_col = t[:, None]
+    sure = d16 <= t_col - eps
+    band = (d16 <= t_col + eps) & ~sure
+    del d16  # the (Q, n_pad) block is freed before the re-check allocates its own
+    band_blocks = band.reshape(queries.shape[0], -1, block).any(dim=2)
+    recheck_mask = tile_survival(band_blocks, bq) & tile_mask
+    d32 = _masked_exact_dists(
+        metric_name, queries, dev.data, dev.valid, recheck_mask,
+        backend=backend, block=block, bq=bq,
+    )
+    hit = sure | (band & (d32 <= t_col))
+    return (
+        hit, alive, tile_mask, recheck_mask.sum(),
+        band.sum(dim=1, dtype=torch.int32),
+    )
+
+
 def _batched_stats(index: BSSIndex, alive: np.ndarray, tile_mask: np.ndarray) -> dict:
     """The paper's figure of merit for a fused pass: each query's own
     surviving blocks weighted by their VALID point counts;
@@ -549,6 +652,22 @@ def _batched_stats(index: BSSIndex, alive: np.ndarray, tile_mask: np.ndarray) ->
             "hilbert": (index.n_blocks - alive.sum(axis=1)).astype(np.int64),
         },
     }
+
+
+def _bf16_stats(stats: dict, eps: float, recheck_tiles: int,
+                per_query_recheck: np.ndarray) -> dict:
+    """Add the bf16 re-check telemetry to an engine stats dict.  The other
+    keys (the paper's figure of merit too) are the fp32 pass's; the
+    re-checked points are reported apart, never counted twice."""
+    stats["precision"] = "bf16"
+    stats["band_eps"] = float(eps)
+    stats["recheck_tiles"] = int(recheck_tiles)
+    stats["per_query_recheck"] = np.asarray(per_query_recheck, np.int64)
+    stats["recheck_points_per_query"] = (
+        float(stats["per_query_recheck"].mean())
+        if stats["per_query_recheck"].size else 0.0
+    )
+    return stats
 
 
 def _finish_stats(stats: dict, *, kind: str, backend: str,
@@ -583,15 +702,20 @@ def bss_query_batched(
     ``repro_torch.obs.schema``.  Bit-equal to ``bss_query``'s hit lists
     whenever float32 and float64 agree on ``d <= t``; batches of up to 512
     queries keep the (Q, n_pad) distance block of the exact phase on the
-    card (~208 MB at the paper's colors size)."""
+    card (~208 MB at the paper's colors size).
+
+    ``precision="bf16"`` runs the exact phase over the bf16 corpus mirror
+    and re-checks the band in fp32 (``_query_batched_bf16``): hits and
+    stats are the fp32 pass's bit for bit, and the stats gain
+    ``band_eps``, ``recheck_tiles``, ``per_query_recheck`` and
+    ``recheck_points_per_query``.  Both backends run this dense scheme
+    whatever ``realisation`` says (the reference's sparse bf16 cells wait
+    with its fp32 cell realisations)."""
     opts = resolve_engine_opts(
         opts, bq=bq, backend=backend, realisation=realisation,
         precision=precision,
     )
-    if opts.precision == "bf16":
-        raise NotImplementedError(
-            "the bf16 exact phase is not ported yet: ROADMAP Queue 1 item 5"
-        )
+    precision = opts.precision
     bq = opts.bq if opts.bq is not None else _DEFAULT_BQ
     backend = resolve_backend(opts.backend, index.torch_device)
     metric_eng = _engine_metric(index.metric_name)
@@ -603,23 +727,30 @@ def bss_query_batched(
             np.zeros((0, index.n_blocks), bool),
             np.zeros((0, index.n_blocks), bool),
         )
-        stats["precision"] = "fp32"
+        stats["precision"] = precision
+        if precision == "bf16":
+            _bf16_stats(stats, index.bf16_margin(), 0, np.zeros(0, np.int64))
         return [], _finish_stats(stats, kind="range", backend=backend)
     t_vec = _per_query_t(t, nq)
     dev = index.device
     t_dev = torch.as_tensor(t_vec, device=index.torch_device)
-    dist, alive, tile_mask = _query_batched(
-        metric_eng,
-        torch.as_tensor(queries, device=index.torch_device),
-        t_dev,
-        dev,
-        block=index.block,
-        bq=bq,
-        backend=backend,
-    )
-    # hit test on the device; nonzero is row-major, so positions ascend
-    # within each query — the oracle's order
-    pos = torch.nonzero(dist <= t_dev[:, None]).cpu().numpy()
+    q_dev = torch.as_tensor(queries, device=index.torch_device)
+    if precision == "bf16":
+        eps = index.bf16_margin()
+        hit, alive, tile_mask, recheck_tiles, band_counts = _query_batched_bf16(
+            metric_eng, q_dev, t_dev, dev, index.device_bf16,
+            torch.tensor(eps, dtype=torch.float32, device=index.torch_device),
+            block=index.block, bq=bq, backend=backend,
+        )
+    else:
+        dist, alive, tile_mask = _query_batched(
+            metric_eng, q_dev, t_dev, dev, block=index.block, bq=bq,
+            backend=backend,
+        )
+        hit = dist <= t_dev[:, None]
+    # hit extraction on the device; nonzero is row-major, so positions
+    # ascend within each query — the oracle's order
+    pos = torch.nonzero(hit).cpu().numpy()
     qidx, pidx = pos[:, 0], pos[:, 1]
     orig = index.perm[pidx]
     counts = np.bincount(qidx, minlength=nq)
@@ -627,6 +758,8 @@ def bss_query_batched(
     results = [r.tolist() for r in per_query]
     stats = _batched_stats(index, alive.cpu().numpy(), tile_mask.cpu().numpy())
     stats["precision"] = "fp32"
+    if precision == "bf16":
+        _bf16_stats(stats, eps, int(recheck_tiles), band_counts.cpu().numpy())
     return results, _finish_stats(stats, kind="range", backend=backend)
 
 
@@ -664,11 +797,69 @@ def _knn_round(
         metric_name, queries, dev.data, dev.valid, tile_mask,
         backend=backend, block=block, bq=bq,
     )  # (Q, n_pad), +inf where pruned or padding
+    return (*_round_top_k(dist, radii, alive, k), alive)
+
+
+def _round_top_k(dist: torch.Tensor, radii: torch.Tensor, alive: torch.Tensor,
+                 k: int):
+    """A round's stable top-k of ``dist`` and its ``done`` test: (cand_idx,
+    cand_dist, kth, done).  Both precisions select through it, so ties
+    fall alike."""
     cand_dist, cand_idx = torch.sort(dist, dim=1, stable=True)
     cand_dist, cand_idx = cand_dist[:, :k], cand_idx[:, :k]
     kth = cand_dist[:, -1]
     done = torch.isfinite(kth) & ((kth <= radii) | alive.all(dim=1))
-    return cand_idx, cand_dist, kth, done, alive
+    return cand_idx, cand_dist, kth, done
+
+
+def _knn_round_bf16(
+    metric_name: str,
+    queries: torch.Tensor,
+    radii: torch.Tensor,
+    lb: torch.Tensor,
+    dev: BSSDeviceArrays,
+    data16: torch.Tensor,
+    eps: torch.Tensor,
+    *,
+    k: int,
+    block: int,
+    bq: int,
+    backend: str,
+):
+    """One bf16 radius-deepening round with the fp32 re-check (the
+    reference's ``_knn_round_bf16_jit``).  Returns ``_knn_round``'s outputs
+    bit for bit, then recheck_tiles (0-d) and band_counts (Q,) int32.
+
+    The bf16 scan's kth distance ``kth16`` lies within ``eps`` of the fp32
+    kth, so every member of the fp32 top-k has ``d16 <= kth16 + 2 eps``.
+    That band is re-checked in fp32 and the top-k taken over the fp32
+    values (+inf outside the band) with ``_round_top_k``'s stable sort: every
+    excluded point lies strictly beyond the fp32 kth, so the selection and
+    its tie order are the fp32 round's.  When fewer than k cells were
+    computed, ``kth16`` is +inf and the band is every computed cell."""
+    alive = lb <= radii[:, None]
+    tile_mask = tile_survival(alive, bq)
+    d16 = _masked_exact_dists(
+        metric_name, queries, data16, dev.valid, tile_mask,
+        backend=backend, block=block, bq=bq,
+    )
+    # only the kth value is needed, so any top-k does
+    kth16 = torch.topk(d16, k, dim=1, largest=False, sorted=False).values.amax(dim=1)
+    bthr = torch.where(torch.isfinite(kth16), kth16 + 2.0 * eps, torch.inf)
+    band = (d16 <= bthr[:, None]) & torch.isfinite(d16)
+    del d16  # freed before the re-check allocates its own block
+    band_blocks = band.reshape(queries.shape[0], -1, block).any(dim=2)
+    recheck_mask = tile_survival(band_blocks, bq) & tile_mask
+    d32 = _masked_exact_dists(
+        metric_name, queries, dev.data, dev.valid, recheck_mask,
+        backend=backend, block=block, bq=bq,
+    )
+    # in place: ``d32`` is the fresh tensor _masked_exact_dists made for this call
+    dist = d32.masked_fill_(~band, torch.inf)
+    return (
+        *_round_top_k(dist, radii, alive, k), alive, recheck_mask.sum(),
+        band.sum(dim=1, dtype=torch.int32),
+    )
 
 
 def _tiles_computed(alive: np.ndarray, bq: int) -> int:
@@ -680,7 +871,8 @@ def _tiles_computed(alive: np.ndarray, bq: int) -> int:
     return int(np.concatenate([alive, pad]).reshape(qtiles, bq, nb).any(axis=1).sum())
 
 
-def _knn_empty_stats(index: BSSIndex, nq: int, backend: str) -> dict:
+def _knn_empty_stats(index: BSSIndex, nq: int, precision: str,
+                     backend: str) -> dict:
     """Stats of the kNN early returns (no queries, or no valid corpus
     point): zero rounds, zero work."""
     stats = {
@@ -689,9 +881,11 @@ def _knn_empty_stats(index: BSSIndex, nq: int, backend: str) -> dict:
         "per_query_dists": np.zeros(nq, np.int64),
         "tiles_computed": 0, "n_blocks": int(index.n_blocks),
         "generation": int(index.generation),
-        "precision": "fp32",
+        "precision": precision,
         "excluded": {"hilbert": np.zeros(nq, np.int64)},
     }
+    if precision == "bf16":
+        _bf16_stats(stats, index.bf16_margin(), 0, np.zeros(nq, np.int64))
     return _finish_stats(stats, kind="knn", backend=backend)
 
 
@@ -734,6 +928,13 @@ def bss_knn_batched(
     ``realisation="dense"``) on both backends; only the (Q, k) candidates,
     ``kth``, ``done`` and ``alive`` come back to the host.
 
+    ``precision="bf16"`` runs every round over the bf16 corpus mirror with
+    the fp32 re-check of the band ``d16 <= kth16 + 2 eps``
+    (``_knn_round_bf16``): ids, distances, the radius schedule and the
+    per-query counts are the fp32 run's bit for bit; the stats gain the
+    re-check telemetry (``band_eps``, ``recheck_tiles``,
+    ``per_query_recheck``).
+
     Returns (ids (Q, k) original ids by ascending distance, -1 where the
     corpus holds fewer than k valid points; dists (Q, k) float32, +inf
     there; stats with ``kind="knn"``)."""
@@ -741,10 +942,7 @@ def bss_knn_batched(
         opts, bq=bq, backend=backend, realisation=realisation,
         precision=precision,
     )
-    if opts.precision == "bf16":
-        raise NotImplementedError(
-            "the bf16 exact phase is not ported yet: ROADMAP Queue 1 item 5"
-        )
+    precision = opts.precision
     bq = opts.bq if opts.bq is not None else _DEFAULT_BQ
     backend = resolve_backend(opts.backend, index.torch_device)
     metric_eng = _engine_metric(index.metric_name)
@@ -757,7 +955,7 @@ def bss_knn_batched(
         return (
             np.zeros((0, k), np.int64),
             np.zeros((0, k), np.float32),
-            _knn_empty_stats(index, 0, backend),
+            _knn_empty_stats(index, 0, precision, backend),
         )
     # clamp to the VALID corpus size: with k_run > n_valid the kth distance
     # would stay inf and no round could finish early
@@ -766,10 +964,17 @@ def bss_knn_batched(
         return (
             np.full((nq, k), -1, np.int64),
             np.full((nq, k), np.inf, np.float32),
-            _knn_empty_stats(index, nq, backend),
+            _knn_empty_stats(index, nq, precision, backend),
         )
     dev = index.device
     q_dev = torch.as_tensor(queries, device=index.torch_device)
+    bf16 = precision == "bf16"
+    if bf16:
+        eps = index.bf16_margin()
+        data16 = index.device_bf16
+        eps_dev = torch.tensor(eps, dtype=torch.float32, device=index.torch_device)
+    recheck_pq = np.zeros(nq, np.int64)
+    recheck_tiles_total = 0
     lb_dev = _fused_lower_bounds(
         metric_eng, q_dev, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
         backend=backend,
@@ -796,12 +1001,23 @@ def bss_knn_batched(
             # exhaustive fallback for stragglers: radius inf computes every
             # block, so this round is final for them
             radii = np.where(done, radii, np.inf).astype(np.float32)
-        ci, cd, kth, dn, alive = (
-            a.cpu().numpy() for a in _knn_round(
-                metric_eng, q_dev, torch.as_tensor(radii, device=index.torch_device),
-                lb_dev, dev, k=k_run, block=index.block, bq=bq, backend=backend,
+        radii_dev = torch.as_tensor(radii, device=index.torch_device)
+        if bf16:
+            ci, cd, kth, dn, alive, rtiles, band_counts = (
+                a.cpu().numpy() for a in _knn_round_bf16(
+                    metric_eng, q_dev, radii_dev, lb_dev, dev, data16, eps_dev,
+                    k=k_run, block=index.block, bq=bq, backend=backend,
+                )
             )
-        )
+            recheck_tiles_total += int(rtiles)
+            recheck_pq += np.where(~done, band_counts, 0)
+        else:
+            ci, cd, kth, dn, alive = (
+                a.cpu().numpy() for a in _knn_round(
+                    metric_eng, q_dev, radii_dev, lb_dev, dev,
+                    k=k_run, block=index.block, bq=bq, backend=backend,
+                )
+            )
         upd = ~done  # finished queries are frozen
         cand_idx[upd] = ci[upd]
         cand_dist[upd] = cd[upd]
@@ -840,11 +1056,13 @@ def bss_knn_batched(
         "tiles_computed": tiles_total,
         "n_blocks": int(index.n_blocks),
         "generation": int(index.generation),
-        "precision": "fp32",
+        "precision": precision,
         # rounds x blocks the Hilbert bound pruned from the exact phase,
         # per query over its unfinished rounds only
         "excluded": {"hilbert": excl_pq},
     }
+    if bf16:
+        _bf16_stats(stats, eps, recheck_tiles_total, recheck_pq)
     stats = _finish_stats(stats, kind="knn", backend=backend)
     orig = np.where(np.isfinite(cand_dist), index.perm[cand_idx], -1)
     if k_run < k:  # corpus smaller than k: pad out to the requested width

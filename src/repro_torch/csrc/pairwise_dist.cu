@@ -27,7 +27,15 @@
 // a block none of whose cells is live writes +inf and exits before loading
 // anything; a partly live block computes and writes +inf into dead cells.
 // The output comes from torch.empty, so every element is written.
+//
+// y may be float32 or bfloat16 (the engines' bf16 corpus mirror, which
+// replaces the same Pallas calls compiled for a bf16 y: the Pallas tile
+// upcasts on entry, pairwise_dist.py:83-84).  A bf16 element is loaded as
+// __nv_bfloat16 and widened with __bfloat162float, which is exact; every
+// operation after that load is the float32 kernel's, in the same order.
+// x stays float32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -40,9 +48,13 @@ constexpr int PAD = 4;        // keeps rows 16-byte aligned
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
-template <bool MASKED, bool SQUARED>
+// y's element as float32: exact for both element types
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename YT, bool MASKED, bool SQUARED>
 __global__ void __launch_bounds__(THREADS)
-l2_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
+l2_tile_kernel(const float* __restrict__ x, const YT* __restrict__ y,
                const int* __restrict__ mask, float* __restrict__ out,
                int m, int n, int k, int bm, int bn, int mask_cols) {
   const int r0 = blockIdx.y * TM;
@@ -89,7 +101,7 @@ l2_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
     for (int i = threadIdx.x; i < TM * KC; i += THREADS) {
       const int r = i / KC, kk = i % KC, gk = k0 + kk;
       xs[kk][r] = (r < rows && gk < k) ? x[(size_t)(r0 + r) * k + gk] : 0.0f;
-      ys[kk][r] = (r < cols && gk < k) ? y[(size_t)(c0 + r) * k + gk] : 0.0f;
+      ys[kk][r] = (r < cols && gk < k) ? widen(y[(size_t)(c0 + r) * k + gk]) : 0.0f;
     }
     __syncthreads();
     if (threadIdx.x < TM) {
@@ -145,16 +157,16 @@ l2_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-template <bool MASKED>
-int launch(const float* x, const float* y, const int* mask, float* out, int m,
+template <typename YT, bool MASKED>
+int launch(const float* x, const YT* y, const int* mask, float* out, int m,
            int n, int k, int bm, int bn, int squared, void* stream) {
   const dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM);
   const int mask_cols = MASKED ? (n + bn - 1) / bn : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (squared) {
-    l2_tile_kernel<MASKED, true><<<grid, THREADS, 0, s>>>(x, y, mask, out, m, n, k, bm, bn, mask_cols);
+    l2_tile_kernel<YT, MASKED, true><<<grid, THREADS, 0, s>>>(x, y, mask, out, m, n, k, bm, bn, mask_cols);
   } else {
-    l2_tile_kernel<MASKED, false><<<grid, THREADS, 0, s>>>(x, y, mask, out, m, n, k, bm, bn, mask_cols);
+    l2_tile_kernel<YT, MASKED, false><<<grid, THREADS, 0, s>>>(x, y, mask, out, m, n, k, bm, bn, mask_cols);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -165,7 +177,7 @@ int launch(const float* x, const float* y, const int* mask, float* out, int m,
 // current device.  Returns the cudaError_t of the launch.
 extern "C" int pairwise_l2(const float* x, const float* y, float* out, int m,
                            int n, int k, int squared, void* stream) {
-  return launch<false>(x, y, nullptr, out, m, n, k, 1, 1, squared, stream);
+  return launch<float, false>(x, y, nullptr, out, m, n, k, 1, 1, squared, stream);
 }
 
 // As pairwise_l2, with mask (ceil(m / bm), ceil(n / bn)) int32: +inf in
@@ -174,5 +186,19 @@ extern "C" int masked_pairwise_l2(const float* x, const float* y,
                                   const int* mask, float* out, int m, int n,
                                   int k, int bm, int bn, int squared,
                                   void* stream) {
-  return launch<true>(x, y, mask, out, m, n, k, bm, bn, squared, stream);
+  return launch<float, true>(x, y, mask, out, m, n, k, bm, bn, squared, stream);
+}
+
+// The same two entry points with a bfloat16 y (the bf16 corpus mirror).
+extern "C" int pairwise_l2_bf16(const float* x, const __nv_bfloat16* y,
+                                float* out, int m, int n, int k, int squared,
+                                void* stream) {
+  return launch<__nv_bfloat16, false>(x, y, nullptr, out, m, n, k, 1, 1, squared, stream);
+}
+
+extern "C" int masked_pairwise_l2_bf16(const float* x, const __nv_bfloat16* y,
+                                       const int* mask, float* out, int m,
+                                       int n, int k, int bm, int bn,
+                                       int squared, void* stream) {
+  return launch<__nv_bfloat16, true>(x, y, mask, out, m, n, k, bm, bn, squared, stream);
 }

@@ -53,7 +53,13 @@
 // loading anything; a partly live block computes and writes +inf into its
 // dead cells.  The output comes from torch.empty, so every element is
 // written.
+//
+// y may be float32 or bfloat16 (the engines' bf16 corpus mirror; the Pallas
+// tiles upcast y on entry).  A bf16 element is loaded as __nv_bfloat16 and
+// widened with __bfloat162float, which is exact; everything after that load
+// is the float32 kernel's arithmetic in the same order.  x stays float32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -72,13 +78,17 @@ constexpr float LN2 = 0.693147180559945309f;
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
+// y's element as float32: exact for both element types
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 __device__ __forceinline__ float xlogx(float v) {
   return v > EPS ? __fmul_rn(v, logf(fmaxf(v, EPS))) : 0.0f;
 }
 
-template <int METRIC, bool MASKED>
+template <typename YT, int METRIC, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
-prob_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
+prob_tile_kernel(const float* __restrict__ x, const YT* __restrict__ y,
                  const int* __restrict__ mask, float* __restrict__ out,
                  int m, int n, int k, int bm, int bn, int mask_cols) {
   const int r0 = blockIdx.y * TM;
@@ -126,7 +136,7 @@ prob_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
       const int r = i / KC, kk = i % KC, gk = k0 + kk;
       // zero padding: xlogx(0) = 0, and (0 - 0)^2 / 1e-12 = 0
       const float xv = (r < rows && gk < k) ? x[(size_t)(r0 + r) * k + gk] : 0.0f;
-      const float yv = (r < cols && gk < k) ? y[(size_t)(c0 + r) * k + gk] : 0.0f;
+      const float yv = (r < cols && gk < k) ? widen(y[(size_t)(c0 + r) * k + gk]) : 0.0f;
       xs[kk][r] = xv;
       ys[kk][r] = yv;
       if (METRIC == JSD) {
@@ -193,12 +203,12 @@ prob_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-template <int METRIC, bool MASKED>
-int launch(const float* x, const float* y, const int* mask, float* out, int m,
+template <typename YT, int METRIC, bool MASKED>
+int launch(const float* x, const YT* y, const int* mask, float* out, int m,
            int n, int k, int bm, int bn, void* stream) {
   const dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM);
   const int mask_cols = MASKED ? (n + bn - 1) / bn : 0;
-  prob_tile_kernel<METRIC, MASKED><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  prob_tile_kernel<YT, METRIC, MASKED><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       x, y, mask, out, m, n, k, bm, bn, mask_cols);
   return static_cast<int>(cudaGetLastError());
 }
@@ -210,12 +220,12 @@ int launch(const float* x, const float* y, const int* mask, float* out, int m,
 // the cudaError_t of its launch.
 extern "C" int pairwise_jsd(const float* x, const float* y, float* out, int m,
                             int n, int k, void* stream) {
-  return launch<JSD, false>(x, y, nullptr, out, m, n, k, 1, 1, stream);
+  return launch<float, JSD, false>(x, y, nullptr, out, m, n, k, 1, 1, stream);
 }
 
 extern "C" int pairwise_tri(const float* x, const float* y, float* out, int m,
                             int n, int k, void* stream) {
-  return launch<TRI, false>(x, y, nullptr, out, m, n, k, 1, 1, stream);
+  return launch<float, TRI, false>(x, y, nullptr, out, m, n, k, 1, 1, stream);
 }
 
 // As above, with mask (ceil(m / bm), ceil(n / bn)) int32: +inf in every
@@ -223,11 +233,40 @@ extern "C" int pairwise_tri(const float* x, const float* y, float* out, int m,
 extern "C" int masked_pairwise_jsd(const float* x, const float* y,
                                    const int* mask, float* out, int m, int n,
                                    int k, int bm, int bn, void* stream) {
-  return launch<JSD, true>(x, y, mask, out, m, n, k, bm, bn, stream);
+  return launch<float, JSD, true>(x, y, mask, out, m, n, k, bm, bn, stream);
 }
 
 extern "C" int masked_pairwise_tri(const float* x, const float* y,
                                    const int* mask, float* out, int m, int n,
                                    int k, int bm, int bn, void* stream) {
-  return launch<TRI, true>(x, y, mask, out, m, n, k, bm, bn, stream);
+  return launch<float, TRI, true>(x, y, mask, out, m, n, k, bm, bn, stream);
+}
+
+// The same four entry points with a bfloat16 y (the bf16 corpus mirror).
+extern "C" int pairwise_jsd_bf16(const float* x, const __nv_bfloat16* y,
+                                 float* out, int m, int n, int k,
+                                 void* stream) {
+  return launch<__nv_bfloat16, JSD, false>(x, y, nullptr, out, m, n, k, 1, 1, stream);
+}
+
+extern "C" int pairwise_tri_bf16(const float* x, const __nv_bfloat16* y,
+                                 float* out, int m, int n, int k,
+                                 void* stream) {
+  return launch<__nv_bfloat16, TRI, false>(x, y, nullptr, out, m, n, k, 1, 1, stream);
+}
+
+extern "C" int masked_pairwise_jsd_bf16(const float* x,
+                                        const __nv_bfloat16* y,
+                                        const int* mask, float* out, int m,
+                                        int n, int k, int bm, int bn,
+                                        void* stream) {
+  return launch<__nv_bfloat16, JSD, true>(x, y, mask, out, m, n, k, bm, bn, stream);
+}
+
+extern "C" int masked_pairwise_tri_bf16(const float* x,
+                                        const __nv_bfloat16* y,
+                                        const int* mask, float* out, int m,
+                                        int n, int k, int bm, int bn,
+                                        void* stream) {
+  return launch<__nv_bfloat16, TRI, true>(x, y, mask, out, m, n, k, bm, bn, stream);
 }

@@ -21,8 +21,12 @@ no tile and run as plain pairwise in the engine on either backend.
 Every wrapper runs its plain version (``repro_torch.kernels.ref``) only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches per C entry point and nothing else.
-Only float32 operands: the bf16 ``y`` of the bf16 exact phase is not
-ported yet.
+
+``x`` is float32; ``y`` is float32 or bfloat16 (the bf16 exact phase streams
+the engine's bfloat16 corpus mirror).  Each C entry point has a ``_bf16``
+twin, the same kernel template with ``y`` loaded as bfloat16 and widened to
+float32 exactly on entry, as every Pallas tile upcasts; the wrappers pick
+the entry point by ``y.dtype``.
 """
 
 from __future__ import annotations
@@ -64,26 +68,36 @@ _TILES = {
 }
 KERNEL_METRICS = tuple(_TILES)
 
+# y dtype -> suffix of the C entry point that reads it
+_Y_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+
 LAUNCHES = {
-    name: 0 for tile in _TILES.values() for name in (tile.entry, "masked_" + tile.entry)
+    prefix + tile.entry + suffix: 0
+    for tile in _TILES.values()
+    for suffix in _Y_SUFFIX.values()
+    for prefix in ("", "masked_")
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C argument types: x, y, [mask,] out, m, n, k, [bm, bn,] [squared,] stream
 _SIGNATURES = {
     "pairwise_dist": {
-        "pairwise_l2": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "masked_pairwise_l2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        **{"pairwise_l2" + s: [_P, _P, _P, _I, _I, _I, _I, _P] for s in _Y_SUFFIX.values()},
+        **{"masked_pairwise_l2" + s: [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+           for s in _Y_SUFFIX.values()},
     },
     "prob_dist": {
-        **{e: [_P, _P, _P, _I, _I, _I, _P] for e in ("pairwise_jsd", "pairwise_tri")},
-        **{f"masked_{e}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-           for e in ("pairwise_jsd", "pairwise_tri")},
+        **{e + s: [_P, _P, _P, _I, _I, _I, _P]
+           for e in ("pairwise_jsd", "pairwise_tri") for s in _Y_SUFFIX.values()},
+        **{f"masked_{e}{s}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+           for e in ("pairwise_jsd", "pairwise_tri") for s in _Y_SUFFIX.values()},
     },
 }
 
 
-def _check_pair(x: torch.Tensor, y: torch.Tensor) -> None:
+def _check_pair(x: torch.Tensor, y: torch.Tensor) -> str:
+    """Validate an (x, y) operand pair; returns the suffix of the C entry
+    point that reads ``y``'s dtype."""
     if x.ndim != 2 or y.ndim != 2:
         raise ValueError(f"x and y must be 2-D, got {tuple(x.shape)} and {tuple(y.shape)}")
     if x.shape[1] != y.shape[1]:
@@ -92,12 +106,11 @@ def _check_pair(x: torch.Tensor, y: torch.Tensor) -> None:
         )
     if x.device != y.device:
         raise ValueError(f"x on {x.device} but y on {y.device}")
-    if y.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "bf16 y (the bf16 exact phase) is not ported yet: ROADMAP Queue 1 item 5"
+    if x.dtype != torch.float32 or y.dtype not in _Y_SUFFIX:
+        raise TypeError(
+            f"x must be float32 and y float32 or bfloat16, got {x.dtype} and {y.dtype}"
         )
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
-        raise TypeError(f"x and y must be float32, got {x.dtype} and {y.dtype}")
+    return _Y_SUFFIX[y.dtype]
 
 
 def _check_launchable(*tensors: torch.Tensor) -> None:
@@ -137,7 +150,7 @@ def _tile(metric_name: str) -> _Tile:
 def _pairwise(metric_name: str, x: torch.Tensor, y: torch.Tensor,
               squared: bool = False) -> torch.Tensor:
     tile = _tile(metric_name)
-    _check_pair(x, y)
+    suffix = _check_pair(x, y)
     l2_args = (int(squared),) if metric_name == "l2" else ()
     if x.device.type == "cpu":
         return tile.plain(x, y, *l2_args)
@@ -145,7 +158,7 @@ def _pairwise(metric_name: str, x: torch.Tensor, y: torch.Tensor,
     (m, k), n = x.shape, y.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m and n:
-        _launch(tile.source, tile.entry, out,
+        _launch(tile.source, tile.entry + suffix, out,
                 x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, *l2_args)
     return out
 
@@ -154,7 +167,7 @@ def _masked(metric_name: str, x: torch.Tensor, y: torch.Tensor,
             tile_mask: torch.Tensor, bm: int, bn: int,
             squared: bool = False) -> torch.Tensor:
     tile = _tile(metric_name)
-    _check_pair(x, y)
+    suffix = _check_pair(x, y)
     (m, k), n = x.shape, y.shape[0]
     if bm <= 0 or bn <= 0:
         raise ValueError(f"bm and bn must be positive, got {bm}, {bn}")
@@ -173,7 +186,7 @@ def _masked(metric_name: str, x: torch.Tensor, y: torch.Tensor,
     _check_launchable(x, y, mask)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m and n:
-        _launch(tile.source, "masked_" + tile.entry, out,
+        _launch(tile.source, "masked_" + tile.entry + suffix, out,
                 x.data_ptr(), y.data_ptr(), mask.data_ptr(), out.data_ptr(),
                 m, n, k, bm, bn, *l2_args)
     return out
@@ -182,7 +195,8 @@ def _masked(metric_name: str, x: torch.Tensor, y: torch.Tensor,
 def pairwise_l2_kernel_call(
     x: torch.Tensor, y: torch.Tensor, *, squared: bool = False
 ) -> torch.Tensor:
-    """(m, K), (n, K) float32 -> (m, n) Euclidean (or squared) distances."""
+    """(m, K) float32, (n, K) float32 or bfloat16 -> (m, n) float32
+    Euclidean (or squared) distances."""
     return _pairwise("l2", x, y, squared)
 
 

@@ -7,7 +7,9 @@ every CUDA kernel against its plain version on the card.  They repeat the
 kernels' arithmetic in the reference's order and are no yardstick of speed.
 The JSD and Triangular versions are the registry's own functions
 (``repro_torch.core.distances``), which run over column chunks of ``y`` so
-a paper-size exact phase fits on the card.
+a paper-size exact phase fits on the card.  ``y`` may be the bfloat16
+corpus mirror of the bf16 exact phase: every plain version upcasts it to
+float32 on entry, as every Pallas tile does; ``x`` stays float32.
 """
 
 from __future__ import annotations

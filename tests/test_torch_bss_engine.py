@@ -290,8 +290,10 @@ def test_backend_rules_on_a_cpu_index():
     assert stats["backend"] == "torch"
     assert auto == t_flat.bss_query_batched(t_idx, q, 0.5, backend="torch")[0]
     assert t_backends.resolve_backend("auto", torch.device("cpu")) == "torch"
-    with pytest.raises(NotImplementedError, match="bf16"):
-        t_flat.bss_query_batched(t_idx, q, 0.5, opts=EngineOpts(precision="bf16"))
+    h16, s16 = t_flat.bss_query_batched(t_idx, q, 0.5, opts=EngineOpts(precision="bf16"))
+    assert h16 == auto and s16["precision"] == "bf16" and s16["backend"] == "torch"
+    with pytest.raises(ValueError, match="fp32\\|bf16"):
+        EngineOpts(precision="fp16")
     with pytest.raises(ValueError, match="not both"):
         t_flat.bss_query_batched(t_idx, q, 0.5, opts=EngineOpts(), bq=8)
     with pytest.raises(ValueError, match="auto\\|cuda\\|torch"):

@@ -12,7 +12,9 @@ matmul, so rtol = atol = 1e-5 in fp32 (the reference's kernel sweeps,
 Triangular tiles sum K terms in another order than ``torch.sum``, and
 take the reference sweep's rtol = 1e-4 / atol = 1e-5 unmasked and
 1e-5 masked; the planar bound is built without FMA contraction and must be
-bit-equal.  The input shapes and makers are shared with
+bit-equal.  The bf16-y forms are held at the same tolerances against the
+plain versions fed the same bf16 ``y``, and must equal the fp32 forms on
+the upcast ``y`` bit for bit.  The input shapes and makers are shared with
 ``tests/test_torch_kernels.py``.
 """
 
@@ -25,6 +27,8 @@ import torch
 from repro_torch.core import flat_index
 from repro_torch.core.backends import EngineOpts
 from repro_torch.core.npdist import pairwise_np
+from repro_torch.core.precision import bf16_round_np
+from repro_torch.index import append, compact, delete
 from repro_torch.kernels import _build, launch_counts, ops, ref, reset_launch_counts
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -233,3 +237,110 @@ def test_knn_cuda_backend_matches_torch_backend(card, metric):
     truth = pairwise_np(metric, q, db)
     for i in range(len(q)):
         assert set(got[i]) == set(np.argsort(truth[i], kind="stable")[:10]), i
+
+
+# ------------------------------------------------------- bf16 corpus forms
+
+
+def _bf16_entry(metric, masked):
+    return ("masked_" if masked else "") + _entry(metric) + "_bf16"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "jsd", "triangular"])
+@pytest.mark.parametrize("m,n,k", PAIRWISE_SHAPES + [(512, 16, 112)])
+def test_bf16_kernel_matches_plain(card, metric, m, n, k):
+    """The unmasked bf16-y forms against their plain versions fed the same
+    bf16 y (the plain versions upcast it on entry)."""
+    rng = np.random.default_rng(m + 3 * n + k)
+    maker = normal if metric == "l2" else simplex
+    x = torch.from_numpy(maker(rng, m, k)).to(card)
+    y = torch.from_numpy(maker(rng, n, k)).to(card).bfloat16()
+    entry = _bf16_entry(metric, False)
+    before = launch_counts()[entry]
+    got = ops.pairwise_metric(metric, x, y)
+    torch.cuda.synchronize()
+    assert launch_counts()[entry] == before + 1
+    plain = ref.pairwise_l2_ref if metric == "l2" else PROB_PLAIN[metric]
+    assert_same(got.cpu().numpy(), plain(x, y).cpu().numpy(),
+                **(TOL if metric == "l2" else PROB_TOL))
+    # the bf16 form reads the same values as the fp32 form of the upcast y
+    assert torch.equal(got, ops.pairwise_metric(metric, x, y.float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "jsd", "triangular"])
+@pytest.mark.parametrize("m,n,k,bm,bn", MASKED_CASES + [(512, 101_504, 112, 128, 128)])
+def test_masked_bf16_kernel_matches_plain(card, metric, m, n, k, bm, bn):
+    rng = np.random.default_rng(2 * m + n + k)
+    maker = normal if metric == "l2" else simplex
+    x = torch.from_numpy(maker(rng, m, k)).to(card)
+    y = torch.from_numpy(maker(rng, n, k)).to(card).bfloat16()
+    tm = rng.random((math.ceil(m / bm), math.ceil(n / bn))) < 0.3
+    tm[-1] = False  # an all-dead row of tiles
+    tm = torch.from_numpy(tm).to(card)
+    entry = _bf16_entry(metric, True)
+    before = launch_counts()[entry]
+    got = ops.masked_pairwise_metric(metric, x, y, tm, bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert launch_counts()[entry] == before + 1
+    dense = ref.pairwise_l2_ref if metric == "l2" else PROB_PLAIN[metric]
+    want = ref.masked_pairwise_metric_ref(dense(x, y), tm, bm, bn)
+    assert_same(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(got, ops.masked_pairwise_metric(metric, x, y.float(), tm, bm=bm, bn=bn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cosine", "jsd", "triangular"])
+def test_engine_bf16_equals_fp32_on_card(card, metric):
+    """bf16 range and kNN through the kernels equal the fp32 path of the
+    same backend bit for bit, and run the bf16 masked form."""
+    db, q = _engine_case(metric)
+    index = flat_index.build_bss(metric, db, n_pivots=8, n_pairs=12, block=64, device=card)
+    t = safe_threshold(pairwise_np(metric, q, db), 0.01)
+    fp32, bf16 = EngineOpts(backend="cuda"), EngineOpts(backend="cuda", precision="bf16")
+    reset_launch_counts()
+    h16, s16 = flat_index.bss_query_batched(index, q, t, opts=bf16)
+    counts, entry = launch_counts(), _entry(metric)
+    assert counts["masked_" + entry + "_bf16"] == counts["masked_" + entry] == 1
+    h32, s32 = flat_index.bss_query_batched(index, q, t, opts=fp32)
+    assert h16 == h32 and sum(map(len, h16)) > 0
+    np.testing.assert_array_equal(s16["per_query_dists"], s32["per_query_dists"])
+    i16, d16, k16 = flat_index.bss_knn_batched(index, q, 10, opts=bf16)
+    i32, d32, k32 = flat_index.bss_knn_batched(index, q, 10, opts=fp32)
+    np.testing.assert_array_equal(i16, i32)
+    np.testing.assert_array_equal(d16, d32)
+    assert k16["rounds"] == k32["rounds"]
+    np.testing.assert_array_equal(k16["per_query_dists"], k32["per_query_dists"])
+    assert torch.equal(index.device_bf16.float().cpu(),
+                       torch.from_numpy(bf16_round_np(index.data)))
+
+
+@pytest.mark.cuda
+def test_living_corpus_on_card(card):
+    """append / delete / compact with live device mirrors: fp32 and bf16
+    agree at every generation, and compact equals a fresh build."""
+    db, q = _engine_case("jsd")
+    index = flat_index.build_bss("jsd", db[:2700], n_pivots=8, n_pairs=12, block=64,
+                                 device=card)
+    t = safe_threshold(pairwise_np("jsd", q, db), 0.01)
+    bf16 = EngineOpts(backend="cuda", precision="bf16")
+    gens = [index]
+    flat_index.bss_query_batched(index, q, t, opts=bf16)  # builds both mirrors
+    gens.append(append(gens[-1], db[2700:])[0])
+    gens.append(delete(gens[-1], list(range(0, 3000, 97)))[0])
+    for g in gens:
+        want = flat_index.bss_query(g, q, t)[0]
+        assert flat_index.bss_query_batched(g, q, t, opts=bf16)[0] == want
+        assert flat_index.bss_query_batched(g, q, t, opts=EngineOpts(backend="cuda"))[0] == want
+    assert torch.equal(gens[1].device_bf16.float().cpu(),
+                       torch.from_numpy(bf16_round_np(gens[1].data)))
+    compacted, _ = compact(gens[-1])
+    live = np.nonzero(gens[-1].valid)[0]
+    ids = np.sort(gens[-1].perm[live])
+    fresh = flat_index.build_bss("jsd", db[ids], n_pivots=8, n_pairs=12, block=64, device=card)
+    np.testing.assert_array_equal(compacted.data, fresh.data)
+    np.testing.assert_array_equal(compacted.boxes, fresh.boxes)
+    got = flat_index.bss_query_batched(compacted, q, t, opts=bf16)[0]
+    assert got == [[int(ids[h]) for h in row]
+                   for row in flat_index.bss_query_batched(fresh, q, t)[0]]

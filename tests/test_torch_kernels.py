@@ -145,6 +145,37 @@ def test_masked_prob_plain_matches_pallas(metric, m, n, k):
     assert np.isinf(got.numpy()[:bm, :bn]).all()
 
 
+@pytest.mark.parametrize("metric", ["l2", "jsd", "triangular"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bf16_y_plain_matches_pallas(metric, masked):
+    """The bf16-y forms (the Pallas calls compiled for a bfloat16 ``y``,
+    the engines' bf16 corpus mirror): the same bf16 ``y`` through the
+    Pallas tile in interpret mode and through the plain version, which
+    upcasts it on entry.  Tolerances as for the float32 forms."""
+    rng = np.random.default_rng(21 + int(masked))
+    m, n, k, bm, bn = 100, 300, 40, 64, 128
+    maker = (lambda r, a, b: normal(r, a, b)) if metric == "l2" else gamma_simplex
+    x, y = maker(rng, m, k), maker(rng, n, k)
+    y16 = torch.from_numpy(y).bfloat16()
+    y_j = jnp.asarray(y).astype(jnp.bfloat16)
+    np.testing.assert_array_equal(y16.float().numpy(), np.asarray(y_j, np.float32))
+    if masked:
+        tm = rng.integers(0, 2, size=(math.ceil(m / bm), math.ceil(n / bn))).astype(np.int32)
+        tm[0, 0] = 0
+        want = np.asarray(r_pdist.masked_pairwise_kernel_call(
+            metric, jnp.asarray(x), y_j, jnp.asarray(tm), bm=bm, bn=bn, interpret=True))
+        got = ops.masked_pairwise_metric(metric, torch.from_numpy(x), y16,
+                                         torch.from_numpy(tm), bm=bm, bn=bn)
+        tol = TOL
+    else:
+        want = np.asarray(r_pdist.pairwise_kernel_call(
+            metric, jnp.asarray(x), y_j, interpret=True))
+        got = ops.pairwise_metric(metric, torch.from_numpy(x), y16)
+        tol = TOL if metric == "l2" else PROB_TOL
+    assert got.dtype == torch.float32
+    assert_same(got.numpy(), want, **tol)
+
+
 @pytest.mark.parametrize("metric", ["jsd", "triangular"])
 def test_prob_plain_chunked_equals_unchunked(metric, monkeypatch):
     """The plain tiles run over column chunks of ``y``; with the byte budget
@@ -213,19 +244,28 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ops.masked_pairwise_l2(x, y, torch.ones(2, 3, dtype=torch.int32), bm=4, bn=4)
     with pytest.raises(ValueError, match="feature dimension"):
         ops.pairwise_l2(x, torch.ones(7, 4))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ops.pairwise_l2(x, y.bfloat16())
+    # a bf16 y is the bf16 exact phase's corpus mirror: upcast on entry
+    assert torch.equal(ops.pairwise_l2(x, y.bfloat16()), ops.pairwise_l2(x, y))
     with pytest.raises(TypeError):
         ops.pairwise_l2(x.double(), y.double())
+    with pytest.raises(TypeError):  # x stays float32
+        ops.pairwise_l2(x.bfloat16(), y.bfloat16())
+    with pytest.raises(TypeError):  # no float16 corpus
+        ops.pairwise_l2(x, y.half())
     for name in ("cosine", "l1^0.5", "nope"):  # no tile: served as l2, or plain
         with pytest.raises(KeyError, match="no tile kernel"):
             ops.pairwise_metric(name, x, y)
     with pytest.raises(KeyError, match="no tile kernel"):
         ops.masked_pairwise_metric("l1", x, y, torch.ones(1, 1), bm=8, bn=8)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ops.pairwise_jsd(x, y.bfloat16())
-    with pytest.raises(NotImplementedError, match="bf16"):
+    assert torch.equal(ops.pairwise_jsd(x, y.bfloat16()), ops.pairwise_jsd(x, y))
+    assert torch.equal(
         ops.masked_pairwise_metric("triangular", x, y.bfloat16(), torch.ones(1, 1),
+                                   bm=8, bn=8),
+        ops.masked_pairwise_metric("triangular", x, y, torch.ones(1, 1), bm=8, bn=8))
+    with pytest.raises(TypeError):
+        ops.pairwise_jsd(x.bfloat16(), y)
+    with pytest.raises(TypeError):
+        ops.masked_pairwise_metric("triangular", x, y.half(), torch.ones(1, 1),
                                    bm=8, bn=8)
     with pytest.raises(ValueError, match="does not match"):
         ops.masked_pairwise_metric("jsd", x, y, torch.ones(2, 2), bm=8, bn=8)
@@ -241,7 +281,11 @@ def test_cpu_runs_count_no_launches():
     p = torch.from_numpy(simplex(np.random.default_rng(0), 9, 4))
     ops.pairwise_jsd(p, p)
     ops.masked_pairwise_metric("triangular", p, p, torch.ones(1, 1), bm=16, bn=16)
+    ops.masked_pairwise_metric("jsd", p, p.bfloat16(), torch.ones(1, 1), bm=16, bn=16)
+    ops.pairwise_l2(d1, d2.bfloat16())
     assert launch_counts() == {
         "pairwise_l2": 0, "masked_pairwise_l2": 0, "pairwise_jsd": 0,
         "masked_pairwise_jsd": 0, "pairwise_tri": 0, "masked_pairwise_tri": 0,
-        "planar_lower_bound": 0}
+        "pairwise_l2_bf16": 0, "masked_pairwise_l2_bf16": 0, "pairwise_jsd_bf16": 0,
+        "masked_pairwise_jsd_bf16": 0, "pairwise_tri_bf16": 0,
+        "masked_pairwise_tri_bf16": 0, "planar_lower_bound": 0}

@@ -157,8 +157,10 @@ def test_knn_zero_queries_and_validation():
     _assert_knn_identical(got, r_flat.bss_knn_batched(r_idx, q[:0], 3, opts=_JNP))
     with pytest.raises(ValueError, match="k must be positive"):
         t_flat.bss_knn_batched(t_idx, q, 0, opts=_TORCH)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        t_flat.bss_knn_batched(t_idx, q, 3, opts=EngineOpts(precision="bf16"))
+    ids16, d16, s16 = t_flat.bss_knn_batched(t_idx, q, 3, opts=EngineOpts(precision="bf16"))
+    ids32, d32, _ = t_flat.bss_knn_batched(t_idx, q, 3, opts=_TORCH)
+    assert np.array_equal(ids16, ids32) and np.array_equal(d16, d32)
+    assert s16["precision"] == "bf16" and s16["band_eps"] == t_idx.bf16_margin()
     with pytest.raises(ValueError, match="CUDA device"):
         t_flat.bss_knn_batched(t_idx, q, 3, opts=EngineOpts(backend="cuda"))
     with pytest.raises(ValueError, match="not both"):
