@@ -2,22 +2,31 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 H100: the quickest proof that the port builds and serves on the card.
 
-    python3 chip_smoke.py        # from the root of a checkout
+    python3 chip_smoke.py               # from the root of a checkout
+    python3 chip_smoke.py --prob-only   # only the JSD / Triangular tiles' small-
+                                        # distance errors and path launches alone
 
 Phases (any failure is reported and the script exits non-zero; each
 phase prints its seconds):
 
 1. Require a CUDA device of compute capability 9.0; print the card's name
-   and power limit (nvidia-smi) and set float32 matmuls to IEEE (no TF32).
+   and power limit (nvidia-smi) and the SFU rate (16 results per SM per
+   clock at the card's clocks.max.sm), and set float32 matmuls to IEEE (no
+   TF32).
 2. Build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
    source, all at once) and print the build seconds and ptxas' report.
 3. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time kernel, plain version, the library
    yardstick where one PyTorch call computes the same function
    (``torch.cdist`` for l2; the port never calls it; none for JSD and
-   Triangular) and the least time the card could take (``bound_ms``).
-   The masked JSD and Triangular tiles are checked after their range
-   paths, at the live-tile share those paths gave them.
+   Triangular) and the least time the card could take (``bound_ms``: the
+   larger of bytes over the HBM rate and operations over their rate; for
+   JSD and Triangular one SFU result per live (i, j, k)).  The masked JSD
+   and Triangular tiles are checked after their range paths, at the
+   live-tile share those paths gave them.  The JSD and Triangular tiles
+   and their plain fp32 versions are held to float64 at small distances
+   (near duplicates, K = 3, 16, 112): the kernel within the derived error
+   budget, the rest printed.
 4. The range paths: the SISAP colors configuration at paper size (101,414
    x 112 corpus, 11,268 queries), one index per metric built for the card,
    all queries through ``bss_query_batched(backend="cuda")`` in 512-query
@@ -27,11 +36,20 @@ phase prints its seconds):
    ``"torch"`` backend on the same card and the numpy oracle on 64
    queries: a hit that differs must lie within 1e-5 * max(1, t) of t in
    float64, an ``alive`` cell that differs must have its bound within 1e-5
-   of t.  One l2 batch is repeated for cosine.  Four batches of each
+   of t.  For JSD and Triangular, the largest |d_cuda - d_float64| over
+   the first batch's cells within ``band_eps`` of each threshold is printed
+   beside the derived error budget (csrc/prob_dist.cu) and the bf16
+   margin's arithmetic term: a cell over budget fails the run, and so does
+   twice the budget over the arithmetic term.  One l2 batch is repeated
+   for cosine.  Four batches of each
    backend run under ``torch.profiler`` and ``cProfile`` (l2 at the
-   narrowest and widest threshold, JSD at the widest): device time per
-   kernel, host time per operator and Python function, and the device's
-   idle share.
+   narrowest and widest threshold, JSD and Triangular at the widest):
+   device time and trace events per kernel, host time per operator and
+   Python function, and the device's idle share.  The JSD and Triangular
+   masked tile of the first batch at the widest threshold is then timed
+   alone with CUDA events on the inputs and mask the engine gave it
+   (fp32 here, bf16 in phase 6), beside the bound of that mask and the SM
+   clock and power nvidia-smi reads meanwhile.
 5. kNN (k = 10): all queries in 512-query batches through
    ``bss_knn_batched`` under l2, JSD and Triangular on ``"cuda"``, plus one
    cosine batch; launch counts zeroed and read per metric.  The plain
@@ -40,8 +58,10 @@ phase prints its seconds):
    between backends and with a float64 brute force on 64 queries, except
    where the two candidates' float64 distances lie within 1e-5 of each
    other (or of the kth); a query whose distance count differs between
-   backends must have kth distances within 1e-5.  One JSD batch of each
-   backend is profiled.
+   backends must have kth distances within 1e-5.  For JSD and Triangular
+   the returned distances of 64 queries are held to float64 within the
+   error budget, which is also printed at the smallest kth.  One JSD batch
+   of each backend is profiled.
 6. bf16 range: ``precision="bf16"`` over all queries on ``"cuda"`` under l2,
    JSD and Triangular at selectivities 1e-5 and 1e-3, through each
    metric's range-path index; launch counts zeroed and read per metric.
@@ -91,13 +111,13 @@ SRC = ROOT / "src"
 # H100 SXM (NVIDIA data sheet): fp32 outside the tensor cores, HBM3 rate
 FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
-# fp32 operations per (i, j, k) of the JSD / Triangular tiles, an FFMA
-# counted as two, read off `cuobjdump -sass` of csrc/prob_dist.cu for
-# sm_90a (the inner loop: JSD about 11 FFMA and 15 other fp32 instructions,
-# logf inlined with no MUFU; Triangular about 5 FFMA and 8 others, the
-# IEEE division a MUFU.RCP with Newton steps and a fix-up check)
-JSD_OPS = 37
-TRI_OPS = 18
+# The work of a JSD / Triangular tile is one transcendental (lg2, rcp) per
+# live (i, j, k), on the special function units: 16 results per SM per clock
+# on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput).  main() sets CARD["sfu_rate"] from the SM count
+# and nvidia-smi's clocks.max.sm: 132 x 16 x 1,980 MHz = 4.18e12/s.
+SFU_PER_SM_CLOCK = 16
+CARD: dict = {}
 
 BATCH = 512
 ORACLE_QUERIES = 64
@@ -113,8 +133,10 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_RATE, n_ops / FP32_PEAK
+def bound_ms(n_bytes: float, n_ops: float, rate: float = FP32_PEAK) -> tuple[float, str]:
+    """The least time: bytes over the HBM rate or operations over ``rate``
+    (fp32 peak, or the SFU rate for the JSD / Triangular tiles)."""
+    t_bytes, t_ops = n_bytes / HBM_RATE, n_ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -161,8 +183,11 @@ def simplex(np, rng, n, k):
 # 101,504 padded corpus rows in 793 blocks of 128, 24 planes, query tile 128
 MAIN_SHAPES = dict(q=512, p=16, k=112, n=101_504, m=24, b=793, bq=128, blk=128)
 
-# metric -> (unmasked C entry point, fp32 operations per (i, j, k))
-PROB = {"jsd": ("pairwise_jsd", JSD_OPS), "triangular": ("pairwise_tri", TRI_OPS)}
+# the port's kernels, by the names a trace gives them
+PORT_KERNELS = ("l2_tile_kernel", "prob_tile_kernel", "planar_lb_kernel")
+
+# metric -> unmasked C entry point of its tile
+PROB = {"jsd": "pairwise_jsd", "triangular": "pairwise_tri"}
 SOURCE = {"pairwise_l2": "src/repro_torch/csrc/pairwise_dist.cu",
           "pairwise_jsd": "src/repro_torch/csrc/prob_dist.cu",
           "pairwise_tri": "src/repro_torch/csrc/prob_dist.cu"}
@@ -258,11 +283,11 @@ def check_kernels(torch, np, failures: list, dev, shapes=MAIN_SHAPES) -> dict:
 
     # JSD / Triangular query -> pivot tiles (Q x P) on simplex rows
     xs, pivs = (torch.as_tensor(simplex(np, rng, r, k), device=dev) for r in (q, p))
-    for metric, (entry, ops_per) in PROB.items():
+    for metric, entry in PROB.items():
         plain = ref.pairwise_jsd_ref if metric == "jsd" else ref.pairwise_tri_ref
         got = pdist.pairwise_kernel_call(metric, xs, pivs)
         err, same_inf, close = compare(torch, got, plain(xs, pivs), PROB_RTOL, PROB_ATOL)
-        nb, no = bound_ms(4 * (q * k + p * k + q * p), ops_per * q * p * k)
+        nb, no = bound_ms(4 * (q * k + p * k + q * p), q * p * k, CARD["sfu_rate"])
         out[entry] = _row(
             failures, entry, entry, False, err, same_inf and close,
             ms=time_ms(torch, lambda: pdist.pairwise_kernel_call(metric, xs, pivs), 200),
@@ -275,7 +300,7 @@ def check_kernels(torch, np, failures: list, dev, shapes=MAIN_SHAPES) -> dict:
     ys = torch.as_tensor(simplex(np, rng, n, k), device=dev)
     got = ops.pairwise_jsd(xs, ys)
     err, same_inf, close = compare(torch, got, ref.pairwise_jsd_ref(xs, ys), PROB_RTOL, PROB_ATOL)
-    nb, no = bound_ms(4 * (q * k + n * k + q * n), JSD_OPS * q * n * k)
+    nb, no = bound_ms(4 * (q * k + n * k + q * n), q * n * k, CARD["sfu_rate"])
     out["ops.pairwise_jsd"] = dict(
         _row(failures, "ops.pairwise_jsd", "pairwise_jsd", False, err, same_inf and close,
              ms=time_ms(torch, lambda: ops.pairwise_jsd(xs, ys), 10),
@@ -300,7 +325,7 @@ def check_masked_prob(torch, np, failures: list, dev, live_share: dict,
     x = torch.as_tensor(simplex(np, rng, q, k), device=dev)
     y = torch.as_tensor(simplex(np, rng, n, k), device=dev)
     out = {}
-    for metric, (entry, ops_per) in PROB.items():
+    for metric, entry in PROB.items():
         mask_np = rng.random((-(-q // bq), -(-n // blk))) < live_share[metric]
         mask_np[1] = False
         log(f"masked {metric}: live tile share {float(mask_np.mean()):.5f} (the range "
@@ -316,7 +341,8 @@ def check_masked_prob(torch, np, failures: list, dev, live_share: dict,
         live = int(mask_np.sum()) * bq * blk
         rows = int(mask_np.any(axis=1).sum()) * bq
         cols = int(mask_np.any(axis=0).sum()) * blk
-        nb, no = bound_ms(4 * (rows * k + cols * k + q * n + mask_np.size), ops_per * live * k)
+        nb, no = bound_ms(4 * (rows * k + cols * k + q * n + mask_np.size), live * k,
+                          CARD["sfu_rate"])
         out["masked_" + entry] = _row(
             failures, "masked_" + entry, entry, True, err, same_inf and close,
             ms=time_ms(torch, lambda: pdist.masked_pairwise_kernel_call(
@@ -389,6 +415,8 @@ def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dic
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import launch_counts
+
     batches = [queries[s:s + BATCH] for s in range(0, n_batches * BATCH, BATCH)]
 
     def run():
@@ -408,14 +436,27 @@ def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dic
         return {k: round(v / n_batches, 5) for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:n]}
 
     wall_ms = min(run() for _ in range(3))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # one warm-up step traced and thrown away, so that the tracer is set up
+    # before the step that counts
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        run()
+        prof.step()
+        before = sum(launch_counts().values())
         traced_ms = run()
-    device, host = {}, {}
+        port_launches = sum(launch_counts().values()) - before
+        prof.step()
+    device, launches, host = {}, {}, {}
     for e in prof.key_averages():
+        if e.key.startswith("ProfilerStep"):  # the step's own span, on host and device
+            continue
         if e.device_type == DeviceType.CUDA:
             device[short(e.key)] = device.get(short(e.key), 0.0) + e.self_device_time_total / 1e3
+            launches[short(e.key)] = launches.get(short(e.key), 0) + e.count
         elif e.self_cpu_time_total > 0:
             host[e.key] = e.self_cpu_time_total / 1e3
+    port_events = sum(n for k, n in launches.items() if k.startswith(PORT_KERNELS))
     busy_ms = sum(device.values())
 
     prof_py = cProfile.Profile()
@@ -433,6 +474,13 @@ def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dic
         device_busy_ms_per_batch=busy_ms / n_batches if device else "not measured",
         device_idle_share=1.0 - busy_ms / traced_ms if device else "not measured",
         device_ms_per_batch_by_kernel=top(device),
+        # events the trace holds for those kernels, over all the batches:
+        # a kernel launched once a batch should show ``n_batches``
+        device_events_by_kernel={k: launches[k] for k in top(device)},
+        # the port's kernels launched in the traced step (the wrappers'
+        # counts) against the trace's events for them: a shortfall is
+        # events the trace dropped, and the device times above are short
+        port_kernel_launches=port_launches, port_kernel_events=port_events,
         host_ms_per_batch_by_operator=top(host),
         host_ms_per_batch_by_python_function=top(python, 12),
     )
@@ -497,7 +545,7 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
     counts = launch_counts()
     log(f"{metric} range path launch counts: {counts}")
     n_batches = -(-nq // BATCH)
-    entry = PROB[metric][0] if metric in PROB else "pairwise_l2"
+    entry = PROB.get(metric, "pairwise_l2")
     per_form = len(ts) * n_batches
     expect_launches(failures, f"{metric} range path", counts,
                     {entry: per_form, "masked_" + entry: per_form, "planar_lower_bound": per_form})
@@ -517,7 +565,8 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
     total_hits = 0
     qtiles = sum(-(-min(BATCH, nq - s) // TILE_BQ) for s in range(0, nq, BATCH))
     n_pad, dim = index.data.shape
-    ops_per = PROB[metric][1] if metric in PROB else 2
+    # l2: 2 fp32 operations per (i, j, k); JSD / Triangular: one SFU result
+    ops_per, rate = (1, CARD["sfu_rate"]) if metric in PROB else (2, FP32_PEAK)
     live_share = 0.0
     for t, sel, ((hits, stats), secs) in zip(ts, cfg.selectivities, cuda_runs):
         dists, excl = per_query(stats, "per_query_dists"), per_query(stats, "excluded")
@@ -540,11 +589,11 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
         n_hits = sum(len(h) for h in hits)
         live_share = sum(tiles) / (qtiles * nb)
         # the exact phase's least time per batch at this run's live tiles:
-        # queries, corpus and the (Q, n_pad) output once, the tile's fp32
-        # operations per live distance (``bound_ms``)
+        # queries, corpus and the (Q, n_pad) output once, the tile's
+        # operations per live (i, j, k) at their rate (``bound_ms``)
         exact_bound, exact_by = bound_ms(
             4 * (nq * dim + n_batches * n_pad * dim + nq * n_pad) / n_batches,
-            ops_per * sum(tiles) * TILE_BQ * index.block * dim / n_batches,
+            ops_per * sum(tiles) * TILE_BQ * index.block * dim / n_batches, rate,
         )
         row = dict(
             selectivity=sel, t=t, queries=nq, seconds=secs, queries_per_s=nq / secs,
@@ -570,6 +619,10 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
 
     if total_hits == 0:
         failures.append(f"the {metric} range path found no hits at any threshold")
+    if metric in PROB:
+        prob_error_near_t(torch, np, failures, record, index, queries32, metric, ts)
+        record.setdefault("exact phase alone", {})[metric] = exact_phase_alone(
+            torch, index, queries, ts[-1], metric)
 
     try:  # a failed profile fails the run but keeps the checks above
         for t in ((ts[0], ts[-1]) if metric == "l2" else (ts[-1],)):
@@ -587,6 +640,142 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
                 fp32={t: run for t, (run, _) in zip(ts, cuda_runs)},
                 fp32_secs={t: secs for t, (_, secs) in zip(ts, cuda_runs)},
                 lb=lb[backend])
+
+
+def exact_phase_alone(torch, index, queries, t, metric: str, precision: str = "fp32") -> dict:
+    """The masked tile of one full main-path batch (the first 512 queries at
+    ``t``), timed alone with CUDA events on that batch's own queries, corpus
+    and tile mask as the engine passed them, beside the bound of that
+    mask's live (i, j, k) and the SM clock and power that nvidia-smi reads
+    while it runs.  The launches here come after the path's counts were
+    read."""
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+
+    calls = []
+    real = flat_index.masked_pairwise_kernel_call
+
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    flat_index.masked_pairwise_kernel_call = capture
+    try:
+        flat_index.bss_query_batched(index, queries[:BATCH], t,
+                                     opts=EngineOpts(backend="cuda", precision=precision))
+    finally:
+        flat_index.masked_pairwise_kernel_call = real
+    torch.cuda.synchronize()
+    out = {}
+    for i, (args, kw) in enumerate(calls):  # bf16: the bf16 scan, then the fp32 re-check
+        _, x, y, mask = args
+        form = "bf16 y" if y.dtype == torch.bfloat16 else "fp32 y"
+        live = int(mask.sum()) * kw["bm"] * kw["bn"] * x.shape[1]
+        q_rows = int(mask.any(dim=1).sum()) * kw["bm"]
+        cols = int(mask.any(dim=0).sum()) * kw["bn"]
+        nb, by = bound_ms(4 * (q_rows * x.shape[1] + x.shape[0] * y.shape[0] + mask.numel())
+                          + y.element_size() * cols * x.shape[1], live, CARD["sfu_rate"])
+        smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+             "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        try:
+            ms = time_ms(torch, lambda: real(*args, **kw), 1000)
+        finally:
+            smi.terminate()
+            samples = smi.communicate(timeout=30)[0]
+        # (power, clock) of the busier half of the samples: nvidia-smi's
+        # first ones come before the loop
+        read = sorted((float(p), float(c)) for c, p in
+                      (line.split(",") for line in samples.splitlines() if line.count(",") == 1))
+        busy = read[len(read) // 2:] or [(float("nan"), float("nan"))]
+        out[f"{form} #{i}"] = dict(
+            ms=ms, bound_ms=nb, bound_by=by, share_of_bound=nb / ms,
+            live_tile_share=float(mask.float().mean()), live_ijk=live,
+            sm_mhz_busy_min_max=[min(c for _, c in busy), max(c for _, c in busy)],
+            power_w_busy_max=busy[-1][0], clock_samples=len(read))
+        log(f"exact phase alone {metric} {precision} {form}: " + json.dumps(out[f"{form} #{i}"]))
+    return out
+
+
+def prob_error_near_t(torch, np, failures: list, record: dict, index, queries32, metric: str,
+                      ts) -> None:
+    """The largest |d_cuda - d_float64| over the first batch's cells within
+    ``band_eps`` of each threshold, beside the derived error budget and the
+    bf16 margin's fp32 arithmetic term (``precision.prob_error_verdict``):
+    a cell over its budget, or twice the budget at t over the term, fails
+    the run."""
+    from repro_torch.core.precision import _rowwise, prob_error_verdict  # float64, guarded
+    from repro_torch.kernels import pairwise_dist as pdist
+
+    mirror = index.device
+    band = index.bf16_margin()
+    k = index.data.shape[1]
+    qb = torch.as_tensor(queries32[:BATCH], device=index.torch_device)
+    # the unmasked tile gives every cell the bits the masked exact phase
+    # gives its live cells: one summation order whatever the launch
+    d = pdist.pairwise_kernel_call(metric, qb, mirror.data)
+    d.masked_fill_(~mirror.valid[None, :], torch.inf)
+    rows = []
+    for t in ts:
+        near = torch.nonzero((d - t).abs() <= band, as_tuple=True)
+        got = d[near].double().cpu().numpy()
+        qi, pj = (v.cpu().numpy() for v in near)
+        d64 = np.concatenate([np.zeros(0)] + [
+            _rowwise(metric, queries32[qi[s:s + 65536]], index.data[pj[s:s + 65536]])
+            for s in range(0, len(qi), 65536)])
+        row = dict(t=t, band_eps=band, **prob_error_verdict(metric, k, got, d64, t))
+        rows.append(row)
+        log(f"error budget {metric} range " + json.dumps(row))
+        if not row["ok"]:
+            failures.append(f"{metric} t={t}: error budget {row}")
+    record.setdefault("error budget", {})[metric] = rows
+
+
+def prob_small_distances(torch, np, failures: list, dev) -> dict:
+    """The JSD / Triangular tiles and their plain fp32 versions (both on the
+    card) against float64 on the card tests' inputs (K = 3, 16, 112; 70 x 129
+    simplex rows) and on near duplicates (each x row perturbed by 1e-3
+    relative): per metric and K, for d below and from 0.05, the largest
+    error of each form, the cells over the fixed tolerance 1e-5 + 1e-4 d, the
+    largest |kernel - plain|, and the cells over the derived budget (which
+    fail the run)."""
+    from repro_torch.core.npdist import pairwise_np
+    from repro_torch.core.precision import prob_error_budget
+    from repro_torch.kernels import pairwise_dist as pdist
+    from repro_torch.kernels import ref
+
+    out = {}
+    for metric in PROB:
+        plain_fn = ref.pairwise_jsd_ref if metric == "jsd" else ref.pairwise_tri_ref
+        for k in (3, 16, 112):
+            rng = np.random.default_rng(7 * k + 129)
+            x = simplex(np, rng, 70, k)
+            near = np.abs(x * (1 + 1e-3 * rng.normal(size=x.shape))).astype(np.float32)
+            y = np.concatenate([simplex(np, rng, 129, k),
+                                (near / near.sum(axis=1, keepdims=True)).astype(np.float32)])
+            xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+            got = pdist.pairwise_kernel_call(metric, xt, yt).double().cpu().numpy()
+            plain = plain_fn(xt, yt).double().cpu().numpy()
+            want = pairwise_np(metric, x, y)
+            row = {}
+            for part, sel in (("below_0.05", want < 0.05), ("from_0.05", want >= 0.05)):
+                d = want[sel]
+                errs = {f: np.abs(v[sel] - d) for f, v in (("kernel", got), ("plain", plain))}
+                row[part] = dict(
+                    cells=int(sel.sum()),
+                    **{f"{f}_max_abs_err": float(e.max()) if e.size else 0.0
+                       for f, e in errs.items()},
+                    **{f"{f}_over_fixed_tol": int((e > 1e-5 + 1e-4 * d).sum())
+                       for f, e in errs.items()},
+                    kernel_vs_plain=float(np.abs(got[sel] - plain[sel]).max()) if d.size else 0.0)
+            approx, fp32 = prob_error_budget(metric, k, np.minimum(got, want))
+            row["kernel_over_budget"] = int((np.abs(got - want) > approx + fp32).sum())
+            row["plain_over_fp32_budget"] = int((np.abs(plain - want) > fp32).sum())
+            out[f"{metric} K={k}"] = row
+            log(f"small distances {metric} K={k} " + json.dumps(row))
+            if row["kernel_over_budget"]:
+                failures.append(f"small distances {metric} K={k}: {row}")
+    return out
 
 
 def cosine_batch(np, failures, record, dev, corpus, queries32, cfg, backend) -> None:
@@ -665,6 +854,7 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
     from repro_torch.core import flat_index
     from repro_torch.core.backends import EngineOpts
     from repro_torch.core.npdist import pairwise_np
+    from repro_torch.core.precision import prob_error_verdict
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     queries = queries[:n_queries] if n_queries else queries
@@ -694,7 +884,7 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
     reset_launch_counts()
     ids, dists, rounds, per_query, secs = run(backend)
     counts = launch_counts()
-    entry = PROB[metric][0] if metric in PROB else "pairwise_l2"
+    entry = PROB.get(metric, "pairwise_l2")
     expect_launches(failures, f"{metric} kNN", counts,
                     {entry: len(rounds), "planar_lower_bound": len(rounds),
                      "masked_" + entry: sum(rounds)})
@@ -726,6 +916,13 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
         id_diff_queries_vs_oracle=n_or_diff, oracle_seconds=time.perf_counter() - t0,
         finite=bool(np.isfinite(dists).all()),
     )
+    if metric in PROB:  # the returned distances, near the kth, against float64
+        d64 = np.stack([pairwise_np(metric, queries32[i], corpus32[ids[i]])[0]
+                        for i in range(min(ORACLE_QUERIES, nq))])
+        row["error_budget"] = prob_error_verdict(
+            metric, corpus32.shape[1], dists[:len(d64)], d64, float(dists[:, -1].min()))
+        if not row["error_budget"]["ok"]:
+            failures.append(f"kNN {metric}: error budget {row['error_budget']}")
     record.setdefault("knn", {})[metric] = row
     log(f"knn {metric} " + json.dumps(row))
     if bad or bad_or or bad_counts or not row["finite"]:
@@ -787,7 +984,7 @@ def bf16_range_path(torch, np, failures: list, record: dict, queries, metric: st
         runs.append((run, time.perf_counter() - t0))
     counts = launch_counts()
     log(f"{metric} bf16 range path launch counts: {counts}")
-    entry = PROB[metric][0] if metric in PROB else "pairwise_l2"
+    entry = PROB.get(metric, "pairwise_l2")
     per_form = len(chosen) * n_batches
     expect_launches(failures, f"{metric} bf16 range path", counts,
                     {entry: per_form, "planar_lower_bound": per_form,
@@ -852,6 +1049,9 @@ def bf16_range_path(torch, np, failures: list, record: dict, queries, metric: st
         log(f"profile {metric} range bf16 {backend} " + json.dumps(prof))
     except Exception:
         failures.append(f"phase profile {metric} bf16 raised:\n{traceback.format_exc()}")
+    if metric in PROB:
+        record.setdefault("exact phase alone", {})[metric + " bf16"] = exact_phase_alone(
+            torch, index, queries, chosen[-1][1], metric, "bf16")
     return dict(counts=counts, live_share=live_share)
 
 
@@ -870,9 +1070,12 @@ def check_bf16_kernels(torch, np, failures: list, dev, live_share: dict,
     out = {}
     plain_of = {"l2": ref.pairwise_l2_ref, "jsd": ref.pairwise_jsd_ref,
                 "triangular": ref.pairwise_tri_ref}
-    ops_of = {"l2": 2, "jsd": JSD_OPS, "triangular": TRI_OPS}
+    # operations per (i, j, k) and their rate
+    ops_of = {"l2": (2, FP32_PEAK), "jsd": (1, CARD["sfu_rate"]),
+              "triangular": (1, CARD["sfu_rate"])}
     for metric, plain in plain_of.items():
-        entry = "pairwise_l2" if metric == "l2" else PROB[metric][0]
+        entry = PROB.get(metric, "pairwise_l2")
+        ops_per, rate = ops_of[metric]
 
         def make(r, metric=metric):
             if metric == "l2":
@@ -887,7 +1090,7 @@ def check_bf16_kernels(torch, np, failures: list, dev, live_share: dict,
         err, same_inf, close = compare(torch, got, plain(x, piv16), *tol)
         extra_ops = 2 * (q + p) * k + 4 * q * p if metric == "l2" else 0
         nb_, no_ = bound_ms(4 * (q * k + q * p) + 2 * p * k,
-                            ops_of[metric] * q * p * k + extra_ops)
+                            ops_per * q * p * k + extra_ops, rate)
         out[entry + "_bf16"] = _row(
             failures, entry + "_bf16", entry, False, err, same_inf and close,
             ms=time_ms(torch, lambda: pdist.pairwise_kernel_call(metric, x, piv16), 200),
@@ -913,7 +1116,7 @@ def check_bf16_kernels(torch, np, failures: list, dev, live_share: dict,
         rows = int(mask_np.any(axis=1).sum()) * bq
         cols = int(mask_np.any(axis=0).sum()) * blk
         nb_, no_ = bound_ms(4 * (rows * k + q * n + mask_np.size) + 2 * cols * k,
-                            ops_of[metric] * live * k)
+                            ops_per * live * k, rate)
         heavy = metric != "l2"
         out["masked_" + entry + "_bf16"] = _row(
             failures, "masked_" + entry + "_bf16", entry, True, err, same_inf and close,
@@ -958,7 +1161,7 @@ def bf16_knn_path(torch, np, failures: list, record: dict, queries, metric: str,
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = launch_counts()
-    entry = PROB[metric][0] if metric in PROB else "pairwise_l2"
+    entry = PROB.get(metric, "pairwise_l2")
     expect_launches(failures, f"{metric} bf16 kNN", counts,
                     {entry: len(rounds), "planar_lower_bound": len(rounds),
                      "masked_" + entry + "_bf16": sum(rounds), "masked_" + entry: sum(rounds)})
@@ -1106,6 +1309,15 @@ def main() -> int:
         print(f"chip_smoke: nvidia-smi failed: {smi.stderr.strip()}", file=sys.stderr)
         return 2
     log(smi.stdout.strip().splitlines()[0])
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    sm_mhz = float(clk.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    CARD["sfu_rate"] = SFU_PER_SM_CLOCK * sms * sm_mhz * 1e6
+    log(f"SFU rate {CARD['sfu_rate']:.6g} results/s: {SFU_PER_SM_CLOCK} per SM per clock x "
+        f"{sms} SMs x {sm_mhz} MHz (clocks.max.sm)")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1128,6 +1340,27 @@ def main() -> int:
     kernels, record, paths, bf16_paths, knns = {}, {}, {}, {}, {}
     dev = torch.device("cuda")
     data = {}
+    if "--prob-only" in sys.argv[1:]:
+        # the JSD / Triangular tiles alone, e.g. another checkout's (copy
+        # this script and core/precision.py there): the small-distance
+        # errors, and the masked tile of the range path's first batch at
+        # selectivity 1e-3, fp32 and bf16, timed alone
+        from repro_torch.configs.supermetric import build_index
+        from repro_torch.data.metricsets import calibrate_threshold
+
+        record["small distances"] = prob_small_distances(torch, np, failures, dev)
+        corpus, queries = load(np, SISAP_COLORS)
+        for metric in PROB:
+            index = build_index(dataclasses.replace(SISAP_COLORS, metric=metric), corpus,
+                                device=dev)
+            t = calibrate_threshold(metric, corpus, 1e-3)
+            for precision in ("fp32", "bf16"):
+                record[f"{metric} {precision}"] = exact_phase_alone(
+                    torch, index, queries, t, metric, precision)
+        log(json.dumps(record))
+        for f in failures:
+            print(f"FAIL: {f}", file=sys.stderr)
+        return 1 if failures else 0
 
     def range_phase(metric):
         paths[metric] = range_path(torch, np, failures, record, dev, *data["colors"],
@@ -1143,6 +1376,8 @@ def main() -> int:
 
     phases = (
         ("kernels", lambda: kernels.update(check_kernels(torch, np, failures, dev))),
+        ("prob small distances", lambda: record.update(
+            small_distances=prob_small_distances(torch, np, failures, dev))),
         ("corpus", lambda: data.update(colors=load(np, SISAP_COLORS))),
         ("range l2", lambda: range_phase("l2")),
         ("range jsd", lambda: range_phase("jsd")),
@@ -1175,7 +1410,7 @@ def main() -> int:
     # launches of each kernel on the range path of its metric and precision
     for name, rec in kernels.items():
         entry = "pairwise_jsd" if name == "ops.pairwise_jsd" else name
-        metric = next((m for m, (e, _) in PROB.items() if e in entry), "l2")
+        metric = next((m for m, e in PROB.items() if e in entry), "l2")
         on_path = bf16_paths if entry.endswith("_bf16") else paths
         rec["launches"] = int(on_path.get(metric, {}).get("counts", {}).get(entry, 0))
         if entry in OFF_PATH:

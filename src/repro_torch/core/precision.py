@@ -34,7 +34,8 @@ import torch
 
 from repro_torch.core.npdist import pairwise_np
 
-__all__ = ["ARITH_ULPS", "bf16_round_np", "bf16_margin"]
+__all__ = ["ARITH_ULPS", "bf16_round_np", "bf16_margin", "prob_error_budget",
+           "prob_error_verdict"]
 
 # headroom multiplier on fp32 accumulation noise (the reference's)
 ARITH_ULPS = 64.0
@@ -112,3 +113,51 @@ def bf16_margin(
     )
     # round UP into fp32 so the fp32 comparisons inherit the guarantee
     return float(np.nextafter(np.float32(eps), np.float32(np.inf)))
+
+
+# --- the JSD / Triangular tiles' own arithmetic error (port only) ---------
+#
+# The CUDA tiles (csrc/prob_dist.cu) take the mixture logarithm and the
+# reciprocal from the special function units.  Their error has to stay
+# inside the fp32 arithmetic term of ``eps`` above, ARITH_ULPS * eps_f32 *
+# sqrt(dim) (scale 1 for both metrics), for the two passes of the bf16
+# proof; the source note derives the bound.
+
+
+def prob_error_budget(metric_name: str, k: int, d) -> tuple[np.ndarray, np.ndarray]:
+    """The bound on |d_kernel - d_exact| of the JSD / Triangular tiles over
+    K = ``k`` bins (``csrc/prob_dist.cu``): (the part from lg2.approx /
+    rcp.approx, the part from fp32 rounding).  ``d`` is the smaller of the
+    two distances (array or scalar).  JSD bounds the error dS of S = JSD^2
+    in bits and carries it to d through |d~ - d| = |d~^2 - d^2| / (d~ + d)
+    <= dS / 2d; Triangular's is relative.  The fp32 part alone bounds the
+    plain fp32 version, which has no approximate instruction."""
+    u = _F32_EPS / 2  # fp32 unit roundoff
+    d = np.maximum(d, 1e-30)
+    if metric_name == "jsd":
+        log_k = math.log2(max(k, 1))
+        approx = 2.0 ** -22 * (1 + log_k) / (2 * d)
+        fp32 = (u * (6 * log_k + 2) + (k + 1) * u * d * d) / (2 * d) + 2 * u * d
+        return approx, fp32
+    if metric_name == "triangular":
+        return d * u, d * u * ((k + 3) / 2 + 1)
+    raise KeyError(f"no error budget for {metric_name!r}: the l2 tile is IEEE fp32")
+
+
+def prob_error_verdict(metric_name: str, k: int, got: np.ndarray, exact: np.ndarray,
+                       at: float) -> dict:
+    """``got`` (a tile's distances) against ``exact`` (float64, same cells):
+    the largest error, the cells over their budget, and the budget at
+    ``at`` (the smallest threshold or kth in use) beside the arithmetic
+    term.  ``ok``: no cell over budget, and twice the budget at ``at``
+    inside the term."""
+    got = np.asarray(got, np.float64)  # lint: disable=R3
+    err = np.abs(got - exact)
+    approx, fp32 = prob_error_budget(metric_name, k, np.minimum(got, exact))
+    a_at, f_at = (float(v) for v in prob_error_budget(metric_name, k, at))
+    arith = ARITH_ULPS * _F32_EPS * math.sqrt(k)
+    over = int((err > approx + fp32).sum())
+    return dict(cells=int(err.size), max_abs_err=float(err.max()) if err.size else 0.0,
+                cells_over_budget=over, at=float(at), budget_at=a_at + f_at,
+                budget_approx_part=a_at, budget_fp32_part=f_at, arith_term=arith,
+                ok=over == 0 and 2 * (a_at + f_at) <= arith)

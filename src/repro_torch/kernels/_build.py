@@ -37,11 +37,10 @@ _FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 # the planar bound must equal its plain version bit for bit: no FMA
-# contraction of d1*d1 - d2*d2 or dx*dx + dy*dy; the JSD / Triangular
-# tiles round every product as their plain versions do (never
-# --use_fast_math anywhere: sqrtf, logf and division stay IEEE and fp32
-# denormals are kept)
-_EXTRA_FLAGS = {"planar_exclusion": ("-fmad=false",), "prob_dist": ("-fmad=false",)}
+# contraction of d1*d1 - d2*d2 or dx*dx + dy*dy.  The JSD / Triangular tiles
+# spell every rounding step as an intrinsic and need no flag.  Never
+# --use_fast_math anywhere: sqrtf stays IEEE and fp32 denormals are kept.
+_EXTRA_FLAGS = {"planar_exclusion": ("-fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

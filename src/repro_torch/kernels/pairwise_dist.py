@@ -11,7 +11,9 @@ is 0 without computing it.
   in IEEE fp32 with the reference's epilogue order; it also serves cosine,
   which the engine maps onto the unit sphere.
 * jsd and triangular (``csrc/prob_dist.cu``): the per-k sums of the
-  reference registry over probability vectors.
+  reference registry over probability vectors, with the logarithm and the
+  reciprocal on the special function units; the bound on their error that
+  the source note derives is ``core.precision.prob_error_budget``.
 
 Each source note says what it replaces, what bounds it and how.  The
 metric-dispatched entry points take every name in ``KERNEL_METRICS`` (the

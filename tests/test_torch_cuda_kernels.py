@@ -14,7 +14,10 @@ take the reference sweep's rtol = 1e-4 / atol = 1e-5 unmasked and
 1e-5 masked; the planar bound is built without FMA contraction and must be
 bit-equal.  The bf16-y forms are held at the same tolerances against the
 plain versions fed the same bf16 ``y``, and must equal the fp32 forms on
-the upcast ``y`` bit for bit.  The input shapes and makers are shared with
+the upcast ``y`` bit for bit.  The JSD and Triangular tiles (lg2.approx and
+rcp.approx inside) are also held to the float64 function within the error
+budget derived in ``csrc/prob_dist.cu``, and must give each (i, j) the same
+bits under every launch shape, mask and row shift.  The input shapes and makers are shared with
 ``tests/test_torch_kernels.py``.
 """
 
@@ -27,7 +30,7 @@ import torch
 from repro_torch.core import flat_index
 from repro_torch.core.backends import EngineOpts
 from repro_torch.core.npdist import pairwise_np
-from repro_torch.core.precision import bf16_round_np
+from repro_torch.core.precision import bf16_round_np, prob_error_budget
 from repro_torch.index import append, compact, delete
 from repro_torch.kernels import _build, launch_counts, ops, ref, reset_launch_counts
 
@@ -344,3 +347,150 @@ def test_living_corpus_on_card(card):
     got = flat_index.bss_query_batched(compacted, q, t, opts=bf16)[0]
     assert got == [[int(ids[h]) for h in row]
                    for row in flat_index.bss_query_batched(fresh, q, t)[0]]
+
+
+# ------------------------------- JSD / Triangular: bits, edges, error budget
+
+PROB_KS = [1, 3, 15, 16, 112, 130]
+PROB_NS = [1, 16, 129]
+
+
+# Below this float64 distance the fixed tolerances against float64 are not
+# held: no fp32 form holds them there.  A JSD term's rounding error, about
+# eps_f32 |x log2 x| however close x is to y, is carried to d through
+# dS / 2d, so the plain fp32 version (accurate logarithm) misses 1e-5 there
+# as the kernel (lg2.approx) does (chip_smoke.py --prob-only prints both).
+# Both stay inside the derived budget, which is what is held there, and
+# the kernel is held to the plain version within the two budgets.  Every
+# threshold and kth of SISAP colors lies above 0.2.
+TOL_FROM_D = 0.05
+
+
+def prob_plain(metric, x, y):
+    """The plain fp32 version on the CPU."""
+    fn = ref.pairwise_jsd_ref if metric == "jsd" else ref.pairwise_tri_ref
+    return fn(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+
+
+def budget_of(metric, k, *ds):
+    """(lg2 / rcp part, fp32 part) at whichever of the distances ``ds``
+    gives the larger budget (JSD's falls with d, Triangular's rises)."""
+    parts = [prob_error_budget(metric, k, d) for d in ds]
+    return np.maximum.reduce([a for a, _ in parts]), np.maximum.reduce([f for _, f in parts])
+
+
+def assert_against_float64(metric, k, got, x, y, **tol):
+    """got (finite where live) against the float64 function of the same
+    float32 inputs: inside the derived budget everywhere, and inside
+    ``tol`` (if given) from ``TOL_FROM_D`` up; below it, against the plain
+    fp32 version within the kernel's budget plus the plain version's (its
+    fp32 part)."""
+    want = pairwise_np(metric, x, y)
+    fin = np.isfinite(got)
+    g = got[fin].astype(np.float64)
+    d, err = want[fin], np.abs(g - want[fin])
+    approx, fp32 = budget_of(metric, k, np.minimum(d, g))
+    assert (err <= approx + fp32).all(), (float(err.max()), float((err - approx - fp32).max()))
+    near = d < TOL_FROM_D
+    if near.any():
+        p = prob_plain(metric, x, y)[fin][near].astype(np.float64)
+        approx, fp32 = budget_of(metric, k, d[near], g[near], p)
+        gap = np.abs(g[near] - p)
+        assert (gap <= approx + 2 * fp32).all(), float((gap - approx - 2 * fp32).max())
+    if tol:
+        far = ~near
+        assert (err[far] <= tol["atol"] + tol["rtol"] * d[far]).all(), float(err[far].max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", PROB_KS)
+@pytest.mark.parametrize("metric", PROB_METRICS)
+def test_prob_kernel_bits_do_not_depend_on_tiling(card, metric, k):
+    """Each (i, j) is summed in one order whatever the launch: two launches,
+    the wide (128 x 128) and narrow (16 x 16) block shapes, a shift by one
+    row, two masks of two cell shapes, and the bf16-y form against the fp32
+    form on the widened y all give the same bits for the same (i, j)."""
+    rng = np.random.default_rng(100 + k)
+    m, n = 200, 133 * 128 + 37  # the wide shape, ragged both ways
+    x = torch.from_numpy(simplex(rng, m, k)).to(card)
+    y32 = torch.from_numpy(simplex(rng, n, k)).to(card)
+    for y in (y32, y32.bfloat16()):
+        full = ops.pairwise_metric(metric, x, y)
+        assert torch.equal(full, ops.pairwise_metric(metric, x, y))
+        assert torch.equal(full, ops.pairwise_metric(metric, x, y.float()))
+        assert torch.equal(ops.pairwise_metric(metric, x[37:45], y[1000:1013]),
+                           full[37:45, 1000:1013])
+        assert torch.equal(ops.pairwise_metric(metric, x[1:], y), full[1:])
+        for bm, bn, live in ((128, 128, 0.5), (16, 32, 0.3)):
+            tm = torch.from_numpy(rng.random((math.ceil(m / bm), math.ceil(n / bn))) < live)
+            tm = tm.to(card)
+            got = ops.masked_pairwise_metric(metric, x, y, tm, bm=bm, bn=bn)
+            assert torch.equal(got, ref.masked_pairwise_metric_ref(full, tm, bm, bn))
+        assert_against_float64(metric, k, full[:, :1000].cpu().numpy(), x.cpu().numpy(),
+                               y[:1000].float().cpu().numpy(), **PROB_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", PROB_NS)
+@pytest.mark.parametrize("k", PROB_KS)
+@pytest.mark.parametrize("metric", PROB_METRICS)
+def test_prob_kernel_against_float64(card, metric, k, n):
+    """Masked and unmasked, fp32 and bf16 y, against the float64 function
+    of the same inputs: inside the derived budget, and the tolerances
+    (1e-4 / 1e-5 unmasked, 1e-5 masked) from ``TOL_FROM_D`` up."""
+    rng = np.random.default_rng(7 * k + n)
+    m = 70
+    x_np = simplex(rng, m, k)
+    y_np = simplex(rng, n, k)
+    x = torch.from_numpy(x_np).to(card)
+    tm = torch.from_numpy(rng.random((math.ceil(m / 16), math.ceil(n / 8))) < 0.6).to(card)
+    for y in (torch.from_numpy(y_np).to(card), torch.from_numpy(y_np).to(card).bfloat16()):
+        y_vals = y.float().cpu().numpy()  # the values the kernel reads
+        got = ops.pairwise_metric(metric, x, y).cpu().numpy()
+        assert np.isfinite(got).all()
+        assert_against_float64(metric, k, got, x_np, y_vals, **PROB_TOL)
+        got_m = ops.masked_pairwise_metric(metric, x, y, tm, bm=16, bn=8).cpu().numpy()
+        dense = torch.from_numpy(np.zeros((m, n), np.float32))
+        assert np.array_equal(np.isinf(got_m),
+                              np.isinf(ref.masked_pairwise_metric_ref(dense, tm.cpu(), 16, 8)))
+        assert_against_float64(metric, k, got_m, x_np, y_vals, **TOL)
+
+
+def edge_rows(k):
+    """Probability rows at the edges of the guards: one-hot rows, a row of
+    zeros, 1e-13 and 1e-9 bins, a uniform row, and a sparse row; every value
+    exactly representable in bfloat16 so identical rows stay identical
+    under the bf16 mirror."""
+    rows = [np.eye(k)[0], np.eye(k)[k - 1], np.full(k, 1.0 / k)]
+    tiny = np.zeros(k)
+    tiny[::3] = 1e-13
+    tiny[1::3] = 1e-9
+    tiny[0] = 1.0
+    rows.append(tiny)
+    sparse = np.zeros(k)
+    sparse[: max(1, k // 4)] = 1.0
+    rows.append(sparse / sparse.sum())
+    return bf16_round_np(np.stack(rows).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", [3, 16, 112])
+@pytest.mark.parametrize("metric", PROB_METRICS)
+def test_prob_kernel_edge_bins(card, metric, k, masked):
+    """Zeros, 1e-13 and 1e-9 bins, one-hot and identical rows, fp32 and bf16
+    y: identical rows give exactly 0, everything else the float64 function
+    within the budget and the tolerances."""
+    x_np = edge_rows(k)
+    y_np = np.concatenate([x_np, edge_rows(k)[::-1], simplex(np.random.default_rng(k), 4, k)])
+    y_np = bf16_round_np(y_np)
+    x = torch.from_numpy(x_np).to(card)
+    for y in (torch.from_numpy(y_np).to(card), torch.from_numpy(y_np).to(card).bfloat16()):
+        if masked:
+            tm = torch.ones((1, 2), dtype=torch.bool, device=card)
+            got = ops.masked_pairwise_metric(metric, x, y, tm, bm=8, bn=8).cpu().numpy()
+        else:
+            got = ops.pairwise_metric(metric, x, y).cpu().numpy()
+        assert np.isfinite(got).all()
+        assert (np.diagonal(got) == 0.0).all(), np.diagonal(got)
+        assert_against_float64(metric, k, got, x_np, y_np, **(TOL if masked else PROB_TOL))
