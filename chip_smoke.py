@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 H100: the quickest proof that the port builds and serves on the card.
 
-    python3 chip_smoke.py               # from the root of a checkout
-    python3 chip_smoke.py --prob-only   # only the JSD / Triangular tiles' small-
-                                        # distance errors and path launches alone
+    python3 chip_smoke.py                # from the root of a checkout
+    python3 chip_smoke.py --tiles-only   # only the tiles: JSD / Triangular
+                                         # small-distance errors, and each
+                                         # metric's path launch timed alone
 
 Phases (any failure is reported and the script exits non-zero; each
 phase prints its seconds):
@@ -44,12 +45,13 @@ phase prints its seconds):
    for cosine.  Four batches of each
    backend run under ``torch.profiler`` and ``cProfile`` (l2 at the
    narrowest and widest threshold, JSD and Triangular at the widest):
-   device time and trace events per kernel, host time per operator and
-   Python function, and the device's idle share.  The JSD and Triangular
-   masked tile of the first batch at the widest threshold is then timed
-   alone with CUDA events on the inputs and mask the engine gave it
-   (fp32 here, bf16 in phase 6), beside the bound of that mask and the SM
-   clock and power nvidia-smi reads meanwhile.
+   device time and trace events per kernel (sort kernels counted apart),
+   host time per operator and Python function, and the device's idle
+   share.  Each metric's masked tile of the first batch at the widest
+   threshold is then timed alone with CUDA events on the inputs and mask
+   the engine gave it (fp32 here, bf16 in phase 6), beside the bound of
+   that mask, the SM clock and power nvidia-smi reads meanwhile, and a
+   sha256 of its output (bit-equality with another commit).
 5. kNN (k = 10): all queries in 512-query batches through
    ``bss_knn_batched`` under l2, JSD and Triangular on ``"cuda"``, plus one
    cosine batch; launch counts zeroed and read per metric.  The plain
@@ -60,8 +62,9 @@ phase prints its seconds):
    other (or of the kth); a query whose distance count differs between
    backends must have kth distances within 1e-5.  For JSD and Triangular
    the returned distances of 64 queries are held to float64 within the
-   error budget, which is also printed at the smallest kth.  One JSD batch
-   of each backend is profiled.
+   error budget, which is also printed at the smallest kth.  The round
+   top-k of the first batch is timed alone per round, beside the stable
+   sort it replaced.  One JSD batch of each backend is profiled.
 6. bf16 range: ``precision="bf16"`` over all queries on ``"cuda"`` under l2,
    JSD and Triangular at selectivities 1e-5 and 1e-3, through each
    metric's range-path index; launch counts zeroed and read per metric.
@@ -98,6 +101,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -481,6 +485,8 @@ def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dic
         # counts) against the trace's events for them: a shortfall is
         # events the trace dropped, and the device times above are short
         port_kernel_launches=port_launches, port_kernel_events=port_events,
+        # kernels of a sort (the kNN round top-k used one before its keys)
+        sort_kernel_events=sum(n for k, n in launches.items() if "sort" in k.lower()),
         host_ms_per_batch_by_operator=top(host),
         host_ms_per_batch_by_python_function=top(python, 12),
     )
@@ -621,8 +627,8 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
         failures.append(f"the {metric} range path found no hits at any threshold")
     if metric in PROB:
         prob_error_near_t(torch, np, failures, record, index, queries32, metric, ts)
-        record.setdefault("exact phase alone", {})[metric] = exact_phase_alone(
-            torch, index, queries, ts[-1], metric)
+    record.setdefault("exact phase alone", {})[metric] = exact_phase_alone(
+        torch, index, queries, ts[-1], metric)
 
     try:  # a failed profile fails the run but keeps the checks above
         for t in ((ts[0], ts[-1]) if metric == "l2" else (ts[-1],)):
@@ -646,9 +652,11 @@ def exact_phase_alone(torch, index, queries, t, metric: str, precision: str = "f
     """The masked tile of one full main-path batch (the first 512 queries at
     ``t``), timed alone with CUDA events on that batch's own queries, corpus
     and tile mask as the engine passed them, beside the bound of that
-    mask's live (i, j, k) and the SM clock and power that nvidia-smi reads
-    while it runs.  The launches here come after the path's counts were
-    read."""
+    mask's live (i, j, k) (l2: 2 fp32 operations at the fp32 peak; JSD,
+    Triangular: one SFU result), the SM clock and power that nvidia-smi
+    reads while it runs, and a sha256 of the output's bytes (to hold its
+    bits against another commit's).  The launches here come after the
+    path's counts were read."""
     from repro_torch.core import flat_index
     from repro_torch.core.backends import EngineOpts
 
@@ -667,6 +675,8 @@ def exact_phase_alone(torch, index, queries, t, metric: str, precision: str = "f
         flat_index.masked_pairwise_kernel_call = real
     torch.cuda.synchronize()
     out = {}
+    # l2: 2 fp32 operations per live (i, j, k); JSD / Triangular: one SFU result
+    ops_per, rate = (1, CARD["sfu_rate"]) if metric in PROB else (2, FP32_PEAK)
     for i, (args, kw) in enumerate(calls):  # bf16: the bf16 scan, then the fp32 re-check
         _, x, y, mask = args
         form = "bf16 y" if y.dtype == torch.bfloat16 else "fp32 y"
@@ -674,7 +684,9 @@ def exact_phase_alone(torch, index, queries, t, metric: str, precision: str = "f
         q_rows = int(mask.any(dim=1).sum()) * kw["bm"]
         cols = int(mask.any(dim=0).sum()) * kw["bn"]
         nb, by = bound_ms(4 * (q_rows * x.shape[1] + x.shape[0] * y.shape[0] + mask.numel())
-                          + y.element_size() * cols * x.shape[1], live, CARD["sfu_rate"])
+                          + y.element_size() * cols * x.shape[1], ops_per * live, rate)
+        # the output's bits, to hold against another commit's run
+        digest = hashlib.sha256(real(*args, **kw).cpu().numpy().tobytes()).hexdigest()
         smi = subprocess.Popen(
             ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
              "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
@@ -692,8 +704,36 @@ def exact_phase_alone(torch, index, queries, t, metric: str, precision: str = "f
             ms=ms, bound_ms=nb, bound_by=by, share_of_bound=nb / ms,
             live_tile_share=float(mask.float().mean()), live_ijk=live,
             sm_mhz_busy_min_max=[min(c for _, c in busy), max(c for _, c in busy)],
-            power_w_busy_max=busy[-1][0], clock_samples=len(read))
+            power_w_busy_max=busy[-1][0], clock_samples=len(read), output_sha256=digest)
         log(f"exact phase alone {metric} {precision} {form}: " + json.dumps(out[f"{form} #{i}"]))
+    return out
+
+
+def l2_tile_breakdown(torch, np, dev, shapes=MAIN_SHAPES) -> dict:
+    """What the masked l2 tile's time is made of: random rows at the exact
+    phase's shape with every cell live, timed with CUDA events at K = 112
+    and K = 224, each with and without the sqrt (``squared``).  The slope
+    is the cost of 16 more k (one staged chunk) against its bound; the
+    intercept at K = 0 is the fixed cost of the tiles (their first loads,
+    the epilogue, the output); the squared form shows the sqrt's part."""
+    from repro_torch.kernels import pairwise_dist as pdist
+
+    rng = np.random.default_rng(3)
+    q, n, bq, blk = (shapes[s] for s in ("q", "n", "bq", "blk"))
+    out = {}
+    for k in (112, 224):
+        x = torch.as_tensor(rng.normal(size=(q, k)).astype(np.float32), device=dev)
+        y = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=dev)
+        mask = torch.ones((-(-q // bq), -(-n // blk)), dtype=torch.bool, device=dev)
+        for squared in (False, True):
+            out[f"ms K={k}" + (" squared" if squared else "")] = time_ms(
+                torch, lambda: pdist.masked_pairwise_l2_kernel_call(
+                    x, y, mask, bm=bq, bn=blk, squared=squared), 200)
+    per_chunk = (out["ms K=224"] - out["ms K=112"]) / 7
+    out.update(ms_per_16_k=per_chunk, bound_ms_per_16_k=2 * q * n * 16 / FP32_PEAK * 1e3,
+               fixed_ms=out["ms K=112"] - 7 * per_chunk,
+               sqrt_ms_at_112=out["ms K=112"] - out["ms K=112 squared"])
+    log("l2 tile breakdown " + json.dumps(out))
     return out
 
 
@@ -928,6 +968,8 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
     if bad or bad_or or bad_counts or not row["finite"]:
         failures.append(f"kNN {metric}: ids differ away from ties {(bad + bad_or)[:10]}, "
                         f"counts differ with kth apart {bad_counts[:10]}, finite {row['finite']}")
+    row["top_k_per_round"] = top_k_per_round(torch, flat_index, index, queries)
+    log(f"knn {metric} top-k per round " + json.dumps(row["top_k_per_round"]))
     if metric == "jsd":
         try:
             for name in (backend, "torch"):
@@ -939,6 +981,31 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
             failures.append(f"phase profile jsd knn raised:\n{traceback.format_exc()}")
     return dict(counts=counts, index=index, ids=ids, dists=dists, rounds=rounds,
                 per_query=per_query, secs=secs)
+
+
+def top_k_per_round(torch, flat_index, index, queries) -> dict:
+    """The round top-k of the first kNN batch (``_top_k_smallest`` on each
+    round's (512, n_pad) distance block), timed alone per round with CUDA
+    events, beside the full stable sort it replaces on the same block."""
+    from repro_torch.core.backends import EngineOpts
+
+    blocks = []
+    real = flat_index._top_k_smallest
+
+    def capture(dist, k):
+        blocks.append((dist, k))
+        return real(dist, k)
+
+    flat_index._top_k_smallest = capture
+    try:
+        flat_index.bss_knn_batched(index, queries[:BATCH], KNN_K, opts=EngineOpts(backend="cuda"))
+    finally:
+        flat_index._top_k_smallest = real
+    return dict(
+        shape=list(blocks[0][0].shape),
+        top_k_ms=[time_ms(torch, lambda: real(d, k), 20) for d, k in blocks],
+        stable_sort_ms=[time_ms(torch, lambda: torch.sort(d, dim=1, stable=True), 5)
+                        for d, _ in blocks])
 
 
 BF16_SELECTIVITIES = (1e-5, 1e-3)
@@ -1049,9 +1116,8 @@ def bf16_range_path(torch, np, failures: list, record: dict, queries, metric: st
         log(f"profile {metric} range bf16 {backend} " + json.dumps(prof))
     except Exception:
         failures.append(f"phase profile {metric} bf16 raised:\n{traceback.format_exc()}")
-    if metric in PROB:
-        record.setdefault("exact phase alone", {})[metric + " bf16"] = exact_phase_alone(
-            torch, index, queries, chosen[-1][1], metric, "bf16")
+    record.setdefault("exact phase alone", {})[metric + " bf16"] = exact_phase_alone(
+        torch, index, queries, chosen[-1][1], metric, "bf16")
     return dict(counts=counts, live_share=live_share)
 
 
@@ -1340,17 +1406,20 @@ def main() -> int:
     kernels, record, paths, bf16_paths, knns = {}, {}, {}, {}, {}
     dev = torch.device("cuda")
     data = {}
-    if "--prob-only" in sys.argv[1:]:
-        # the JSD / Triangular tiles alone, e.g. another checkout's (copy
-        # this script and core/precision.py there): the small-distance
-        # errors, and the masked tile of the range path's first batch at
-        # selectivity 1e-3, fp32 and bf16, timed alone
+    if "--tiles-only" in sys.argv[1:]:
+        # the tile kernels alone, e.g. beside another checkout's (copy this
+        # script and core/precision.py there): the JSD / Triangular
+        # small-distance errors, what the masked l2 tile's time is made of,
+        # and the masked tile of each metric's range path at selectivity
+        # 1e-3, first batch, fp32 and bf16, timed alone with its output's
+        # sha256
         from repro_torch.configs.supermetric import build_index
         from repro_torch.data.metricsets import calibrate_threshold
 
         record["small distances"] = prob_small_distances(torch, np, failures, dev)
+        record["l2 tile breakdown"] = l2_tile_breakdown(torch, np, dev)
         corpus, queries = load(np, SISAP_COLORS)
-        for metric in PROB:
+        for metric in ("l2", *PROB):
             index = build_index(dataclasses.replace(SISAP_COLORS, metric=metric), corpus,
                                 device=dev)
             t = calibrate_threshold(metric, corpus, 1e-3)

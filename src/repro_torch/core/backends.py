@@ -48,8 +48,12 @@ class EngineOpts:
     * ``bq`` — query-tile row count of the masked exact phase; ``None``
       means ``repro_torch.kernels.tiles.TILE_BQ``.
     * ``backend`` — ``"auto"`` | ``"cuda"`` | ``"torch"`` (module docstring).
-    * ``realisation`` — kept for the reference's signature: the port runs
-      one dense masked exact phase, whatever the value.
+    * ``realisation`` — ``"adaptive"`` | ``"dense"``: the ``"torch"``
+      backend's exact phase, as the reference's jnp backend picks it.
+      ``"adaptive"`` gathers only the alive (query, block) cells of a batch
+      or kNN round when they are at most 0.08 of all
+      (``flat_index._DENSE_ALIVE_FRAC``), else runs the dense pass; ``"dense"`` always runs the dense
+      pass.  ``"cuda"`` runs the masked kernel whatever the value.
     * ``precision`` — ``"fp32"`` | ``"bf16"`` (the exact phase over the
       bf16 corpus mirror with an fp32 re-check of the margin band; results
       bit-identical to ``"fp32"``).

@@ -8,9 +8,10 @@ l1, linf (controls) and the ``"{base}^{alpha}"`` power transforms.  Every
 (n, m) float32 distance matrix; tests hold each within 1e-5 of the JAX
 registry.
 
-On a CUDA device a float32 matmul must stay IEEE float32: TF32 would move
-distances by ~1e-3 relative and shift hits that sit near a threshold.
-``check_ieee_fp32`` refuses to run with TF32 matmuls enabled.
+A float32 matmul must stay IEEE float32: TF32 on a CUDA device, or bfloat16
+through oneDNN on the CPU, would move distances by ~1e-3 relative and shift
+hits that sit near a threshold.  ``check_ieee_fp32`` refuses to run with
+either enabled.
 
 The broadcast metrics (jsd, triangular, l1, linf) evaluate ``y`` in column
 chunks whose (n, chunk, K) transient stays within ``PAIRWISE_CHUNK_BYTES``.
@@ -43,13 +44,47 @@ __all__ = [
 _EPS = 1e-12
 
 
+# float32 matmul settings that round the inputs (TF32 or bfloat16): the
+# per-backend names of torch's newer API and the global names of the older
+_ROUNDED = ("tf32", "bf16", "high", "medium")
+
+
+def _fp32_matmul_setting(backend: str) -> str:
+    """The float32 matmul setting of ``torch.backends.<backend>`` ("cuda"
+    or "mkldnn", the CPU's oneDNN): its own ``matmul.fp32_precision`` where
+    the installed torch has one ("none" inherits the generic
+    ``torch.backends.fp32_precision``), else the global
+    ``torch.get_float32_matmul_precision()``.  The global one also reflects
+    the CUDA setting, so it is not read where the backend has its own."""
+    matmul = getattr(getattr(torch.backends, backend), "matmul", None)
+    own = getattr(matmul, "fp32_precision", None)
+    if own is None:
+        return torch.get_float32_matmul_precision()
+    if own == "none":
+        return getattr(torch.backends, "fp32_precision", "none")
+    return own
+
+
 def check_ieee_fp32(t: torch.Tensor) -> None:
-    """Raise if a float32 matmul on ``t``'s device would round its inputs
-    to TF32 (``torch.backends.cuda.matmul.allow_tf32``)."""
-    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+    """Raise if a float32 matmul on ``t``'s device would not run in IEEE
+    float32: on CUDA under TF32 (``torch.backends.cuda.matmul.allow_tf32``,
+    or a float32 matmul precision below "highest"); on the CPU where oneDNN
+    would round to bfloat16 or TF32 (``set_float32_matmul_precision
+    ("medium")`` does so)."""
+    if t.is_cuda:
+        setting = _fp32_matmul_setting("cuda")
+        if torch.backends.cuda.matmul.allow_tf32 or setting in _ROUNDED:
+            raise RuntimeError(
+                f"float32 matmul would run in TF32 ({setting!r}); set "
+                f"torch.backends.cuda.matmul.allow_tf32 = False and "
+                f"torch.set_float32_matmul_precision('highest')"
+            )
+        return
+    setting = _fp32_matmul_setting("mkldnn")
+    if setting in _ROUNDED:
         raise RuntimeError(
-            "float32 matmul would run in TF32; set "
-            "torch.backends.cuda.matmul.allow_tf32 = False"
+            f"float32 matmul on the CPU would not run in IEEE float32 "
+            f"({setting!r}); call torch.set_float32_matmul_precision('highest')"
         )
 
 

@@ -16,11 +16,15 @@ query:  ``bss_query_batched`` runs one pass per batch on the device:
         only in the surviving cells.  The hit test runs on the device and
         only the (query, position) pairs of the hits come back to the host.
         With ``backend="cuda"`` the three steps are the hand-written
-        kernels; with ``"torch"`` the same math in plain torch ops.
+        kernels; with ``"torch"`` the same math in plain torch ops, whose
+        exact phase follows ``realisation`` as the reference's jnp backend
+        does: "adaptive" gathers only the alive (query, block) cells when
+        they are at most ``_DENSE_ALIVE_FRAC`` of all, else runs one dense
+        pass; "dense" always runs the dense pass.
 
 knn:    ``bss_knn_batched`` runs the same pieces as radius-deepening rounds
         with a stable top-k, driven by the reference's host radius
-        schedule step for step (dense rounds on both backends).
+        schedule step for step (``realisation`` as for range search).
 
 bf16:   ``precision="bf16"`` streams the index's bfloat16 corpus mirror
         (``device_bf16``) through the exact phase and re-checks the
@@ -35,8 +39,7 @@ as the correctness check both backends are held to.
 
 Device rule: ``build_bss(device=None)`` builds for the CUDA device and
 raises when there is none; the CPU is used only when the caller asks for
-it.  Not ported yet (ROADMAP.md): sharding (``mesh``) and the reference's
-cell-gather realisations (fp32 and bf16).  The living corpus (append,
+it.  Not ported yet (ROADMAP.md): sharding (``mesh``).  The living corpus (append,
 delete, compact) is ``repro_torch.index``.
 Power transforms keep the reference's rule: with no tile kernel their
 distances run as plain pairwise on either backend.
@@ -58,7 +61,7 @@ from repro_torch.core.backends import (
     resolve_engine_opts,
     tile_survival,
 )
-from repro_torch.core.distances import Metric, get_metric
+from repro_torch.core.distances import Metric, check_ieee_fp32, get_metric
 from repro_torch.core.npdist import pairwise_np
 from repro_torch.core.precision import bf16_margin, bf16_round_np
 from repro_torch.core.refpoints import select_fft
@@ -545,6 +548,151 @@ def _masked_exact_dists(
     return dist.masked_fill_(~dev_valid[None, :], torch.inf)
 
 
+# Above this alive-cell share the "torch" backend's adaptive realisation
+# runs the dense exact phase; below it, only the surviving (query, block)
+# cells are gathered (the reference's threshold; either branch is exact).
+_DENSE_ALIVE_FRAC = 0.08
+
+# cells a gathered batch evaluates at once: every cell goes through a batch
+# of this one shape (the last is padded), so a cell's distances do not
+# depend on how many cells were gathered with it -- the bf16 re-check
+# gathers fewer cells than the fp32 pass whose bits it must reproduce
+_CELL_CHUNK = 256
+
+
+def _next_pow2(x: int, lo: int = 16) -> int:
+    return max(lo, 1 << (max(x, 1) - 1).bit_length())
+
+
+def _padded_cells(qidx: np.ndarray, bidx: np.ndarray, device):
+    """Host cell lists padded to ``_next_pow2`` cells (the reference's
+    shapes), as device tensors: (qidx, bidx, cell_valid)."""
+    c = len(qidx)
+    c_pad = _next_pow2(c)
+
+    def padded(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.pad(a, (0, c_pad - c)), dtype=torch.int64, device=device)
+
+    return padded(qidx), padded(bidx), torch.arange(c_pad, device=device) < c
+
+
+def _gather_cell_dists(
+    metric_name: str,
+    queries: torch.Tensor,
+    data: torch.Tensor,
+    valid: torch.Tensor,
+    qidx: torch.Tensor,
+    bidx: torch.Tensor,
+    block: int,
+):
+    """The metric over the C gathered (query, block) cells only: (d (C,
+    block), pvalid (C, block)) — the cell-gather distance block of the
+    sparse range and kNN realisations.  ``data`` may be the bf16 mirror:
+    each metric upcasts on entry."""
+    dim = data.shape[-1]
+    blocks = data.reshape(-1, block, dim)
+    pairwise = get_metric(metric_name).pairwise
+    per_cell = torch.func.vmap(lambda a, b: pairwise(a[None], b)[0])
+    c = qidx.shape[0]
+    d = torch.empty((c, block), dtype=torch.float32, device=data.device)
+    for s in range(0, c, _CELL_CHUNK):
+        q_chunk = qidx[s:s + _CELL_CHUNK]
+        b_chunk = bidx[s:s + _CELL_CHUNK]
+        n = q_chunk.shape[0]
+        if n < _CELL_CHUNK:  # the one shape every cell is evaluated in
+            q_chunk = torch.cat([q_chunk, q_chunk.new_zeros(_CELL_CHUNK - n)])
+            b_chunk = torch.cat([b_chunk, b_chunk.new_zeros(_CELL_CHUNK - n)])
+        d[s:s + n] = per_cell(queries[q_chunk], blocks[b_chunk])[:n]
+    pvalid = valid.reshape(-1, block)[bidx]
+    return d, pvalid
+
+
+def _cells_exact(
+    metric_name: str,
+    queries: torch.Tensor,
+    data: torch.Tensor,
+    valid: torch.Tensor,
+    qidx: torch.Tensor,
+    bidx: torch.Tensor,
+    cell_valid: torch.Tensor,
+    t: torch.Tensor,
+    *,
+    block: int,
+):
+    """The exact phase over an explicit alive-cell list (the reference's
+    ``_cells_exact_jit``): the hits of the gathered cells, each against its
+    own query's radius ``t[q]``.  Returns (hit_q, hit_pos) device tensors,
+    row-major over (cell, offset) with cells sorted by (query, block), so a
+    query's hits come in ascending position.  The reference's fixed-capacity
+    hit list is an XLA shape; here the list is as long as the hits."""
+    d, pvalid = _gather_cell_dists(metric_name, queries, data, valid, qidx, bidx, block)
+    hit = (d <= t[qidx][:, None]) & pvalid & cell_valid[:, None]
+    pos = torch.nonzero(hit.reshape(-1)).squeeze(1)
+    cell = pos // block
+    return qidx[cell], bidx[cell] * block + pos % block
+
+
+def _cells_exact_bf16(
+    metric_name: str,
+    queries: torch.Tensor,
+    data16: torch.Tensor,
+    valid: torch.Tensor,
+    qidx: torch.Tensor,
+    bidx: torch.Tensor,
+    cell_valid: torch.Tensor,
+    t: torch.Tensor,
+    eps: torch.Tensor,
+    *,
+    block: int,
+):
+    """The sparse bf16 range phase (the reference's
+    ``_cells_exact_bf16_jit``): the sure hits (``d16 <= t - eps``) of the
+    cells that hold no band point (``t - eps < d16 <= t + eps``), the band
+    flag of every cell, and the band points per query.  The caller re-checks
+    the band cells through the fp32 ``_cells_exact``, whose values and hit
+    masks are the fp32 realisation's.  Returns (hit_q, hit_pos, band_cell
+    (C,), band_counts (Q,) int32)."""
+    d, pvalid = _gather_cell_dists(metric_name, queries, data16, valid, qidx, bidx, block)
+    ok = pvalid & cell_valid[:, None]
+    tq = t[qidx][:, None]
+    sure = (d <= tq - eps) & ok
+    band = (d <= tq + eps) & ok & ~sure
+    band_cell = band.any(dim=1)
+    pos = torch.nonzero((sure & ~band_cell[:, None]).reshape(-1)).squeeze(1)
+    cell = pos // block
+    band_counts = torch.zeros(queries.shape[0], dtype=torch.int32, device=d.device)
+    band_counts.index_add_(0, qidx, band.sum(dim=1, dtype=torch.int32))
+    return qidx[cell], bidx[cell] * block + pos % block, band_cell, band_counts
+
+
+def _dense_hit_mask(
+    metric_name: str,
+    queries: torch.Tensor,
+    data: torch.Tensor,
+    valid: torch.Tensor,
+    alive: torch.Tensor,
+    t: torch.Tensor,
+    *,
+    block: int,
+) -> torch.Tensor:
+    """The dense exact pass of the "torch" backend's fp32 range search (the
+    reference's ``_dense_hit_mask_jit``): the (Q, n_pad) hit mask, masked by
+    each query's own surviving blocks and the valid rows.  l2 tests in the
+    squared domain, ``|p|^2 - 2 q.p <= t^2 - |q|^2`` (no sqrt), with a
+    negative radius sent to -inf so that it hits nothing."""
+    nq = queries.shape[0]
+    if metric_name == "l2":
+        qf, df = queries.float(), data.float()
+        check_ieee_fp32(qf)
+        s = -2.0 * (qf @ df.T) + torch.sum(df * df, dim=-1)[None, :]
+        thresh = torch.where(t >= 0, t * t - torch.sum(qf * qf, dim=-1), -torch.inf)
+        raw_hit = s <= thresh[:, None]
+    else:
+        raw_hit = get_metric(metric_name).pairwise(queries, data) <= t[:, None]
+    hit = raw_hit.reshape(nq, -1, block) & alive[:, :, None] & valid.reshape(1, -1, block)
+    return hit.reshape(nq, -1)
+
+
 def _query_batched(
     metric_name: str,
     queries: torch.Tensor,
@@ -708,9 +856,19 @@ def bss_query_batched(
     and re-checks the band in fp32 (``_query_batched_bf16``): hits and
     stats are the fp32 pass's bit for bit, and the stats gain
     ``band_eps``, ``recheck_tiles``, ``per_query_recheck`` and
-    ``recheck_points_per_query``.  Both backends run this dense scheme
-    whatever ``realisation`` says (the reference's sparse bf16 cells wait
-    with its fp32 cell realisations)."""
+    ``recheck_points_per_query``.
+
+    ``realisation`` picks the ``"torch"`` backend's exact phase, as it
+    picks the reference's jnp one: with ``"adaptive"`` (the default) a
+    batch whose alive (query, block) cells are at most
+    ``_DENSE_ALIVE_FRAC`` of all evaluates only those cells
+    (``_query_cells``; bf16: the sure hits of the cells without a band
+    point, the band cells re-checked in fp32, ``recheck_tiles`` 0), and
+    any other batch runs the dense pass: fp32 one hit mask over the whole
+    block (``_dense_hit_mask``), bf16 the masked scheme above.  ``"dense"``
+    always runs the dense pass.  Either is exact; hits and stats are the
+    same.  ``"cuda"`` runs the masked kernel whatever ``realisation``
+    says, as the reference's Pallas backend does."""
     opts = resolve_engine_opts(
         opts, bq=bq, backend=backend, realisation=realisation,
         precision=precision,
@@ -735,32 +893,88 @@ def bss_query_batched(
     dev = index.device
     t_dev = torch.as_tensor(t_vec, device=index.torch_device)
     q_dev = torch.as_tensor(queries, device=index.torch_device)
-    if precision == "bf16":
-        eps = index.bf16_margin()
+    eps = index.bf16_margin() if precision == "bf16" else None
+    hit_q = band_counts = None
+    recheck_tiles = 0
+    sparse = False
+    if backend == "torch" and (precision == "fp32" or opts.realisation != "dense"):
+        # the reference's jnp branch: the bound phase first, then the
+        # realisation by the alive share, which reads only the fp32 bounds,
+        # so both precisions take the same branch
+        lb = _fused_lower_bounds(
+            metric_eng, q_dev, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
+            backend=backend,
+        )
+        alive = lb <= t_dev[:, None]
+        alive_np = alive.cpu().numpy()
+        sparse = (opts.realisation != "dense"
+                  and alive_np.mean() <= _DENSE_ALIVE_FRAC)
+    if sparse:
+        hit_q, hit_pos, band_counts = _query_cells(
+            index, metric_eng, q_dev, t_dev, alive_np, eps)
+        tile_mask = tile_survival(alive, bq)
+    elif precision == "bf16":
         hit, alive, tile_mask, recheck_tiles, band_counts = _query_batched_bf16(
             metric_eng, q_dev, t_dev, dev, index.device_bf16,
             torch.tensor(eps, dtype=torch.float32, device=index.torch_device),
             block=index.block, bq=bq, backend=backend,
         )
+        band_counts = band_counts.cpu().numpy()
+    elif backend == "torch":
+        hit = _dense_hit_mask(metric_eng, q_dev, dev.data, dev.valid, alive, t_dev,
+                              block=index.block)
+        tile_mask = tile_survival(alive, bq)
     else:
         dist, alive, tile_mask = _query_batched(
             metric_eng, q_dev, t_dev, dev, block=index.block, bq=bq,
             backend=backend,
         )
         hit = dist <= t_dev[:, None]
-    # hit extraction on the device; nonzero is row-major, so positions
-    # ascend within each query — the oracle's order
-    pos = torch.nonzero(hit).cpu().numpy()
-    qidx, pidx = pos[:, 0], pos[:, 1]
-    orig = index.perm[pidx]
-    counts = np.bincount(qidx, minlength=nq)
+    if hit_q is None:
+        # hit extraction on the device; nonzero is row-major, so positions
+        # ascend within each query — the oracle's order
+        pos = torch.nonzero(hit).cpu().numpy()
+        hit_q, hit_pos = pos[:, 0], pos[:, 1]
+    orig = index.perm[hit_pos]
+    counts = np.bincount(hit_q, minlength=nq)
     per_query = np.split(orig, np.cumsum(counts)[:-1])
     results = [r.tolist() for r in per_query]
     stats = _batched_stats(index, alive.cpu().numpy(), tile_mask.cpu().numpy())
     stats["precision"] = "fp32"
     if precision == "bf16":
-        _bf16_stats(stats, eps, int(recheck_tiles), band_counts.cpu().numpy())
+        _bf16_stats(stats, eps, int(recheck_tiles), band_counts)
     return results, _finish_stats(stats, kind="range", backend=backend)
+
+
+def _query_cells(index: BSSIndex, metric_name: str, queries: torch.Tensor,
+                 t: torch.Tensor, alive: np.ndarray, eps: float | None):
+    """The sparse realisation of the "torch" backend's range search (the
+    reference's host code around ``_cells_exact_jit`` and, with ``eps``,
+    ``_cells_exact_bf16_jit``): only the alive (query, block) cells are
+    evaluated.  bf16: the sure hits of the cells without a band point, then
+    every band cell re-checked through the fp32 ``_cells_exact``.  Returns
+    host (hit_q, hit_pos) in (query, position) order, and the band points
+    per query (bf16; None for fp32)."""
+    dev, device = index.device, index.torch_device
+    qidx, bidx, cell_valid = _padded_cells(*np.nonzero(alive), device)
+    if eps is None:
+        hit_q, hit_pos = _cells_exact(metric_name, queries, dev.data, dev.valid, qidx,
+                                      bidx, cell_valid, t, block=index.block)
+        return hit_q.cpu().numpy(), hit_pos.cpu().numpy(), None
+    hit_q, hit_pos, band_cell, band_counts = _cells_exact_bf16(
+        metric_name, queries, index.device_bf16, dev.valid, qidx, bidx, cell_valid, t,
+        torch.tensor(eps, dtype=torch.float32, device=device), block=index.block)
+    hit_q, hit_pos = hit_q.cpu().numpy(), hit_pos.cpu().numpy()
+    sel = torch.nonzero(band_cell).squeeze(1)
+    if sel.numel():
+        q2, b2, v2 = _padded_cells(qidx[sel].cpu().numpy(), bidx[sel].cpu().numpy(), device)
+        rq, rp = _cells_exact(metric_name, queries, dev.data, dev.valid, q2, b2, v2, t,
+                              block=index.block)
+        hit_q = np.concatenate([hit_q, rq.cpu().numpy()])
+        hit_pos = np.concatenate([hit_pos, rp.cpu().numpy()])
+        order = np.lexsort((hit_pos, hit_q))
+        hit_q, hit_pos = hit_q[order], hit_pos[order]
+    return hit_q, hit_pos, band_counts.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -785,12 +999,12 @@ def _knn_round(
     matrix.  Returns (cand_idx (Q, k) positions in the permuted layout,
     cand_dist (Q, k) ascending, kth (Q,), done (Q,), alive (Q, B)).
 
-    The top-k is a stable sort and a slice: on equal distances the lowest
+    The top-k is ``_top_k_smallest``: on equal distances the lowest
     position comes first, as ``jax.lax.top_k`` gives it (``torch.topk``
-    promises no order).  ``done`` is sound: if the kth computed distance is
-    <= the query's radius, every unevaluated point lies in a block whose
-    bound exceeds the radius; if every block was alive, nothing is
-    unevaluated."""
+    alone promises no order).  ``done`` is sound: if the kth computed
+    distance is <= the query's radius, every unevaluated point lies in a
+    block whose bound exceeds the radius; if every block was alive, nothing
+    is unevaluated."""
     alive = lb <= radii[:, None]
     tile_mask = tile_survival(alive, bq)
     dist = _masked_exact_dists(
@@ -800,13 +1014,37 @@ def _knn_round(
     return (*_round_top_k(dist, radii, alive, k), alive)
 
 
+def _total_order_keys(dist: torch.Tensor) -> torch.Tensor:
+    """(Q, n) int64 keys of a float32 (Q, n) block, unique per row and in
+    the order a stable ascending sort gives: the high 32 bits hold the IEEE
+    total-order image of the float's bits (on the signed view, negative
+    values flip their 31 magnitude bits, so -0.0 < +0.0 and +inf ranks
+    above every finite value), the low 32 bits the column position."""
+    bits = dist.contiguous().view(torch.int32)
+    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    pos = torch.arange(dist.shape[1], dtype=torch.int64, device=dist.device)
+    return (ordered.to(torch.int64) << 32) | pos
+
+
+def _top_k_smallest(dist: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(idx, values) of each row's k smallest entries, ascending, ties by
+    lowest position, and -0.0 ahead of +0.0: ``jax.lax.top_k(-dist, k)``'s
+    selection and order (the reference's round top-k).  The keys are
+    unique, so any top-k over them selects exactly a stable sort's first k.
+    The k are put in order by their ranks (the count of smaller keys among
+    them), which needs no sort kernel."""
+    keys, idx = torch.topk(_total_order_keys(dist), k, dim=1, largest=False, sorted=False)
+    rank = (keys[:, None, :] < keys[:, :, None]).sum(dim=2)
+    idx = torch.empty_like(idx).scatter_(1, rank, idx)
+    return idx, torch.gather(dist, 1, idx)
+
+
 def _round_top_k(dist: torch.Tensor, radii: torch.Tensor, alive: torch.Tensor,
                  k: int):
-    """A round's stable top-k of ``dist`` and its ``done`` test: (cand_idx,
-    cand_dist, kth, done).  Both precisions select through it, so ties
-    fall alike."""
-    cand_dist, cand_idx = torch.sort(dist, dim=1, stable=True)
-    cand_dist, cand_idx = cand_dist[:, :k], cand_idx[:, :k]
+    """A round's top-k of ``dist`` (``_top_k_smallest``) and its ``done``
+    test: (cand_idx, cand_dist, kth, done).  Both precisions select through
+    it, so ties fall alike."""
+    cand_idx, cand_dist = _top_k_smallest(dist, k)
     kth = cand_dist[:, -1]
     done = torch.isfinite(kth) & ((kth <= radii) | alive.all(dim=1))
     return cand_idx, cand_dist, kth, done
@@ -833,7 +1071,7 @@ def _knn_round_bf16(
     The bf16 scan's kth distance ``kth16`` lies within ``eps`` of the fp32
     kth, so every member of the fp32 top-k has ``d16 <= kth16 + 2 eps``.
     That band is re-checked in fp32 and the top-k taken over the fp32
-    values (+inf outside the band) with ``_round_top_k``'s stable sort: every
+    values (+inf outside the band) with ``_round_top_k``: every
     excluded point lies strictly beyond the fp32 kth, so the selection and
     its tie order are the fp32 round's.  When fewer than k cells were
     computed, ``kth16`` is +inf and the band is every computed cell."""
@@ -860,6 +1098,69 @@ def _knn_round_bf16(
         *_round_top_k(dist, radii, alive, k), alive, recheck_mask.sum(),
         band.sum(dim=1, dtype=torch.int32),
     )
+
+
+def _scatter_cells(d: torch.Tensor, qidx: torch.Tensor, bidx: torch.Tensor, nq: int,
+                   n_blocks: int) -> torch.Tensor:
+    """(Q, n_pad) +inf block with each gathered cell's (block,) distances
+    min-scattered into its (query, block) place (``.at[q, b].min``)."""
+    dense = torch.full((nq * n_blocks, d.shape[1]), torch.inf, dtype=torch.float32,
+                       device=d.device)
+    rows = (qidx * n_blocks + bidx)[:, None].expand(-1, d.shape[1])
+    return dense.scatter_reduce_(0, rows, d, reduce="amin").reshape(nq, -1)
+
+
+def _knn_round_cells(
+    metric_name: str,
+    queries: torch.Tensor,
+    data: torch.Tensor,
+    valid: torch.Tensor,
+    qidx: torch.Tensor,
+    bidx: torch.Tensor,
+    cell_valid: torch.Tensor,
+    *,
+    k: int,
+    block: int,
+):
+    """A sparse kNN round (the reference's ``_knn_round_cells_jit``): the
+    distances of the gathered alive cells only, min-scattered into a (Q,
+    n_pad) +inf block (padded cells carry +inf, a no-op), then the round's
+    top-k.  Returns (cand_idx (Q, k) positions, cand_dist (Q, k))."""
+    d, pvalid = _gather_cell_dists(metric_name, queries, data, valid, qidx, bidx, block)
+    d = torch.where(pvalid & cell_valid[:, None], d, torch.inf)
+    dense = _scatter_cells(d, qidx, bidx, queries.shape[0], data.shape[0] // block)
+    return _top_k_smallest(dense, k)
+
+
+def _knn_round_cells_bf16(
+    metric_name: str,
+    queries: torch.Tensor,
+    data16: torch.Tensor,
+    valid: torch.Tensor,
+    qidx: torch.Tensor,
+    bidx: torch.Tensor,
+    cell_valid: torch.Tensor,
+    eps: torch.Tensor,
+    *,
+    k: int,
+    block: int,
+):
+    """The bf16 half of a sparse kNN round (the reference's
+    ``_knn_round_cells_bf16_jit``): the alive cells over the bf16 mirror,
+    each query's bf16 kth, and the cells that hold a point of the band
+    ``d16 <= kth16 + 2 eps`` (``_knn_round_bf16``'s containment argument).
+    The caller runs the fp32 ``_knn_round_cells`` over just those cells.
+    Returns (band_cell (C,) bool, band_counts (Q,) int32)."""
+    d, pvalid = _gather_cell_dists(metric_name, queries, data16, valid, qidx, bidx, block)
+    d = torch.where(pvalid & cell_valid[:, None], d, torch.inf)
+    nq = queries.shape[0]
+    dense16 = _scatter_cells(d, qidx, bidx, nq, data16.shape[0] // block)
+    kth16 = torch.topk(dense16, k, dim=1, largest=False, sorted=False).values.amax(dim=1)
+    bthr = torch.where(torch.isfinite(kth16), kth16 + 2.0 * eps, torch.inf)
+    band = (d <= bthr[qidx][:, None]) & torch.isfinite(d)
+    band_counts = torch.zeros(nq, dtype=torch.int32, device=d.device)
+    band_counts.index_add_(0, qidx, band.sum(dim=1, dtype=torch.int32))
+    return band.any(dim=1), band_counts
 
 
 def _tiles_computed(alive: np.ndarray, bq: int) -> int:
@@ -924,9 +1225,16 @@ def bss_knn_batched(
       radius at least); one with more than half the blocks alive, and every
       query left after ``max_rounds``, runs one exhaustive round.
 
-    Each round runs the dense masked exact phase (the reference's
-    ``realisation="dense"``) on both backends; only the (Q, k) candidates,
-    ``kth``, ``done`` and ``alive`` come back to the host.
+    A round on ``"cuda"``, or on ``"torch"`` with ``realisation="dense"``,
+    runs the dense masked exact phase; on ``"torch"`` with ``"adaptive"``
+    (the default) a round whose alive cells are at most
+    ``_DENSE_ALIVE_FRAC`` of all evaluates only those cells
+    (``_knn_round_cells``; bf16 first finds the band cells,
+    ``_knn_round_cells_bf16``).  Both are exact and give the same ids; a
+    distance may differ in its last ulp between them, which can move the
+    radius schedule and so the per-query counts, never the results
+    (the reference's contract).  Only the (Q, k) candidates, ``kth``,
+    ``done`` and ``alive`` come back to the host.
 
     ``precision="bf16"`` runs every round over the bf16 corpus mirror with
     the fp32 re-check of the band ``d16 <= kth16 + 2 eps``
@@ -1002,7 +1310,31 @@ def bss_knn_batched(
             # block, so this round is final for them
             radii = np.where(done, radii, np.inf).astype(np.float32)
         radii_dev = torch.as_tensor(radii, device=index.torch_device)
-        if bf16:
+        alive_host = lb_np <= radii[:, None]  # the device test's cells
+        if (backend == "torch" and opts.realisation != "dense"
+                and alive_host.mean() <= _DENSE_ALIVE_FRAC):
+            # a sparse round: the alive cells only (the branch reads only
+            # the fp32 bounds, so both precisions take it alike); bf16 picks
+            # the band cells and the fp32 round runs over just those
+            qidx, bidx, cell_valid = _padded_cells(*np.nonzero(alive_host),
+                                                   index.torch_device)
+            if bf16:
+                band_cell, band_counts = _knn_round_cells_bf16(
+                    metric_eng, q_dev, data16, dev.valid, qidx, bidx, cell_valid,
+                    eps_dev, k=k_run, block=index.block,
+                )
+                recheck_pq += np.where(~done, band_counts.cpu().numpy(), 0)
+                sel = torch.nonzero(band_cell).squeeze(1)
+                qidx, bidx, cell_valid = _padded_cells(
+                    qidx[sel].cpu().numpy(), bidx[sel].cpu().numpy(), index.torch_device)
+            ci, cd = (a.cpu().numpy() for a in _knn_round_cells(
+                metric_eng, q_dev, dev.data, dev.valid, qidx, bidx, cell_valid,
+                k=k_run, block=index.block,
+            ))
+            kth = cd[:, -1]
+            dn = np.isfinite(kth) & ((kth <= radii) | alive_host.all(axis=1))
+            alive = alive_host
+        elif bf16:
             ci, cd, kth, dn, alive, rtiles, band_counts = (
                 a.cpu().numpy() for a in _knn_round_bf16(
                     metric_eng, q_dev, radii_dev, lb_dev, dev, data16, eps_dev,

@@ -34,8 +34,8 @@ import torch
 
 from repro_torch.core.npdist import pairwise_np
 
-__all__ = ["ARITH_ULPS", "bf16_round_np", "bf16_margin", "prob_error_budget",
-           "prob_error_verdict"]
+__all__ = ["ARITH_ULPS", "JSD_ACCURATE_BELOW", "bf16_round_np", "bf16_margin",
+           "jsd_accurate_below", "prob_error_budget", "prob_error_verdict"]
 
 # headroom multiplier on fp32 accumulation noise (the reference's)
 ARITH_ULPS = 64.0
@@ -124,20 +124,49 @@ def bf16_margin(
 # proof; the source note derives the bound.
 
 
+# Below this JSD distance the tile recomputes a cell with the accurate
+# logarithm (csrc/prob_dist.cu, "Near duplicates").
+JSD_ACCURATE_BELOW = 0.05
+
+
+def jsd_accurate_below(k: int) -> float:
+    """The fast sum S (JSD^2 in bits) below which the JSD tile recomputes a
+    cell: S at ``JSD_ACCURATE_BELOW`` plus the fast sum's error bound there
+    (``csrc/prob_dist.cu::jsd_accurate_below``, in the same arithmetic)."""
+    u = _F32_EPS / 2
+    s = JSD_ACCURATE_BELOW ** 2
+    log_k = math.log2(max(k, 1))
+    return float(np.float32(s + 2.0 ** -22 * (1 + log_k) + u * (6 * log_k + 2)
+                            + (k + 1) * u * 2 * s))
+
+
 def prob_error_budget(metric_name: str, k: int, d) -> tuple[np.ndarray, np.ndarray]:
     """The bound on |d_kernel - d_exact| of the JSD / Triangular tiles over
     K = ``k`` bins (``csrc/prob_dist.cu``): (the part from lg2.approx /
     rcp.approx, the part from fp32 rounding).  ``d`` is the smaller of the
     two distances (array or scalar).  JSD bounds the error dS of S = JSD^2
     in bits and carries it to d through |d~ - d| = |d~^2 - d^2| / (d~ + d)
-    <= dS / 2d; Triangular's is relative.  The fp32 part alone bounds the
-    plain fp32 version, which has no approximate instruction."""
+    <= dS / 2d; Triangular's is relative.
+
+    JSD has two regimes.  From ``JSD_ACCURATE_BELOW`` up the tile's fast sum
+    (lg2.approx) stands; below it every cell is recomputed with the
+    accurate logarithm in the plain version's per-k form, whose budget has
+    no approximate part.  A cell whose smaller distance is below
+    ``JSD_ACCURATE_BELOW`` was recomputed: its exact distance is, or its
+    output is, and a fast output is never below it.  The fp32 part of each
+    regime bounds the plain fp32 version there, which has no approximate
+    instruction."""
     u = _F32_EPS / 2  # fp32 unit roundoff
     d = np.maximum(d, 1e-30)
     if metric_name == "jsd":
         log_k = math.log2(max(k, 1))
-        approx = 2.0 ** -22 * (1 + log_k) / (2 * d)
-        fp32 = (u * (6 * log_k + 2) + (k + 1) * u * d * d) / (2 * d) + 2 * u * d
+        near = d < JSD_ACCURATE_BELOW
+        approx = np.where(near, 0.0, 2.0 ** -22 * (1 + log_k) / (2 * d))
+        fp32 = np.where(
+            near,
+            (u * (8 * log_k + 1 / math.log(2)) + (k + 3) * u * d * d) / (2 * d) + u * d,
+            (u * (6 * log_k + 2) + (k + 1) * u * d * d) / (2 * d) + 2 * u * d,
+        )
         return approx, fp32
     if metric_name == "triangular":
         return d * u, d * u * ((k + 3) / 2 + 1)

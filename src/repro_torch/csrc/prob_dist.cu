@@ -57,6 +57,27 @@
 // chip_smoke.py prints the largest |d - d_float64| it sees near each
 // threshold beside this budget.
 //
+// Near duplicates.  The lg2 part of |dS| does not shrink with S, so it
+// grows as 1 / 2d in d: below d = 0.05 the fast sum would err several times
+// more than the plain fp32 version.  So a JSD cell whose fast sum S falls
+// below S_0 = 0.05^2 + |dS| (the fast sum's bound above at S = 0.05^2;
+// jsd_accurate_below) is recomputed, after the epilogue's stores, by the
+// thread that owns it (jsd_accurate): the plain version's per-k form
+// sum_k (x/2 ln x + y/2 ln y) - m ln m with the accurate logf (1 ulp),
+// summed in k order, then sqrt(max(sum, 0) / ln 2).  Every cell whose
+// exact distance is below 0.05 has S < S_0 and is recomputed; a cell that
+// is not comes out at sqrt(S_0) > 0.05 or above.  The decision reads only S, which does not
+// depend on the launch, and so does the recompute: the bits stay the
+// launch's own.  The hot loop is unchanged; the epilogue adds one compare
+// a cell, and the recompute is rare (no pair of the SISAP colors corpus
+// lies within 0.05 of another).  Its error, from the same roundings in
+// nats (per k: three logf of 1 ulp, their products, the halving, the
+// sums; sum_k x |ln x| <= ln K), then the division by ln 2:
+//   |dS|, accurate: <= u (8 log2 K + 1 / ln 2) + (K + 3) u S,
+// no approximate part; |dd| <= |dS| / 2d + u d.
+// core/precision.py::prob_error_budget gives this budget below d = 0.05
+// and the fast one above.
+//
 // What bounds it on the H100: neither function is a contraction, so there
 // is no tensor-core form.  The work is one transcendental per live
 // (i, j, k) on the SFU, whose documented rate on compute capability 9.0 is
@@ -94,6 +115,7 @@
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -143,6 +165,29 @@ __device__ __forceinline__ float rcp_approx(float v) {
 __device__ __forceinline__ float entropy_term(float v) {
   const float vl = v > EPS ? __fmul_rn(v, log2f(fmaxf(v, EPS))) : 0.0f;
   return __fadd_rn(vl, v);
+}
+
+constexpr float LN2 = 0.693147180559945309f;
+
+// v ln v, guarded at 1e-12 (accurate logf)
+__device__ __forceinline__ float xlogx(float v) {
+  return v > EPS ? __fmul_rn(v, logf(fmaxf(v, EPS))) : 0.0f;
+}
+
+// JSD of row xr against row yr with the accurate logarithm, in the plain
+// version's per-k form and k order: sum_k (x/2 ln x + y/2 ln y) - m ln m,
+// then sqrt(max(sum, 0) / ln 2).  The near-duplicate path (note at the top).
+template <typename YT>
+__device__ float jsd_accurate(const float* __restrict__ xr, const YT* __restrict__ yr, int k) {
+  float sum = 0.0f;
+  for (int kk = 0; kk < k; ++kk) {
+    const float a = xr[kk];
+    const float b = widen(yr[kk]);
+    const float half = __fadd_rn(__fmul_rn(0.5f, xlogx(a)), __fmul_rn(0.5f, xlogx(b)));
+    const float mix = __fmul_rn(0.5f, __fadd_rn(a, b));
+    sum = __fadd_rn(sum, __fsub_rn(half, xlogx(mix)));
+  }
+  return __fsqrt_rn(__fdiv_rn(fmaxf(sum, 0.0f), LN2));
 }
 
 // one (i, j, k) step into the running sum; see the note at the top
@@ -241,7 +286,8 @@ template <typename YT, int METRIC, bool MASKED, int R, int C>
 __global__ void __launch_bounds__(THREADS, R * C > 1 ? 2 : 1)
 prob_tile_kernel(const float* __restrict__ x, const YT* __restrict__ y,
                  const int* __restrict__ mask, float* __restrict__ out,
-                 int m, int n, int k, int bm, int bn, int mask_cols, bool vec_x, bool vec_y) {
+                 int m, int n, int k, int bm, int bn, int mask_cols, bool vec_x, bool vec_y,
+                 float accurate_below) {
   constexpr int TM = TY * R;
   constexpr int TN = TX * C;
   const int r0 = blockIdx.y * TM;
@@ -335,6 +381,9 @@ prob_tile_kernel(const float* __restrict__ x, const YT* __restrict__ y,
 
   constexpr int VC = C < 4 ? C : 4;
   const bool vec_out = VC == 4 && (n % 4) == 0;
+  // JSD: the live cells (bit i * C + j) whose fast sum is below
+  // accurate_below, recomputed after the stores by jsd_accurate
+  unsigned long long recheck = 0;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int r = frag_index<R>(i, ty);
@@ -347,9 +396,12 @@ prob_tile_kernel(const float* __restrict__ x, const YT* __restrict__ y,
 #pragma unroll
       for (int q = 0; q < VC; ++q) {
         const int gc = c0 + frag_index<C>(g * VC + q, tx);
-        v[q] = sqrtf(fmaxf(__fmul_rn(0.5f, acc[i][g * VC + q]), 0.0f));
+        const float s = __fmul_rn(0.5f, acc[i][g * VC + q]);
+        v[q] = sqrtf(fmaxf(s, 0.0f));
         if (MASKED && gc < n && mask[(size_t)(gr / bm) * mask_cols + gc / bn] == 0)
           v[q] = pos_inf();
+        else if (METRIC == JSD && s < accurate_below && gc < n)
+          recheck |= 1ull << (i * C + g * VC + q);
       }
       const int c = frag_index<C>(g * VC, tx);
       if (vec_out && c + VC <= cols) {
@@ -362,6 +414,28 @@ prob_tile_kernel(const float* __restrict__ x, const YT* __restrict__ y,
       }
     }
   }
+  if (METRIC == JSD) {
+    static_assert(R * C <= 64, "one recheck bit a cell");
+    while (recheck != 0) {  // rare: near duplicates only
+      const int e = __ffsll(static_cast<long long>(recheck)) - 1;
+      recheck &= recheck - 1;
+      const int gr = r0 + frag_index<R>(e / C, ty);
+      const int gc = c0 + frag_index<C>(e % C, tx);
+      out[(size_t)gr * n + gc] = jsd_accurate(x + (size_t)gr * k, y + (size_t)gc * k, k);
+    }
+  }
+}
+
+// The fast sum S (JSD^2 in bits) below which a JSD cell is recomputed by
+// jsd_accurate: S at d = 0.05 plus the fast sum's own error bound there
+// (note at the top), so every cell whose exact distance is below 0.05 is
+// recomputed, and every cell that is not comes out at 0.05 or above.
+// core/precision.py::jsd_accurate_below computes the same.
+float jsd_accurate_below(int k) {
+  const double u = 0x1p-24, s = 0.05 * 0.05;
+  const double log_k = std::log2(static_cast<double>(k > 1 ? k : 1));
+  return static_cast<float>(s + 0x1p-22 * (1 + log_k) + u * (6 * log_k + 2) +
+                            (k + 1) * u * 2 * s);
 }
 
 constexpr int MAX_DEVICES = 64;  // devices whose SM count and attributes are cached
@@ -400,7 +474,7 @@ int launch_shape(const float* x, const YT* y, const int* mask, float* out, int m
   const dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM);
   const int mask_cols = MASKED ? (n + bn - 1) / bn : 0;
   kernel<<<grid, THREADS, SMEM, stream>>>(x, y, mask, out, m, n, k, bm, bn, mask_cols, vec_x,
-                                          vec_y);
+                                          vec_y, METRIC == JSD ? jsd_accurate_below(k) : 0.0f);
   return static_cast<int>(cudaGetLastError());
 }
 

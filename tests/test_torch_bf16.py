@@ -6,7 +6,8 @@ search and kNN with ``precision="bf16"`` on the ``"torch"`` backend
 * equal the port's float32 results bit for bit: hit lists, kNN ids and
   distances, and every stats key the float32 pass has;
 * equal JAX's bf16 results on its jnp backend with ``realisation="dense"``
-  (the scheme the port runs): hits, the dense hit mask and ``alive`` of one
+  (both pinned to the dense scheme; ``tests/test_torch_adaptive.py`` holds
+  the sparse one): hits, the dense hit mask and ``alive`` of one
   pass, ``per_query_dists``, ``excluded``, kNN ids and rounds, ``band_eps``
   (bit-equal), ``recheck_tiles`` and ``per_query_recheck``.
 
@@ -33,8 +34,8 @@ from test_torch_bss_engine import _assert_stats_equal, _space, safe_threshold
 
 METRICS = ("l2", "cosine", "jsd", "triangular")
 _R16 = REngineOpts(backend="jnp", realisation="dense", precision="bf16")
-_T32 = EngineOpts(backend="torch")
-_T16 = EngineOpts(backend="torch", precision="bf16")
+_T32 = EngineOpts(backend="torch", realisation="dense")
+_T16 = EngineOpts(backend="torch", precision="bf16", realisation="dense")
 BF16_KEYS = ("band_eps", "recheck_tiles", "per_query_recheck", "recheck_points_per_query")
 
 

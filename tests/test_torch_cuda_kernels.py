@@ -223,7 +223,8 @@ def test_engine_cuda_backend_matches_torch_backend(card, metric):
 @pytest.mark.parametrize("metric", ["l2", "cosine", "jsd", "triangular"])
 def test_knn_cuda_backend_matches_torch_backend(card, metric):
     """kNN through the kernels returns the plain backend's ids, rounds and
-    counts, and the float64 brute force's neighbour sets."""
+    counts (its dense rounds: the scheme the kernels run), and the float64
+    brute force's neighbour sets."""
     db, q = _engine_case(metric)
     index = flat_index.build_bss(metric, db, n_pivots=8, n_pairs=12, block=64, device=card)
     reset_launch_counts()
@@ -231,8 +232,8 @@ def test_knn_cuda_backend_matches_torch_backend(card, metric):
     counts, entry = launch_counts(), _entry(metric)
     assert counts[entry] == counts["planar_lower_bound"] == 1
     assert counts["masked_" + entry] == g_stats["rounds"]
-    want, w_d, w_stats = flat_index.bss_knn_batched(index, q, 10,
-                                                    opts=EngineOpts(backend="torch"))
+    want, w_d, w_stats = flat_index.bss_knn_batched(
+        index, q, 10, opts=EngineOpts(backend="torch", realisation="dense"))
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(g_d, w_d, rtol=1e-5, atol=1e-5)
     assert g_stats["rounds"] == w_stats["rounds"]
@@ -494,3 +495,113 @@ def test_prob_kernel_edge_bins(card, metric, k, masked):
         assert np.isfinite(got).all()
         assert (np.diagonal(got) == 0.0).all(), np.diagonal(got)
         assert_against_float64(metric, k, got, x_np, y_np, **(TOL if masked else PROB_TOL))
+
+
+# ------------------------------------------- l2: bits; JSD: near duplicates
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("squared", [False, True])
+@pytest.mark.parametrize("k", [3, 16, 112, 130])
+def test_l2_kernel_bits_do_not_depend_on_tiling(card, k, squared):
+    """Each (i, j) is accumulated in one order whatever the launch: two
+    launches, the wide (128 x 128) and narrow (16 x 16) block shapes, a
+    shift by one row, masks of three cell shapes (the 128 x 128 engine cell
+    skips the per-element mask test), and the bf16-y form against the fp32
+    form on the widened y all give the same bits for the same (i, j)."""
+    rng = np.random.default_rng(200 + k)
+    m, n = 200, 133 * 128 + 37  # the wide shape, ragged both ways
+    x = torch.from_numpy(normal(rng, m, k)).to(card)
+    y32 = torch.from_numpy(normal(rng, n, k)).to(card)
+    for y in (y32, y32.bfloat16()):
+        full = ops.pairwise_l2(x, y, squared=squared)
+        assert torch.equal(full, ops.pairwise_l2(x, y, squared=squared))
+        assert torch.equal(full, ops.pairwise_l2(x, y.float(), squared=squared))
+        assert torch.equal(ops.pairwise_l2(x[37:45], y[1000:1013], squared=squared),
+                           full[37:45, 1000:1013])
+        assert torch.equal(ops.pairwise_l2(x[1:], y, squared=squared), full[1:])
+        for bm, bn, live in ((128, 128, 0.5), (16, 32, 0.3), (8, 256, 0.4)):
+            tm = torch.from_numpy(rng.random((math.ceil(m / bm), math.ceil(n / bn))) < live)
+            tm = tm.to(card)
+            got = ops.masked_pairwise_l2(x, y, tm, bm=bm, bn=bn, squared=squared)
+            assert torch.equal(got, ref.masked_pairwise_metric_ref(full, tm, bm, bn))
+        assert_same(full.cpu().numpy(), ref.pairwise_l2_ref(x, y, squared).cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 16, 112])
+def test_jsd_near_duplicates_as_accurate_as_plain(card, k):
+    """Below d = 0.05 the JSD tile recomputes with the accurate logarithm:
+    against float64 it has no more cells over the fixed tolerance 1e-5 +
+    1e-4 d than the plain fp32 version on the card, and its largest error
+    is at most 1.1 times the plain version's; the masked and bf16-y forms
+    give the same bits."""
+    rng = np.random.default_rng(7 * k + 129)
+    x_np = simplex(rng, 70, k)
+    near = np.abs(x_np * (1 + 1e-3 * rng.normal(size=x_np.shape))).astype(np.float32)
+    y_np = np.concatenate([simplex(rng, 129, k),
+                           (near / near.sum(axis=1, keepdims=True)).astype(np.float32)])
+    x, y = torch.from_numpy(x_np).to(card), torch.from_numpy(y_np).to(card)
+    got = ops.pairwise_metric("jsd", x, y)
+    plain = ref.pairwise_jsd_ref(x, y).double().cpu().numpy()
+    want = pairwise_np("jsd", x_np, y_np)
+    sel = want < 0.05
+    assert sel.sum() >= 70
+    tol = 1e-5 + 1e-4 * want[sel]
+    err = np.abs(got.double().cpu().numpy()[sel] - want[sel])
+    err_plain = np.abs(plain[sel] - want[sel])
+    assert (err > tol).sum() <= (err_plain > tol).sum()
+    assert err.max() <= 1.1 * err_plain.max(), (err.max(), err_plain.max())
+    approx, fp32 = prob_error_budget("jsd", k, np.minimum(want[sel], got.cpu().numpy()[sel]))
+    assert (approx == 0).all() and (err <= fp32).all()
+    tm = torch.ones((math.ceil(70 / 16), math.ceil(y_np.shape[0] / 8)), dtype=torch.bool,
+                    device=card)
+    assert torch.equal(ops.masked_pairwise_metric("jsd", x, y, tm, bm=16, bn=8), got)
+    y16 = y.bfloat16()
+    assert torch.equal(ops.pairwise_metric("jsd", x, y16),
+                       ops.pairwise_metric("jsd", x, y16.float()))
+
+
+# ------------------------------------------------------------- kNN top-k
+
+
+@pytest.mark.cuda
+def test_round_top_k_on_card_equals_stable_sort(card):
+    """The total-order top-k of a kNN round at the main path's shape (512 x
+    101,504, k = 10) on the card: exact ties, +inf cells and signed zeros
+    come back as a stable sort's first k, except that -0.0 ranks ahead of
+    +0.0 (as ``jax.lax.top_k`` ranks them), and as on the CPU."""
+    rng = np.random.default_rng(11)
+    d = rng.integers(1, 50, size=(512, 101_504)).astype(np.float32) / 8
+    d[rng.random(d.shape) < 0.3] = np.inf
+    d[:, 7] = -0.0  # the only zeros: the stable sort gives 3, 7
+    d[:, 3] = 0.0
+    d[-1] = np.inf
+    dist = torch.from_numpy(d).to(card)
+    idx, val = flat_index._top_k_smallest(dist, 10)
+    s_val, s_idx = torch.sort(dist, dim=1, stable=True)
+    want_idx = s_idx[:, :10].clone()
+    want_idx[:-1, :2] = torch.tensor([7, 3], device=card)  # -0.0 first, then +0.0
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(val.abs(), s_val[:, :10].abs())
+    assert torch.signbit(val[:-1, 0]).all() and not torch.signbit(val[:-1, 1]).any()
+    cpu_idx, cpu_val = flat_index._top_k_smallest(dist.cpu(), 10)
+    assert torch.equal(idx.cpu(), cpu_idx) and torch.equal(val.cpu(), cpu_val)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("metric", ["l2", "jsd"])
+def test_knn_ids_on_card_equal_torch_backend(card, metric, precision):
+    """kNN ids through the kernels equal the plain backend's, under its
+    dense and its adaptive realisation, in both precisions."""
+    db, q = _engine_case(metric)
+    index = flat_index.build_bss(metric, db, n_pivots=8, n_pairs=12, block=64, device=card)
+    got, g_d, _ = flat_index.bss_knn_batched(
+        index, q, 10, opts=EngineOpts(backend="cuda", precision=precision))
+    for realisation in ("dense", "adaptive"):
+        want, w_d, _ = flat_index.bss_knn_batched(
+            index, q, 10, opts=EngineOpts(backend="torch", precision=precision,
+                                          realisation=realisation))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_allclose(g_d, w_d, rtol=1e-5, atol=1e-5)

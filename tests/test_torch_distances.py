@@ -13,6 +13,7 @@ from repro.core import distances as r_dist
 from repro.core import projection as r_projection
 from repro_torch.core import distances as t_dist
 from repro_torch.core import projection as t_projection
+from repro_torch.kernels import ref
 
 METRICS = ["l2", "cosine", "jsd", "triangular", "l1", "linf", "l1^0.5",
            "jsd^0.5", "l2^0.25"]
@@ -64,6 +65,29 @@ def test_tf32_matmul_is_refused_on_the_card_only():
         t_dist.get_metric("l2").pairwise(x, x)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("precision", ["medium", "high"])
+def test_rounded_cpu_matmul_is_refused(precision):
+    """``set_float32_matmul_precision("medium")`` lets oneDNN round a
+    float32 CPU matmul to bfloat16 ("high": TF32): the guard, and the
+    plain l2 version through it, refuse to run; the settings are restored
+    afterwards, and the guard passes again."""
+    x = torch.ones(2, 3)
+    onednn = getattr(getattr(torch.backends.mkldnn, "matmul", None), "fp32_precision", None)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision(precision)
+        with pytest.raises(RuntimeError, match="IEEE float32"):
+            t_dist.check_ieee_fp32(x)
+        with pytest.raises(RuntimeError, match="IEEE float32"):
+            ref.pairwise_l2_ref(x, x)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+        if onednn is not None:
+            torch.backends.mkldnn.matmul.fp32_precision = onednn
+    assert torch.get_float32_matmul_precision() == prev
+    t_dist.check_ieee_fp32(x)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

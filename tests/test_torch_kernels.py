@@ -23,7 +23,8 @@ import torch
 from repro.kernels import ops as r_ops
 from repro.kernels import pairwise_dist as r_pdist
 from repro_torch.core import distances as t_dist
-from repro_torch.core.precision import ARITH_ULPS, prob_error_budget, prob_error_verdict
+from repro_torch.core.precision import (ARITH_ULPS, JSD_ACCURATE_BELOW, jsd_accurate_below,
+                                       prob_error_budget, prob_error_verdict)
 from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
 from test_torch_cuda_kernels import (MASKED_CASES, PAIRWISE_SHAPES, PLANAR_SHAPES, PROB_TOL,
                                      TOL, assert_same, normal, planar_inputs, simplex)
@@ -357,3 +358,24 @@ def test_plain_prob_within_the_fp32_budget(metric, k):
         # twice the budget at 0.21 (below SISAP colors' thresholds and kth)
         # fits the arithmetic term ARITH_ULPS eps_f32 sqrt(K)
         assert verdict["ok"] and verdict["arith_term"] == ARITH_ULPS * 2.0 ** -23 * math.sqrt(k)
+
+
+@pytest.mark.parametrize("k", [3, 16, 112])
+def test_jsd_near_duplicate_regime(k):
+    """Below ``JSD_ACCURATE_BELOW`` the JSD tile recomputes a cell with the
+    accurate logarithm (``csrc/prob_dist.cu``): the budget there has no
+    approximate part.  The recompute threshold on the fast sum S covers
+    every cell whose exact distance is below 0.05 (S_0 is 0.05^2 plus the
+    fast sum's own bound there), and a fast output, sqrt(S) with S >= S_0,
+    is never below 0.05."""
+    s0 = jsd_accurate_below(k)
+    u = float(np.finfo(np.float32).eps) / 2
+    fast_bound = 2.0 ** -22 * (1 + math.log2(k)) + u * (6 * math.log2(k) + 2) + (k + 1) * u * s0
+    assert s0 >= JSD_ACCURATE_BELOW ** 2 + fast_bound
+    assert np.sqrt(np.float32(s0)) > np.float32(JSD_ACCURATE_BELOW)
+    d = np.array([1e-3, 0.01, 0.049, 0.05, 0.2])
+    approx, fp32 = prob_error_budget("jsd", k, d)
+    assert (approx[:3] == 0).all() and (approx[3:] > 0).all()
+    # below 0.05 the accurate regime is tighter than the fast one was
+    fast = 2.0 ** -22 * (1 + math.log2(k)) / (2 * d[:3])
+    assert (fp32[:3] < fast + (u * (6 * math.log2(k) + 2)) / (2 * d[:3]) + 2 * u * d[:3]).all()

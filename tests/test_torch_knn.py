@@ -9,7 +9,8 @@ ids, rounds, ``per_query_dists``, ``excluded["hilbert"]`` and
 ``tiles_computed``, with distances within 1e-5.  The reference is pinned
 to dense because its cell-gather rounds may differ in the last ulp and so
 shift the radius schedule (``repro.core.flat_index.bss_knn_batched``
-docstring); the port runs dense rounds only.  The cases mirror
+docstring), and the port is pinned to dense rounds too
+(``tests/test_torch_adaptive.py`` compares the adaptive rounds).  The cases mirror
 ``tests/test_bss_engine.py`` (uniform random data, on which no float32
 near-tie moves the schedule).
 """
@@ -26,7 +27,7 @@ from test_torch_bss_engine import _assert_stats_equal, _space
 
 _JNP = REngineOpts(backend="jnp", realisation="dense")
 _PALLAS = REngineOpts(backend="pallas", interpret=True, bq=8, realisation="dense")
-_TORCH = EngineOpts(backend="torch")
+_TORCH = EngineOpts(backend="torch", realisation="dense")
 
 # tests/test_bss_engine.py:124-131
 KNN_SHAPES = [
@@ -63,7 +64,8 @@ def test_knn_identical_to_jax_dense(metric, n, dim, block, nq, k, ref_opts, bq):
     db, q = data[:n], data[n:]
     r_idx, t_idx = _indexes(metric, db, n_pivots=8, n_pairs=10, block=block, seed=4)
     want = r_flat.bss_knn_batched(r_idx, q, k, opts=ref_opts)
-    got = t_flat.bss_knn_batched(t_idx, q, k, opts=EngineOpts(backend="torch", bq=bq))
+    got = t_flat.bss_knn_batched(t_idx, q, k,
+                                 opts=EngineOpts(backend="torch", bq=bq, realisation="dense"))
     _assert_knn_identical(got, want)
     assert got[2]["rounds"] >= 1
 
@@ -157,7 +159,8 @@ def test_knn_zero_queries_and_validation():
     _assert_knn_identical(got, r_flat.bss_knn_batched(r_idx, q[:0], 3, opts=_JNP))
     with pytest.raises(ValueError, match="k must be positive"):
         t_flat.bss_knn_batched(t_idx, q, 0, opts=_TORCH)
-    ids16, d16, s16 = t_flat.bss_knn_batched(t_idx, q, 3, opts=EngineOpts(precision="bf16"))
+    ids16, d16, s16 = t_flat.bss_knn_batched(
+        t_idx, q, 3, opts=EngineOpts(precision="bf16", realisation="dense"))
     ids32, d32, _ = t_flat.bss_knn_batched(t_idx, q, 3, opts=_TORCH)
     assert np.array_equal(ids16, ids32) and np.array_equal(d16, d32)
     assert s16["precision"] == "bf16" and s16["band_eps"] == t_idx.bf16_margin()
