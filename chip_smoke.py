@@ -3,16 +3,18 @@
 H100: the quickest proof that the port builds and serves on the card.
 
     python3 chip_smoke.py                # from the root of a checkout
-    python3 chip_smoke.py --tiles-only   # only the tiles: JSD / Triangular
-                                         # small-distance errors, and each
-                                         # metric's path launch timed alone
+    python3 chip_smoke.py --tiles-only   # only the tiles: the planar kernel,
+                                         # JSD / Triangular small-distance
+                                         # errors, and each metric's bound
+                                         # phase and masked tile timed alone
 
 Phases (any failure is reported and the script exits non-zero; each
 phase prints its seconds):
 
 1. Require a CUDA device of compute capability 9.0; print the card's name
-   and power limit (nvidia-smi) and the SFU rate (16 results per SM per
-   clock at the card's clocks.max.sm), and set float32 matmuls to IEEE (no
+   and power limit (nvidia-smi), the SFU rate (16 results per SM per clock
+   at the card's clocks.max.sm) and the instruction rates (128 issued and
+   64 min / max per SM per clock), and set float32 matmuls to IEEE (no
    TF32).
 2. Build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
    source, all at once) and print the build seconds and ptxas' report.
@@ -22,7 +24,12 @@ phase prints its seconds):
    (``torch.cdist`` for l2; the port never calls it; none for JSD and
    Triangular) and the least time the card could take (``bound_ms``: the
    larger of bytes over the HBM rate and operations over their rate; for
-   JSD and Triangular one SFU result per live (i, j, k)).  The masked JSD
+   JSD and Triangular one SFU result per live (i, j, k); for the planar
+   bound its instructions per (query, block, plane) term at the issue rate
+   of 128 per SM per clock).  The short kernels (the query -> pivot tiles,
+   both forms of the planar bound) and their ``torch.cdist`` yardstick are
+   timed on the device, as CUDA graphs of 100 launches; the rest between
+   CUDA events around the Python call.  The masked JSD
    and Triangular tiles are checked after their range paths, at the
    live-tile share those paths gave them.  The JSD and Triangular tiles
    and their plain fp32 versions are held to float64 at small distances
@@ -90,8 +97,9 @@ phase prints its seconds):
    the live rows field for field, and so must its hits.  Prints each
    mutation's seconds and ``table_dists``.
 10. One JSON line with every kernel's numbers (``launches`` from the range
-   path of its metric and precision; the unmasked bf16 forms are on no
-   engine path and carry ``"on_main_path": false``), then the result line
+   path of its metric and precision; the unmasked bf16 forms and the d1/d2
+   form of the planar bound are on no engine path and carry
+   ``"on_main_path": false``), then the result line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -103,6 +111,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -121,6 +130,16 @@ HBM_RATE = 3.35e12
 # instruction throughput).  main() sets CARD["sfu_rate"] from the SM count
 # and nvidia-smi's clocks.max.sm: 132 x 16 x 1,980 MHz = 4.18e12/s.
 SFU_PER_SM_CLOCK = 16
+# Instruction rates per SM per clock on compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput): four schedulers
+# issue one warp instruction a clock each, 128 lanes, the fp32 add and
+# multiply rate; min / max runs at 64.  The planar kernel
+# (csrc/planar_exclusion.cu) issues 9.5 instructions per (query, block,
+# plane) term, 2.5 of them DPX integer max.  main() sets CARD["issue_rate"]
+# and CARD["minmax_rate"] (lane instructions per second) from the SM count
+# and clocks.max.sm.
+ISSUE_PER_SM_CLOCK, MINMAX_PER_SM_CLOCK = 128, 64
+PLANAR_ISSUED, PLANAR_MINMAX = 9.5, 2.5
 CARD: dict = {}
 
 BATCH = 512
@@ -144,8 +163,22 @@ def bound_ms(n_bytes: float, n_ops: float, rate: float = FP32_PEAK) -> tuple[flo
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def planar_bound_ms(q: int, m: int, b: int, in_bytes: int) -> tuple[float, str]:
+    """The planar bound's least time: its inputs and the (Q, B) output once
+    over the HBM rate, or its Q x B x M terms at the instruction rates
+    (every instruction takes an issue slot; the integer max also at its
+    own rate)."""
+    terms = q * b * m
+    t_ops = max(PLANAR_ISSUED * terms / CARD["issue_rate"],
+                PLANAR_MINMAX * terms / CARD["minmax_rate"])
+    t_bytes = (in_bytes + 4 * q * b) / HBM_RATE
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def time_ms(torch, fn, iters: int = 20) -> float:
-    """Mean device time of one call, over ``iters`` calls after warm-up."""
+    """Mean time of one call, over ``iters`` calls after warm-up, between
+    CUDA events: the device's time for long kernels, the host's launch rate
+    for short ones (``device_ms`` then)."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -157,6 +190,57 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, n: int = 100, replays: int = 10) -> float:
+    """Device time of one call of a short kernel: ``n`` calls captured in
+    one CUDA graph, the graph replayed ``replays`` times between CUDA
+    events.  The host's launch rate (argument checks, ctypes, allocation)
+    is out of the time; what is left per call is the kernel and the
+    device's gap between two graph nodes.  ``fn`` must be capturable: no
+    synchronisation, no host reads."""
+    for _ in range(3):  # outside the capture: load the library, set attributes
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (n * replays)
+    del graph
+    return ms
+
+
+def kernel_event_ms(torch, fn, name: str, n: int = 50) -> tuple[float, int]:
+    """(mean device duration of the trace's events whose name contains
+    ``name``, their count) over ``n`` calls of ``fn`` under torch.profiler:
+    the kernel alone, without the gap between launches.  The count should
+    be ``n``; the trace may drop events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and name in e.key:
+            total += e.self_device_time_total / 1e3
+            count += e.count
+    return (total / count if count else float("nan")), count
 
 
 def compare(torch, got, want, rtol=RTOL, atol=ATOL) -> tuple[float, bool, bool]:
@@ -208,6 +292,105 @@ def _row(failures, name, entry, masked, err, ok, **numbers) -> dict:
                 replaces=REPLACES[int(masked)], max_abs_err=err, **numbers)
 
 
+def planar_inputs(torch, np, dev, shapes=MAIN_SHAPES):
+    """(dqp, pairs, d1, d2, deltas, boxes) at the bound phase's shapes: a
+    (Q, P) query -> pivot matrix, M int64 pairs of distinct pivots, d1 and
+    d2 gathered by them, one degenerate plane and the last block padded with
+    the 3e38 sentinel boxes."""
+    rng = np.random.default_rng(4)
+    q, p, m, b = (shapes[s] for s in ("q", "p", "m", "b"))
+    dqp_np = (np.abs(rng.normal(size=(q, p))) + 1.0).astype(np.float32)
+    first = rng.integers(0, p, size=m)
+    pairs_np = np.stack([first, (first + rng.integers(1, p, size=m)) % p], 1)
+    deltas = np.abs(rng.normal(size=m)).astype(np.float32) + 0.5
+    deltas[3] = 0.0
+    lo = rng.normal(size=(b, m, 2))
+    hi = lo + np.abs(rng.normal(size=(b, m, 2)))
+    boxes = np.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]], -1).astype(np.float32)
+    boxes[-1] = np.array([3.0e38, 3.1e38, 3.0e38, 3.1e38], np.float32)
+    d1, d2 = (np.ascontiguousarray(dqp_np[:, pairs_np[:, i]]) for i in (0, 1))
+    return tuple(torch.as_tensor(a, device=dev)
+                 for a in (dqp_np, pairs_np.astype(np.int64), d1, d2, deltas, boxes))
+
+
+def planar_alone(torch, np, dev, shapes=MAIN_SHAPES) -> dict:
+    """``--tiles-only``: the planar kernel at the main path's shapes through
+    its d1/d2 form (which every commit of the port has), timed on the device
+    (CUDA graph, and the trace's kernel events), beside its bound and a
+    sha256 of its output; and again with twice the planes, so the slope is
+    the cost of 24 more planes and the intercept at M = 0 the fixed cost of
+    a launch (staging, projection, output)."""
+    from repro_torch.kernels import planar_exclusion as planar
+
+    q, m, b = (shapes[s] for s in ("q", "m", "b"))
+    out = {}
+    for planes in (m, 2 * m):
+        _, _, d1, d2, deltas, boxes = planar_inputs(torch, np, dev, dict(shapes, m=planes))
+
+        def fn():
+            return planar.planar_lower_bound_kernel_call(d1, d2, deltas, boxes)
+
+        event_ms, events = kernel_event_ms(torch, fn, "planar_lb_kernel")
+        if planes == m:
+            nb, by = planar_bound_ms(q, m, b, 4 * (2 * q * m + m + 4 * b * m))
+            out.update(shape_q_b_m=[q, b, m], graph_ms=device_ms(torch, fn, 200),
+                       kernel_event_ms=event_ms, kernel_events=events, bound_ms=nb,
+                       bound_by=by, share_of_bound=nb / event_ms,
+                       output_sha256=hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest())
+        else:
+            out[f"kernel_event_ms_m={planes}"] = event_ms
+    out["ms_per_m_planes"] = out[f"kernel_event_ms_m={2 * m}"] - out["kernel_event_ms"]
+    out["fixed_ms"] = out["kernel_event_ms"] - out["ms_per_m_planes"]
+    log("planar alone " + json.dumps(out))
+    return out
+
+
+def bound_phase_alone(torch, index, queries, metric: str) -> dict:
+    """``--tiles-only``: the bound phase of one main-path batch (the first
+    512 queries) as the engine launches it (``_fused_lower_bounds`` on
+    ``"cuda"``): the port's launches, every kernel in its trace, its device
+    ms (CUDA graph) and a sha256 of the bound ``lb``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import flat_index
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    dev = index.device
+    qd = torch.as_tensor(flat_index._engine_queries(metric, queries[:BATCH]),
+                         device=index.torch_device)
+    eng = flat_index._engine_metric(metric)
+
+    def fn():
+        return flat_index._fused_lower_bounds(eng, qd, dev.pivots, dev.pairs, dev.deltas,
+                                              dev.boxes, backend="cuda")
+
+    fn()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    lb = fn()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    # a warm-up step traced and thrown away, then 5 calls: each kernel of
+    # the phase should show 5 events (a trace can drop some)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        for _ in range(2):
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    kernels: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep"):
+            kernels[kernel_name(e.key)] = kernels.get(kernel_name(e.key), 0) + e.count
+    out = dict(shape=list(lb.shape), launches=launches, trace_kernels_in_5_calls=kernels,
+               device_ms=device_ms(torch, fn),
+               lb_sha256=hashlib.sha256(lb.cpu().numpy().tobytes()).hexdigest())
+    log(f"bound phase alone {metric}: " + json.dumps(out))
+    return out
+
+
 def check_kernels(torch, np, failures: list, dev, shapes=MAIN_SHAPES) -> dict:
     """Phase 3: every unmasked kernel and the masked l2 tile against its
     plain version at main-path shapes."""
@@ -230,40 +413,38 @@ def check_kernels(torch, np, failures: list, dev, shapes=MAIN_SHAPES) -> dict:
     nb, no = bound_ms(4 * (q * k + p * k + q * p), 2 * q * p * k + 2 * (q + p) * k + 4 * q * p)
     out["pairwise_l2"] = _row(
         failures, "pairwise_l2", "pairwise_l2", False, err, same_inf and close,
-        ms=time_ms(torch, lambda: pdist.pairwise_l2_kernel_call(x, piv), 200),
+        ms=device_ms(torch, lambda: pdist.pairwise_l2_kernel_call(x, piv)),
         plain_ms=time_ms(torch, lambda: ref.pairwise_l2_ref(x, piv), 200),
         bound_ms=nb, bound_by=no,
-        library_ms=time_ms(torch, lambda: torch.cdist(x, piv), 200),
+        library_ms=device_ms(torch, lambda: torch.cdist(x, piv)),
     )
 
-    # planar bound (Q x B), one degenerate plane and one padded block
-    d1 = torch.as_tensor(np.abs(rng.normal(size=(q, m))).astype(np.float32) + 1.0, device=dev)
-    d2 = (d1 + normal(q, m) * 0.2).abs()
-    deltas = torch.as_tensor(np.abs(rng.normal(size=m)).astype(np.float32) + 0.5, device=dev)
-    deltas[3] = 0.0
-    lo = rng.normal(size=(b, m, 2))
-    hi = lo + np.abs(rng.normal(size=(b, m, 2)))
-    boxes_np = np.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]], -1).astype(np.float32)
-    boxes_np[-1] = np.array([3.0e38, 3.1e38, 3.0e38, 3.1e38], np.float32)
-    boxes = torch.as_tensor(boxes_np, device=dev)
-    got = planar.planar_lower_bound_kernel_call(d1, d2, deltas, boxes)
-    want = ref.planar_lower_bound_ref(d1, d2, deltas, boxes)
-    err, same_inf, _ = compare(torch, got, want)
-    nb, no = bound_ms(4 * (2 * q * m + m + 4 * b * m + q * b), 12 * q * b * m + 10 * q * m + q * b)
-    out["planar_lower_bound"] = dict(
-        name="planar_lower_bound", route="cuda",
-        source="src/repro_torch/csrc/planar_exclusion.cu",
-        replaces="src/repro/kernels/planar_exclusion.py:105", max_abs_err=err,
-        ms=time_ms(torch, lambda: planar.planar_lower_bound_kernel_call(d1, d2, deltas, boxes), 200),
-        plain_ms=time_ms(torch, lambda: ref.planar_lower_bound_ref(d1, d2, deltas, boxes), 50),
-        bound_ms=nb, bound_by=no, library_ms=None,
-    )
-    padded_inf = bool(torch.isinf(got[:, -1]).all())
-    if not (same_inf and err == 0.0 and padded_inf):
-        failures.append(
-            f"planar_lower_bound is not bit-equal to its plain version "
-            f"(max abs err {err}, same inf {same_inf}, padded block inf {padded_inf})"
+    # planar bound (Q x B), both forms on the same inputs
+    dqp, pairs, d1, d2, deltas, boxes = planar_inputs(torch, np, dev, shapes)
+    for name, fn, in_bytes in (
+            ("planar_lower_bound", lambda: planar.planar_lower_bound_kernel_call(
+                d1, d2, deltas, boxes), 4 * 2 * q * m),
+            ("planar_lower_bound_pairs", lambda: planar.planar_lower_bound_pairs_kernel_call(
+                dqp, pairs, deltas, boxes), 4 * q * p + 8 * 2 * m)):
+        got = fn()
+        want = ref.planar_lower_bound_ref(d1, d2, deltas, boxes)
+        err, same_inf, _ = compare(torch, got, want)
+        nb, no = planar_bound_ms(q, m, b, in_bytes + 4 * (m + 4 * b * m))
+        out[name] = dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/planar_exclusion.cu",
+            replaces="src/repro/kernels/planar_exclusion.py:105", max_abs_err=err,
+            ms=device_ms(torch, fn),
+            plain_ms=time_ms(torch, lambda: ref.planar_lower_bound_ref(d1, d2, deltas, boxes), 50),
+            bound_ms=nb, bound_by=no, library_ms=None,
+            output_sha256=hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest(),
         )
+        bit_equal = same_inf and bool(torch.equal(got, want))
+        padded_inf = bool(torch.isinf(got[:, -1]).all())
+        if not (bit_equal and padded_inf):
+            failures.append(
+                f"{name} is not bit-equal to its plain version (max abs err {err}, "
+                f"same inf {same_inf}, padded block inf {padded_inf})"
+            )
 
     # masked exact phase (Q x n_pad), ~30% live tiles, one all-dead tile row
     y = normal(n, k)
@@ -294,7 +475,7 @@ def check_kernels(torch, np, failures: list, dev, shapes=MAIN_SHAPES) -> dict:
         nb, no = bound_ms(4 * (q * k + p * k + q * p), q * p * k, CARD["sfu_rate"])
         out[entry] = _row(
             failures, entry, entry, False, err, same_inf and close,
-            ms=time_ms(torch, lambda: pdist.pairwise_kernel_call(metric, xs, pivs), 200),
+            ms=device_ms(torch, lambda: pdist.pairwise_kernel_call(metric, xs, pivs)),
             plain_ms=time_ms(torch, lambda: plain(xs, pivs), 50),
             bound_ms=nb, bound_by=no, library_ms=None,
         )
@@ -405,6 +586,14 @@ def per_query(stats: list, key: str):
                            for st in stats])
 
 
+def kernel_name(name: str) -> str:
+    """A trace's kernel name without its return type, namespaces and
+    arguments."""
+    name = re.sub(r"^void |\(anonymous namespace\)::|at::native::", "", name)
+    name = name.split("(")[0]
+    return name if len(name) <= 60 else name.split("<")[0][:60]
+
+
 def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dict:
     """Where the time of ``n_batches`` main-path batches goes
     (``batch_fn(queries)`` runs one): host wall time without and with
@@ -414,7 +603,6 @@ def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dic
     host time per Python function."""
     import cProfile
     import pstats
-    import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -430,11 +618,6 @@ def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dic
             batch_fn(qb)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
-
-    def short(name):
-        name = re.sub(r"^void |\(anonymous namespace\)::|at::native::", "", name)
-        name = name.split("(")[0]
-        return name if len(name) <= 60 else name.split("<")[0][:60]
 
     def top(d, n=10):
         return {k: round(v / n_batches, 5) for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:n]}
@@ -456,8 +639,9 @@ def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dic
         if e.key.startswith("ProfilerStep"):  # the step's own span, on host and device
             continue
         if e.device_type == DeviceType.CUDA:
-            device[short(e.key)] = device.get(short(e.key), 0.0) + e.self_device_time_total / 1e3
-            launches[short(e.key)] = launches.get(short(e.key), 0) + e.count
+            name = kernel_name(e.key)
+            device[name] = device.get(name, 0.0) + e.self_device_time_total / 1e3
+            launches[name] = launches.get(name, 0) + e.count
         elif e.self_cpu_time_total > 0:
             host[e.key] = e.self_cpu_time_total / 1e3
     port_events = sum(n for k, n in launches.items() if k.startswith(PORT_KERNELS))
@@ -554,7 +738,8 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
     entry = PROB.get(metric, "pairwise_l2")
     per_form = len(ts) * n_batches
     expect_launches(failures, f"{metric} range path", counts,
-                    {entry: per_form, "masked_" + entry: per_form, "planar_lower_bound": per_form})
+                    {entry: per_form, "masked_" + entry: per_form,
+                     "planar_lower_bound_pairs": per_form})
 
     # bounds of both backends, to judge alive cells that differ
     mirror = index.device
@@ -926,7 +1111,7 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
     counts = launch_counts()
     entry = PROB.get(metric, "pairwise_l2")
     expect_launches(failures, f"{metric} kNN", counts,
-                    {entry: len(rounds), "planar_lower_bound": len(rounds),
+                    {entry: len(rounds), "planar_lower_bound_pairs": len(rounds),
                      "masked_" + entry: sum(rounds)})
     n_plain = min(nq, plain_batches * BATCH) if plain_batches else nq
     p_ids, p_dists, p_rounds, p_per_query, p_secs = run("torch", n_plain)
@@ -1011,7 +1196,9 @@ def top_k_per_round(torch, flat_index, index, queries) -> dict:
 BF16_SELECTIVITIES = (1e-5, 1e-3)
 # the unmasked bf16 forms: no engine path reads them (query -> pivot
 # distances read the fp32 pivots), so their launches on the main path are 0
-OFF_PATH = ("pairwise_l2_bf16", "pairwise_jsd_bf16", "pairwise_tri_bf16")
+OFF_PATH = ("pairwise_l2_bf16", "pairwise_jsd_bf16", "pairwise_tri_bf16",
+            # the engine runs the planar kernel through its pairs form
+            "planar_lower_bound")
 
 
 def bf16_range_path(torch, np, failures: list, record: dict, queries, metric: str,
@@ -1054,7 +1241,7 @@ def bf16_range_path(torch, np, failures: list, record: dict, queries, metric: st
     entry = PROB.get(metric, "pairwise_l2")
     per_form = len(chosen) * n_batches
     expect_launches(failures, f"{metric} bf16 range path", counts,
-                    {entry: per_form, "planar_lower_bound": per_form,
+                    {entry: per_form, "planar_lower_bound_pairs": per_form,
                      "masked_" + entry + "_bf16": per_form, "masked_" + entry: per_form})
 
     qtiles = sum(-(-min(BATCH, nq - s) // TILE_BQ) for s in range(0, nq, BATCH))
@@ -1159,10 +1346,10 @@ def check_bf16_kernels(torch, np, failures: list, dev, live_share: dict,
                             ops_per * q * p * k + extra_ops, rate)
         out[entry + "_bf16"] = _row(
             failures, entry + "_bf16", entry, False, err, same_inf and close,
-            ms=time_ms(torch, lambda: pdist.pairwise_kernel_call(metric, x, piv16), 200),
+            ms=device_ms(torch, lambda: pdist.pairwise_kernel_call(metric, x, piv16)),
             plain_ms=time_ms(torch, lambda: plain(x, piv16), 50),
             bound_ms=nb_, bound_by=no_,
-            library_ms=(time_ms(torch, lambda: torch.cdist(x, piv16.float()), 200)
+            library_ms=(device_ms(torch, lambda: torch.cdist(x, piv16.float()))
                         if metric == "l2" else None),
         )
         # masked: the exact phase's shapes at the path's live-tile share
@@ -1229,7 +1416,7 @@ def bf16_knn_path(torch, np, failures: list, record: dict, queries, metric: str,
     counts = launch_counts()
     entry = PROB.get(metric, "pairwise_l2")
     expect_launches(failures, f"{metric} bf16 kNN", counts,
-                    {entry: len(rounds), "planar_lower_bound": len(rounds),
+                    {entry: len(rounds), "planar_lower_bound_pairs": len(rounds),
                      "masked_" + entry + "_bf16": sum(rounds), "masked_" + entry: sum(rounds)})
     ids, dists, per_q = np.concatenate(ids), np.concatenate(dists), np.concatenate(per_q)
     same = dict(ids=bool(np.array_equal(ids, fp32["ids"])),
@@ -1382,6 +1569,10 @@ def main() -> int:
     sm_mhz = float(clk.stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     CARD["sfu_rate"] = SFU_PER_SM_CLOCK * sms * sm_mhz * 1e6
+    CARD["issue_rate"] = ISSUE_PER_SM_CLOCK * sms * sm_mhz * 1e6
+    CARD["minmax_rate"] = MINMAX_PER_SM_CLOCK * sms * sm_mhz * 1e6
+    log(f"instruction issue {CARD['issue_rate']:.6g} / FMNMX {CARD['minmax_rate']:.6g} lane "
+        f"instructions/s: {ISSUE_PER_SM_CLOCK} / {MINMAX_PER_SM_CLOCK} per SM per clock")
     log(f"SFU rate {CARD['sfu_rate']:.6g} results/s: {SFU_PER_SM_CLOCK} per SM per clock x "
         f"{sms} SMs x {sm_mhz} MHz (clocks.max.sm)")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1408,20 +1599,22 @@ def main() -> int:
     data = {}
     if "--tiles-only" in sys.argv[1:]:
         # the tile kernels alone, e.g. beside another checkout's (copy this
-        # script and core/precision.py there): the JSD / Triangular
-        # small-distance errors, what the masked l2 tile's time is made of,
-        # and the masked tile of each metric's range path at selectivity
-        # 1e-3, first batch, fp32 and bf16, timed alone with its output's
-        # sha256
+        # script and core/precision.py there): the planar kernel at the
+        # main path's shapes, the JSD / Triangular small-distance errors,
+        # what the masked l2 tile's time is made of, and for each metric's
+        # range path (selectivity 1e-3, first batch) its bound phase and its
+        # masked tile (fp32 and bf16), timed alone with their outputs' sha256
         from repro_torch.configs.supermetric import build_index
         from repro_torch.data.metricsets import calibrate_threshold
 
+        record["planar alone"] = planar_alone(torch, np, dev)
         record["small distances"] = prob_small_distances(torch, np, failures, dev)
         record["l2 tile breakdown"] = l2_tile_breakdown(torch, np, dev)
         corpus, queries = load(np, SISAP_COLORS)
         for metric in ("l2", *PROB):
             index = build_index(dataclasses.replace(SISAP_COLORS, metric=metric), corpus,
                                 device=dev)
+            record[f"{metric} bound phase"] = bound_phase_alone(torch, index, queries, metric)
             t = calibrate_threshold(metric, corpus, 1e-3)
             for precision in ("fp32", "bf16"):
                 record[f"{metric} {precision}"] = exact_phase_alone(

@@ -70,7 +70,7 @@ from repro_torch.kernels.pairwise_dist import (
     masked_pairwise_kernel_call,
     pairwise_kernel_call,
 )
-from repro_torch.kernels.planar_exclusion import planar_lower_bound_kernel_call
+from repro_torch.kernels.planar_exclusion import planar_lower_bound_pairs_kernel_call
 from repro_torch.kernels.tiles import TILE_BQ
 from repro_torch.obs import schema as obs_schema
 
@@ -191,8 +191,13 @@ class BSSIndex:
 
     @property
     def device(self) -> BSSDeviceArrays:
-        """The index's arrays on ``torch_device``, copied once."""
+        """The index's arrays on ``torch_device``, copied once.  Every pivot
+        pair is checked here to lie in [0, P): the planar kernel reads
+        ``dqp[q, pairs[m, i]]`` unchecked."""
         if self._device is None:
+            n_pivots = self.pivots.shape[0]
+            if ((self.pairs < 0) | (self.pairs >= n_pivots)).any():
+                raise ValueError(f"pivot pairs must index the {n_pivots} pivots")
             dev = self.torch_device
             self._device = BSSDeviceArrays(
                 data=torch.as_tensor(self.data, dtype=torch.float32, device=dev),
@@ -510,10 +515,10 @@ def _fused_lower_bounds(
         dqp = pairwise_kernel_call(metric_name, queries, dev_pivots)
     else:
         dqp = get_metric(metric_name).pairwise(queries, dev_pivots)  # (Q, P)
+    if backend == "cuda":  # the kernel reads each plane's two columns itself
+        return planar_lower_bound_pairs_kernel_call(dqp, dev_pairs, dev_deltas, dev_boxes)
     d1 = torch.index_select(dqp, 1, dev_pairs[:, 0])
     d2 = torch.index_select(dqp, 1, dev_pairs[:, 1])
-    if backend == "cuda":
-        return planar_lower_bound_kernel_call(d1, d2, dev_deltas, dev_boxes)
     qx, qy = projection.project(d1, d2, dev_deltas[None, :])  # (Q, M)
     # (Q, 1, M) vs boxes (1, B, M, 4) -> per-plane bound, max over planes
     lb = projection.point_to_box(qx[:, None, :], qy[:, None, :], dev_boxes[None])

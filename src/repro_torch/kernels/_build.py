@@ -6,7 +6,7 @@ own shared library under ``build/repro_torch/`` at the root of the
 checkout::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC [per-source flags] -o <name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas=-v -o <name>-<hash>.so <name>.cu
 
 The file name carries a hash of the source and the flags, so an unchanged
 tree never rebuilds and an edited source never loads a stale library.
@@ -36,22 +36,17 @@ _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-# the planar bound must equal its plain version bit for bit: no FMA
-# contraction of d1*d1 - d2*d2 or dx*dx + dy*dy.  The JSD / Triangular tiles
-# spell every rounding step as an intrinsic and need no flag.  Never
-# --use_fast_math anywhere: sqrtf stays IEEE and fp32 denormals are kept.
-_EXTRA_FLAGS = {"planar_exclusion": ("-fmad=false",)}
+# No flag changes rounding: a kernel whose bits must equal its plain version
+# spells each rounding step as an intrinsic (__fmul_rn, __fadd_rn, ...),
+# which nvcc never contracts into an FMA.  Never --use_fast_math: division
+# and sqrtf stay IEEE and fp32 denormals are kept.
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def _flags(name: str) -> tuple[str, ...]:
-    return _FLAGS + _EXTRA_FLAGS.get(name, ())
-
-
 def _target(name: str) -> Path:
     digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
-    digest.update(" ".join(_flags(name)).encode())
+    digest.update(" ".join(_FLAGS).encode())
     return _BUILD / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -82,7 +77,7 @@ def build(names=SOURCES) -> float:
             continue
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )

@@ -16,7 +16,10 @@ from repro_torch.kernels.pairwise_dist import (
     pairwise_kernel_call,
     pairwise_l2_kernel_call,
 )
-from repro_torch.kernels.planar_exclusion import planar_lower_bound_kernel_call
+from repro_torch.kernels.planar_exclusion import (
+    planar_lower_bound_kernel_call,
+    planar_lower_bound_pairs_kernel_call,
+)
 from repro_torch.kernels.tiles import TILE_BLOCK, TILE_BQ
 
 __all__ = [
@@ -63,10 +66,9 @@ def bss_query_fused(
     pruned, tile_mask (Qtiles, B) the per-tile survival matrix.  Exact:
     every true hit (d <= t) is live by the four-point lower bound."""
     dqp = pairwise_kernel_call(metric_name, queries, pivots)  # (Q, P)
-    pair_idx = pair_idx.long()
-    d1 = torch.index_select(dqp, 1, pair_idx[:, 0])
-    d2 = torch.index_select(dqp, 1, pair_idx[:, 1])
-    lb = planar_lower_bound_kernel_call(d1, d2, deltas, boxes)  # (Q, B)
+    # the kernel gathers each plane's two columns of dqp; pair_idx must lie
+    # in [0, P), which the kernel does not check
+    lb = planar_lower_bound_pairs_kernel_call(dqp, pair_idx.long(), deltas, boxes)  # (Q, B)
     qtiles = -(-queries.shape[0] // bq)
     lb_pad = torch.cat(
         [lb, lb.new_full((qtiles * bq - lb.shape[0], lb.shape[1]), torch.inf)]

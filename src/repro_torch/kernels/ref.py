@@ -26,6 +26,7 @@ __all__ = [
     "pairwise_jsd_ref",
     "pairwise_tri_ref",
     "planar_lower_bound_ref",
+    "planar_lower_bound_pairs_ref",
 ]
 
 
@@ -91,3 +92,13 @@ def planar_lower_bound_ref(
     dx = torch.clamp_min(torch.maximum(bx[..., 0] - qxe, qxe - bx[..., 1]), 0.0)
     dy = torch.clamp_min(torch.maximum(bx[..., 2] - qye, qye - bx[..., 3]), 0.0)
     return torch.amax(torch.sqrt(dx * dx + dy * dy), dim=-1)
+
+
+def planar_lower_bound_pairs_ref(
+    dqp: torch.Tensor, pairs: torch.Tensor, deltas: torch.Tensor, boxes: torch.Tensor
+) -> torch.Tensor:
+    """The bound from the (Q, P) query -> pivot matrix and the (M, 2) pivot
+    pairs: gather each plane's two columns, then ``planar_lower_bound_ref``."""
+    d1 = torch.index_select(dqp, 1, pairs[:, 0])
+    d2 = torch.index_select(dqp, 1, pairs[:, 1])
+    return planar_lower_bound_ref(d1, d2, deltas, boxes)

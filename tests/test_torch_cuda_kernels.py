@@ -11,8 +11,8 @@ matmul, so rtol = atol = 1e-5 in fp32 (the reference's kernel sweeps,
 ``tests/test_kernels.py``) with an identical +inf pattern; the JSD and
 Triangular tiles sum K terms in another order than ``torch.sum``, and
 take the reference sweep's rtol = 1e-4 / atol = 1e-5 unmasked and
-1e-5 masked; the planar bound is built without FMA contraction and must be
-bit-equal.  The bf16-y forms are held at the same tolerances against the
+1e-5 masked; the planar bound spells every rounding step as an intrinsic
+and must be bit-equal, in both its d1/d2 and its pivot-pairs form.  The bf16-y forms are held at the same tolerances against the
 plain versions fed the same bf16 ``y``, and must equal the fp32 forms on
 the upcast ``y`` bit for bit.  The JSD and Triangular tiles (lg2.approx and
 rcp.approx inside) are also held to the float64 function within the error
@@ -33,6 +33,7 @@ from repro_torch.core.npdist import pairwise_np
 from repro_torch.core.precision import bf16_round_np, prob_error_budget
 from repro_torch.index import append, compact, delete
 from repro_torch.kernels import _build, launch_counts, ops, ref, reset_launch_counts
+from repro_torch.kernels.planar_exclusion import planar_lower_bound_pairs_kernel_call as planar_pairs
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 PROB_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_kernels.py:91-124
@@ -44,6 +45,9 @@ PAIRWISE_SHAPES = [(128, 128, 16), (200, 310, 48), (1, 7, 3), (130, 128, 112),
 MASKED_CASES = [(256, 384, 32, 128, 128), (100, 200, 64, 128, 128),
                 (37, 300, 12, 8, 64), (130, 129, 112, 16, 32)]
 PLANAR_SHAPES = [(150, 12, 70), (128, 24, 128), (3, 4, 5), (257, 32, 130)]
+# (Q, P, M, B) of the pairs form: ragged Q and B, one plane, more planes
+# than one staged chunk of 32
+PAIRS_CASES = [(150, 16, 12, 70), (3, 5, 1, 5), (37, 8, 24, 131), (257, 9, 40, 130)]
 
 
 def normal(rng, *shape):
@@ -84,6 +88,22 @@ def planar_inputs(q, m, b, seed):
     boxes = boxes.astype(np.float32)
     boxes[-1] = [3.0e38, 3.1e38, 3.0e38, 3.1e38]  # padded block sentinels
     return d1, d2, delta, boxes
+
+
+def pairs_inputs(q, p, m, b, seed):
+    """(dqp, pairs, deltas, boxes) of the pairs form: a (Q, P) query ->
+    pivot matrix and (M, 2) int64 pairs of distinct pivots, the second plane
+    repeating the first and the third its reverse; one degenerate plane and
+    the last block padded, as ``planar_inputs``."""
+    rng = np.random.default_rng(seed)
+    dqp = (np.abs(rng.normal(size=(q, p))) + 1.0).astype(np.float32)
+    first = rng.integers(0, p, size=m)
+    pairs = np.stack([first, (first + rng.integers(1, p, size=m)) % p], 1).astype(np.int64)
+    if m >= 3:
+        pairs[1] = pairs[0]
+        pairs[2] = pairs[0, ::-1]
+    _, _, delta, boxes = planar_inputs(1, m, b, seed)
+    return dqp, pairs, delta, boxes
 
 
 def safe_threshold(dvals: np.ndarray, frac: float) -> float:
@@ -176,14 +196,66 @@ def test_masked_prob_kernel_matches_plain(card, metric, m, n, k, bm, bn):
     assert_same(got.cpu().numpy(), want.cpu().numpy(), **TOL)
 
 
+# the main path's shape; Q and B off the 32 x 64 CTA tile; M over one
+# 32-plane chunk, with a ragged last chunk; 768 planes (the most the kernel
+# took before it staged planes in chunks) and more
+PLANAR_CARD_SHAPES = PLANAR_SHAPES + [(512, 24, 793), (33, 24, 65), (95, 33, 191),
+                                      (70, 100, 100), (40, 768, 70), (9, 1000, 65)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,m,b", PLANAR_SHAPES + [(512, 24, 793)])
+@pytest.mark.parametrize("q,m,b", PLANAR_CARD_SHAPES)
 def test_planar_kernel_bit_equal_to_plain(card, q, m, b):
     args = [torch.from_numpy(a).to(card) for a in planar_inputs(q, m, b, seed=b)]
     got = ops.planar_lower_bound(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.planar_lower_bound_ref(*args))
     assert torch.isinf(got[:, -1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,p,m,b", PAIRS_CASES + [(512, 16, 24, 793), (40, 16, 768, 70)])
+def test_planar_pairs_kernel_bit_equal_to_plain(card, q, p, m, b):
+    """The gather form equals its plain version and the d1/d2 form on the
+    gathered columns, bit for bit."""
+    dqp, pairs, delta, boxes = (torch.from_numpy(a).to(card)
+                                for a in pairs_inputs(q, p, m, b, seed=q + m))
+    got = planar_pairs(dqp, pairs, delta, boxes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.planar_lower_bound_pairs_ref(dqp, pairs, delta, boxes))
+    d1, d2 = dqp[:, pairs[:, 0]].contiguous(), dqp[:, pairs[:, 1]].contiguous()
+    assert torch.equal(got, ops.planar_lower_bound(d1, d2, delta, boxes))
+    assert torch.isinf(got[:, -1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "jsd"])
+def test_bound_phase_on_card_is_two_launches(card, metric, monkeypatch):
+    """On "cuda" the bound phase is the pivot tile and the planar kernel,
+    which reads the pivot pairs itself: no gather runs between them."""
+    db, q = _engine_case(metric)
+    index = flat_index.build_bss(metric, db, n_pivots=8, n_pairs=12, block=64, device=card)
+    dev = index.device
+    qd = torch.as_tensor(q, device=card)
+    gathers = []
+
+    def counted(real):
+        def gather(*args, **kw):
+            gathers.append(args)
+            return real(*args, **kw)
+        return gather
+
+    monkeypatch.setattr(torch, "index_select", counted(torch.index_select))
+    monkeypatch.setattr(torch.Tensor, "index_select", counted(torch.Tensor.index_select))
+    reset_launch_counts()
+    lb = flat_index._fused_lower_bounds(metric, qd, dev.pivots, dev.pairs, dev.deltas,
+                                        dev.boxes, backend="cuda")
+    counts = launch_counts()
+    monkeypatch.undo()
+    assert counts[_entry(metric)] == counts["planar_lower_bound_pairs"] == 1
+    assert sum(counts.values()) == 2 and not gathers
+    dqp = ops.pairwise_metric(metric, qd, dev.pivots)
+    assert torch.equal(lb, ref.planar_lower_bound_pairs_ref(dqp, dev.pairs, dev.deltas, dev.boxes))
 
 
 def _entry(metric):
@@ -210,7 +282,7 @@ def test_engine_cuda_backend_matches_torch_backend(card, metric):
     reset_launch_counts()
     got, g_stats = flat_index.bss_query_batched(index, q, t, opts=EngineOpts(backend="cuda"))
     counts, entry = launch_counts(), _entry(metric)
-    assert counts[entry] == counts["masked_" + entry] == counts["planar_lower_bound"] == 1
+    assert counts[entry] == counts["masked_" + entry] == counts["planar_lower_bound_pairs"] == 1
     assert sum(counts.values()) == 3
     want, w_stats = flat_index.bss_query_batched(index, q, t, opts=EngineOpts(backend="torch"))
     assert got == want == flat_index.bss_query(index, q, t)[0]
@@ -230,7 +302,7 @@ def test_knn_cuda_backend_matches_torch_backend(card, metric):
     reset_launch_counts()
     got, g_d, g_stats = flat_index.bss_knn_batched(index, q, 10, opts=EngineOpts(backend="cuda"))
     counts, entry = launch_counts(), _entry(metric)
-    assert counts[entry] == counts["planar_lower_bound"] == 1
+    assert counts[entry] == counts["planar_lower_bound_pairs"] == 1
     assert counts["masked_" + entry] == g_stats["rounds"]
     want, w_d, w_stats = flat_index.bss_knn_batched(
         index, q, 10, opts=EngineOpts(backend="torch", realisation="dense"))

@@ -26,8 +26,10 @@ from repro_torch.core import distances as t_dist
 from repro_torch.core.precision import (ARITH_ULPS, JSD_ACCURATE_BELOW, jsd_accurate_below,
                                        prob_error_budget, prob_error_verdict)
 from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
-from test_torch_cuda_kernels import (MASKED_CASES, PAIRWISE_SHAPES, PLANAR_SHAPES, PROB_TOL,
-                                     TOL, assert_same, normal, planar_inputs, simplex)
+from repro_torch.kernels.planar_exclusion import planar_lower_bound_pairs_kernel_call as planar_pairs
+from test_torch_cuda_kernels import (MASKED_CASES, PAIRS_CASES, PAIRWISE_SHAPES, PLANAR_SHAPES,
+                                     PROB_TOL, TOL, assert_same, normal, pairs_inputs,
+                                     planar_inputs, simplex)
 
 
 
@@ -100,6 +102,51 @@ def test_planar_lower_bound_plain_matches_pallas(q, m, b):
     assert_same(got.numpy(), want, **TOL)
     assert np.isinf(got.numpy()[:, -1]).all(), "padded block must bound to +inf"
     assert np.isfinite(got.numpy()[:, :-1]).all()
+
+
+@pytest.mark.parametrize("q,p,m,b", PAIRS_CASES)
+def test_planar_pairs_plain_matches_pallas(q, p, m, b):
+    """The gather form's plain version against the Pallas kernel on d1, d2
+    gathered with numpy, and bit for bit against the d1/d2 form."""
+    dqp, pairs, delta, boxes = pairs_inputs(q, p, m, b, seed=q + m)
+    d1, d2 = dqp[:, pairs[:, 0]], dqp[:, pairs[:, 1]]
+    want = np.asarray(r_ops.planar_lower_bound(
+        jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(delta), jnp.asarray(boxes),
+        interpret=True))
+    got = planar_pairs(*map(torch.from_numpy, (dqp, pairs, delta, boxes)))
+    assert_same(got.numpy(), want, **TOL)
+    assert np.isinf(got.numpy()[:, -1]).all(), "padded block must bound to +inf"
+    assert torch.equal(got, ops.planar_lower_bound(
+        *map(torch.from_numpy, (d1, d2, delta, boxes))))
+
+
+def test_planar_pairs_checks_its_arguments():
+    dqp, pairs, delta, boxes = map(torch.from_numpy, pairs_inputs(4, 5, 3, 6, seed=0))
+    with pytest.raises(TypeError, match="int64"):
+        planar_pairs(dqp, pairs.int(), delta, boxes)
+    with pytest.raises(ValueError, match=r"\(M, 2\)"):
+        planar_pairs(dqp, pairs[:, :1], delta, boxes)
+    with pytest.raises(ValueError, match="agree"):
+        planar_pairs(dqp, pairs[:2], delta, boxes)
+    with pytest.raises(TypeError, match="float32"):
+        planar_pairs(dqp.double(), pairs, delta, boxes)
+
+
+def test_index_refuses_pairs_outside_the_pivots():
+    """The pivot pairs are checked once, where the device mirror is made:
+    the planar kernel reads ``dqp[q, pairs[m, i]]`` unchecked."""
+    import dataclasses
+
+    from repro_torch.core import flat_index as t_flat
+
+    db = np.random.default_rng(0).random((300, 8)).astype(np.float32)
+    index = t_flat.build_bss("l2", db, n_pivots=6, n_pairs=5, block=64, device="cpu")
+    assert index.device.pairs.dtype == torch.int64
+    for bad in (6, -1):
+        pairs = index.pairs.copy()
+        pairs[2, 1] = bad
+        with pytest.raises(ValueError, match="6 pivots"):
+            _ = dataclasses.replace(index, pairs=pairs, _device=None).device
 
 
 def test_bss_query_fused_plain_matches_pallas():
@@ -297,6 +344,7 @@ def test_cpu_runs_count_no_launches():
     reset_launch_counts()
     d1, d2, delta, boxes = map(torch.from_numpy, planar_inputs(9, 4, 6, seed=0))
     ops.planar_lower_bound(d1, d2, delta, boxes)
+    planar_pairs(*map(torch.from_numpy, pairs_inputs(9, 5, 4, 6, seed=0)))
     ops.pairwise_l2(d1, d2)
     p = torch.from_numpy(simplex(np.random.default_rng(0), 9, 4))
     ops.pairwise_jsd(p, p)
@@ -308,7 +356,8 @@ def test_cpu_runs_count_no_launches():
         "masked_pairwise_jsd": 0, "pairwise_tri": 0, "masked_pairwise_tri": 0,
         "pairwise_l2_bf16": 0, "masked_pairwise_l2_bf16": 0, "pairwise_jsd_bf16": 0,
         "masked_pairwise_jsd_bf16": 0, "pairwise_tri_bf16": 0,
-        "masked_pairwise_tri_bf16": 0, "planar_lower_bound": 0}
+        "masked_pairwise_tri_bf16": 0, "planar_lower_bound": 0,
+        "planar_lower_bound_pairs": 0}
 
 
 @pytest.mark.parametrize("metric", ["jsd", "triangular"])
