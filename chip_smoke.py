@@ -96,11 +96,25 @@ phase prints its seconds):
    ``compact(refresh_pivots=True)`` must equal a fresh ``build_bss`` over
    the live rows field for field, and so must its hits.  Prints each
    mutation's seconds and ``table_dists``.
-10. One JSON line with every kernel's numbers (``launches`` from the range
-   path of its metric and precision; the unmasked bf16 forms and the d1/d2
-   form of the planar bound are on no engine path and carry
-   ``"on_main_path": false``), then the result line
-   ``{"ok": true, "device": {...}}``.
+10. Serving: ``RetrievalServer`` on the card (l2, built on 99% of the
+   corpus with the configuration's settings) and its ``async_front``
+   (ladder 8, 32, 128, 512; ``max_delay_s`` 0.002; ``cache_size`` 4,096):
+   two waves of one request per query from 8 client threads (range at the
+   three thresholds, every 4th request kNN, every 16th bf16, 1% sent
+   again), the last 1% of the rows appended and 100 ids deleted between
+   them, the second wave under ``torch.profiler`` after a warm-up step;
+   then a JSD server's 2,048 range requests.  Launch counts zeroed before
+   and read after each server's waves.  Every result is held against
+   direct ``"cuda"`` calls on the generation it names (``check_served``).
+   Prints requests/s, p50 / p99 of latency, queue wait and engine time,
+   batches by bucket, padding waste, cache hits and the device's idle
+   share.  A difference, a failed future, a path kernel not launched, a
+   recompile, or a problem in the exposition or the trace fails the run.
+11. One JSON line with every kernel's numbers (``launches`` from the range
+   path of its metric and precision, ``serving_launches`` from the serving
+   phase; the unmasked bf16 forms and the d1/d2 form of the planar bound
+   are on no engine path and carry ``"on_main_path": false``), then the
+   result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -594,6 +608,22 @@ def kernel_name(name: str) -> str:
     return name if len(name) <= 60 else name.split("<")[0][:60]
 
 
+def trace_device(prof) -> tuple[dict, dict]:
+    """Device ms and event count per kernel in a ``torch.profiler`` trace:
+    the device's own events, so an operator and its kernel are not counted
+    twice; the profiler's step span is left out."""
+    from torch.autograd import DeviceType
+
+    device, launches = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
+            continue
+        name = kernel_name(e.key)
+        device[name] = device.get(name, 0.0) + e.self_device_time_total / 1e3
+        launches[name] = launches.get(name, 0) + e.count
+    return device, launches
+
+
 def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dict:
     """Where the time of ``n_batches`` main-path batches goes
     (``batch_fn(queries)`` runs one): host wall time without and with
@@ -634,16 +664,10 @@ def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dic
         traced_ms = run()
         port_launches = sum(launch_counts().values()) - before
         prof.step()
-    device, launches, host = {}, {}, {}
-    for e in prof.key_averages():
-        if e.key.startswith("ProfilerStep"):  # the step's own span, on host and device
-            continue
-        if e.device_type == DeviceType.CUDA:
-            name = kernel_name(e.key)
-            device[name] = device.get(name, 0.0) + e.self_device_time_total / 1e3
-            launches[name] = launches.get(name, 0) + e.count
-        elif e.self_cpu_time_total > 0:
-            host[e.key] = e.self_cpu_time_total / 1e3
+    device, launches = trace_device(prof)
+    host = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type != DeviceType.CUDA and e.self_cpu_time_total > 0
+            and not e.key.startswith("ProfilerStep")}
     port_events = sum(n for k, n in launches.items() if k.startswith(PORT_KERNELS))
     busy_ms = sum(device.values())
 
@@ -1538,6 +1562,290 @@ def living_corpus(torch, np, failures: list, record: dict, dev, corpus, queries,
         failures.append(f"living corpus {metric}: append table_dists {row['append']}")
 
 
+SERVE_CLIENTS = 8
+
+
+def serving_requests(np, n: int, ts: list, seed: int, knn: bool = True) -> list:
+    """One request per query, ``(query row, kind, t, precision)``: range at
+    the three thresholds in turn, every 4th request kNN (k = KNN_K), every
+    16th bf16 (alternately a range and a kNN one); then about 1% of the
+    requests again, which ``serve_wave`` sends once the others are
+    answered, so that the result cache hits."""
+    reqs = []
+    for i in range(n):
+        kind = "knn" if knn and i % 4 == 1 else "range"
+        reqs.append((i, kind, ts[i % 3] if kind == "range" else None,
+                     "bf16" if i % 32 in (0, 17) else "fp32"))
+    again = np.random.default_rng(seed).choice(n, size=n // 100, replace=False)
+    return reqs + [reqs[j] for j in sorted(again)]
+
+
+def serve_wave(front, queries, reqs, n_first: int | None = None) -> tuple[list, list, float]:
+    """Submit ``reqs[:n_first]`` from SERVE_CLIENTS threads, request j from
+    thread j mod SERVE_CLIENTS, wait for every future, then the rest the
+    same way.  Returns the results (None where a request failed), the
+    failures and the host seconds of both rounds.
+
+    The clients take turns at ``submit`` (one lock), so the front's trace
+    ids follow its queue order and ``check_served`` can rebuild each batch
+    the driver formed."""
+    import threading
+
+    futs: list = [None] * len(reqs)
+    turn = threading.Lock()
+
+    def client(c, lo, hi):
+        for j in range(lo + c, hi, SERVE_CLIENTS):
+            qi, kind, t, precision = reqs[j]
+            try:
+                with turn:
+                    futs[j] = (front.submit(queries[qi], "knn", k=KNN_K, precision=precision)
+                               if kind == "knn" else
+                               front.submit(queries[qi], "range", t=t, precision=precision))
+            except Exception as e:  # a refused request counts as a failure
+                futs[j] = e
+
+    results, errors = [None] * len(reqs), []
+    t0 = time.perf_counter()
+    n_first = len(reqs) if n_first is None else n_first
+    for lo, hi in ((0, n_first), (n_first, len(reqs))):
+        threads = [threading.Thread(target=client, args=(c, lo, hi))
+                   for c in range(SERVE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        for j in range(lo, hi):
+            try:
+                if isinstance(futs[j], Exception):
+                    raise futs[j]
+                results[j] = futs[j].result(timeout=600)
+            except Exception as e:
+                errors.append(f"request {j} {reqs[j][1:]}: {e!r}")
+    return results, errors, time.perf_counter() - t0
+
+
+def serving_numbers(np, results, secs: float) -> dict:
+    """Requests/s by host clock, and p50 / p99 of the latency (admission to
+    demux), the queue wait and the engine time of the request's batch."""
+    done = [r for r in results if r is not None]
+    run = [r for r in done if not r.cache_hit]
+
+    def pct(xs):
+        xs = np.asarray(xs, float)
+        return dict(p50=float(np.percentile(xs, 50)) * 1e3,
+                    p99=float(np.percentile(xs, 99)) * 1e3) if xs.size else "none"
+
+    return dict(requests=len(results), seconds=secs, requests_per_s=len(results) / secs,
+                latency_ms=pct([r.spans["total"] for r in run]),
+                queue_wait_ms=pct([r.queue_wait_s for r in run]),
+                engine_ms=pct([r.engine_s for r in run]),
+                cache_hits=sum(r.cache_hit for r in done))
+
+
+def check_served(np, snapshots: dict, queries, reqs, results) -> dict:
+    """Every result against direct ``"cuda"`` calls (``realisation="dense"``,
+    the request's precision) on the index of the generation it names.
+
+    * ``same_batch``: each batch the front dispatched, rebuilt (the rows
+      that share generation, kind, precision, batch size, bucket and
+      engine time, in trace-id order, which ``serve_wave`` makes the queue
+      order; padded as the front pads) and run directly: hits, kNN ids and
+      distances, ``per_query_dists`` and, for bf16, ``per_query_recheck``
+      must be equal, row for row.
+    * ``other_batch``: every row again in batches of BATCH rows of its
+      (generation, kind, precision), in request order: hits, kNN ids and
+      distances, and range ``per_query_dists`` must be equal.  A kNN
+      row's ``per_query_dists`` and a bf16 row's re-check count are only
+      counted where they differ (``tile_dependent``): a round's top-k
+      reads every cell the query's tile computed, so the rows that share
+      the tile can tighten its next radius, and the band counts those
+      cells too (the reference's accounting; the results are exact
+      either way).
+
+    Returns the counts and the first differences, each with the fields
+    that differ."""
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+
+    def direct(gen, kind, precision, js, pad=0):
+        rows = [reqs[j][0] for j in js] + [reqs[js[0]][0]] * pad
+        opts = EngineOpts(backend="cuda", realisation="dense", precision=precision)
+        if kind == "range":
+            t_vec = np.array([reqs[j][2] for j in js] + [-1.0] * pad, np.float32)
+            hits, st = flat_index.bss_query_batched(snapshots[gen], queries[rows], t_vec,
+                                                    opts=opts)
+            return hits, None, None, st
+        return (None, *flat_index.bss_knn_batched(snapshots[gen], queries[rows], KNN_K,
+                                                  opts=opts))
+
+    tile_dependent: list = []
+
+    def compare(js, out, precision, same_batch, diffs):
+        hits, ids, dists, st = out
+        for m, j in enumerate(js):
+            r, bad = results[j], []
+            if r.n_dists != st["per_query_dists"][m]:
+                bad.append(("n_dists", r.n_dists, int(st["per_query_dists"][m])))
+            if hits is not None and r.hits != hits[m]:
+                bad.append(("hits", len(r.hits), len(hits[m])))
+            if ids is not None and not np.array_equal(r.indices, ids[m]):
+                bad.append(("ids", sorted(set(r.indices.tolist()) ^ set(ids[m].tolist()))))
+            if dists is not None and not np.array_equal(r.distances, dists[m]):
+                bad.append(("distances", float(np.abs(r.distances - dists[m]).max())))
+            if precision == "bf16" and r.n_recheck != st["per_query_recheck"][m]:
+                bad.append(("n_recheck", r.n_recheck, int(st["per_query_recheck"][m])))
+            if not same_batch:
+                # the per-tile accounting of the docstring: recorded apart
+                moved = [b for b in bad if b[0] == "n_recheck"
+                         or b[0] == "n_dists" and reqs[j][1] == "knn"]
+                if moved:
+                    tile_dependent.append((j, r.generation, reqs[j][1], precision, moved))
+                bad = [b for b in bad if b not in moved]
+            if bad:
+                diffs.append((j, r.generation, reqs[j][1], precision, bad))
+        return len(js)
+
+    groups: dict = {}
+    batches: dict = {}
+    for j, r in enumerate(results):
+        if r is None:
+            continue
+        key = (r.generation, reqs[j][1], reqs[j][3])
+        groups.setdefault(key, []).append(j)
+        if not r.cache_hit:
+            batches.setdefault((*key, r.batch_size, r.padded_to, r.engine_s), []).append(j)
+    same, other = [], []
+    n_same = n_other = 0
+    for (gen, kind, precision, n, bucket, _), js in batches.items():
+        js = sorted(js, key=lambda j: results[j].trace_id)
+        if len(js) != n:  # a batch whose rows are not all here cannot be rebuilt
+            same.append(("batch", gen, kind, precision, n, len(js)))
+            continue
+        n_same += compare(js, direct(gen, kind, precision, js, bucket - n), precision, True,
+                          same)
+    for (gen, kind, precision), js in sorted(groups.items()):
+        for s in range(0, len(js), BATCH):
+            chunk = js[s:s + BATCH]
+            n_other += compare(chunk, direct(gen, kind, precision, chunk), precision, False,
+                               other)
+    return dict(same_batch=dict(rows=n_same, batches=len(batches), differing=len(same),
+                                first=same[:10]),
+                other_batch=dict(rows=n_other, differing=len(other), first=other[:10],
+                                 tile_dependent=len(tile_dependent),
+                                 tile_dependent_first=tile_dependent[:5]),
+                groups={f"gen {g} {k} {p}": len(js) for (g, k, p), js in sorted(groups.items())})
+
+
+def serving(torch, np, failures: list, record: dict, corpus, queries, metric: str, cfg,
+            ts: list, n_requests: int | None = None, mutate: bool = True) -> dict:
+    """Phase 10 for one metric: ``RetrievalServer`` on the card with the
+    configuration's settings and its ``async_front`` (default ladder,
+    ``max_delay_s=0.002``, ``cache_size=4096``); waves of one request per
+    query from SERVE_CLIENTS threads; every result checked against a
+    direct ``"cuda"`` call on the generation it names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import validate_exposition, validate_trace
+    from repro_torch.serve.retrieval import RetrievalServer
+
+    corpus32, queries32 = corpus.astype(np.float32), queries.astype(np.float32)
+    n_requests = len(queries32) if n_requests is None else n_requests
+    # build on all but the last 1% of the rows (the tail the living corpus
+    # phase appends from); the first wave's front appends them back
+    n0 = len(corpus32) - len(corpus32) // 100 if mutate else len(corpus32)
+    t0 = time.perf_counter()
+    server = RetrievalServer(corpus32[:n0], metric=metric, n_pivots=cfg.n_pivots,
+                             n_pairs=cfg.n_pairs, block=cfg.block)
+    row = dict(metric=metric, built_on=n0, build_seconds=time.perf_counter() - t0,
+               thresholds=ts, clients=SERVE_CLIENTS, waves=[])
+    errors: list = []
+    checks = []
+    snapshots = {}
+    reset_launch_counts()
+    with server.async_front(max_delay_s=0.002, cache_size=4096) as front:
+        row["buckets"] = list(front.buckets)
+        snapshots[front.index.generation] = front.index
+        reqs = serving_requests(np, n_requests, ts, seed=1, knn=mutate)
+        res, errs, secs = serve_wave(front, queries32, reqs, n_requests)
+        errors += errs
+        row["waves"].append(dict(wave=1, **serving_numbers(np, res, secs)))
+        waves = [(queries32, reqs, res)]
+        if mutate:
+            ms = front.append(corpus32[n0:])
+            snapshots[front.index.generation] = front.index
+            dead = np.random.default_rng(3).choice(n0, size=100, replace=False).tolist()
+            md = front.delete(dead)
+            snapshots[front.index.generation] = front.index
+            row["mutations"] = [dict(op=m.op, rows=m.rows, generation=m.generation,
+                                     table_dists=m.table_dists) for m in (ms, md)]
+            # the second wave under torch.profiler: a warm-up step (BATCH
+            # range requests on the appended rows, traced and thrown away),
+            # then the wave
+            warm = [(i, "range", ts[1], "fp32") for i in range(min(BATCH, len(corpus32) - n0))]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                         acc_events=True) as prof:
+                wres, errs, _ = serve_wave(front, corpus32[n0:], warm)
+                errors += errs
+                prof.step()
+                before = sum(launch_counts().values())
+                reqs2 = serving_requests(np, n_requests, ts, seed=2)
+                res2, errs, secs2 = serve_wave(front, queries32, reqs2, n_requests)
+                port_launches = sum(launch_counts().values()) - before
+                prof.step()
+            errors += errs
+            device, launches = trace_device(prof)
+            busy = sum(device.values())
+            row["waves"].append(dict(
+                wave=2, profiled=True, **serving_numbers(np, res2, secs2),
+                device_busy_ms=busy, device_idle_share=1.0 - busy / (secs2 * 1e3),
+                device_ms_by_kernel={k: round(v, 5) for k, v in sorted(
+                    device.items(), key=lambda kv: -kv[1])[:8]},
+                port_kernel_launches=port_launches,
+                port_kernel_events=sum(n for k, n in launches.items()
+                                       if k.startswith(PORT_KERNELS))))
+            waves += [(corpus32[n0:], warm, wres), (queries32, reqs2, res2)]
+        counts = launch_counts()
+        st = front.stats()
+        row.update({k: st[k] for k in ("submitted", "completed", "errors", "shed", "cache_hits",
+                                       "batches", "per_bucket_batches", "padding_waste",
+                                       "batch_size_mean", "engine_s_per_batch")})
+        prom = front.metrics().to_prometheus()
+        snap = front.metrics().snapshot()
+        out = ROOT / "build" / "serving"
+        out.mkdir(parents=True, exist_ok=True)
+        trace_path = front.export_trace(out / f"trace_{metric}.json")
+    from repro_torch.obs import load_trace
+
+    row["launches"] = {k: v for k, v in counts.items() if v}
+    row["recompiles"] = {k: v for k, v in snap["counters"].items()
+                         if k.startswith("compile/recompiles")}
+    row["exposition_problems"] = validate_exposition(prom)
+    row["trace_problems"] = validate_trace(load_trace(trace_path))
+    for queries_w, reqs_w, res_w in waves:
+        checks.append(check_served(np, snapshots, queries_w, reqs_w, res_w))
+    row["checks"] = checks
+    row["request_failures"] = errors[:10]
+    record.setdefault("serving", {})[metric] = row
+    log(f"serving {metric} " + json.dumps(row))
+    want = {"l2": ("pairwise_l2", "masked_pairwise_l2", "masked_pairwise_l2_bf16"),
+            "jsd": ("pairwise_jsd", "masked_pairwise_jsd", "masked_pairwise_jsd_bf16")}[metric]
+    missing = [k for k in (*want, "planar_lower_bound_pairs") if counts.get(k, 0) <= 0]
+    bad = (errors or missing or row["recompiles"] and max(row["recompiles"].values()) > 0
+           or row["exposition_problems"] or row["trace_problems"]
+           or any(c["same_batch"]["differing"] or c["other_batch"]["differing"]
+                  for c in checks) or st["errors"])
+    if bad:
+        failures.append(f"serving {metric}: failed requests {len(errors)} {errors[:3]}, kernels "
+                        f"not launched {missing}, recompiles {row['recompiles']}, exposition "
+                        f"{row['exposition_problems'][:3]}, trace {row['trace_problems'][:3]}, "
+                        f"differences {[(c['same_batch']['first'], c['other_batch']['first']) for c in checks]}, "
+                        f"driver errors {st['errors']}")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1594,7 +1902,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    kernels, record, paths, bf16_paths, knns = {}, {}, {}, {}, {}
+    kernels, record, paths, bf16_paths, knns, serving_counts = {}, {}, {}, {}, {}, {}
     dev = torch.device("cuda")
     data = {}
     if "--tiles-only" in sys.argv[1:]:
@@ -1660,6 +1968,12 @@ def main() -> int:
             torch, np, failures, record, dev, *data["colors"], m, SISAP_COLORS,
             paths[m]["ts"][SISAP_COLORS.selectivities.index(1e-3)]))
           for m in ("l2", "jsd")),
+        ("serving l2", lambda: serving_counts.update(l2=serving(
+            torch, np, failures, record, *data["colors"], "l2", SISAP_COLORS,
+            paths["l2"]["ts"]))),
+        ("serving jsd", lambda: serving_counts.update(jsd=serving(
+            torch, np, failures, record, *data["colors"], "jsd", SISAP_COLORS,
+            paths["jsd"]["ts"], n_requests=4 * BATCH, mutate=False))),
     )
     for phase, fn in phases:
         t0 = time.perf_counter()
@@ -1675,6 +1989,7 @@ def main() -> int:
         metric = next((m for m, e in PROB.items() if e in entry), "l2")
         on_path = bf16_paths if entry.endswith("_bf16") else paths
         rec["launches"] = int(on_path.get(metric, {}).get("counts", {}).get(entry, 0))
+        rec["serving_launches"] = int(serving_counts.get(metric, {}).get(entry, 0))
         if entry in OFF_PATH:
             rec["on_main_path"] = False
         elif rec["launches"] <= 0:

@@ -74,7 +74,7 @@ def build_index(cfg: SearchConfig, corpus: np.ndarray, engine: str = "bss",
         )
     if engine in ("tree", "lrt"):
         raise NotImplementedError(
-            f"engine {engine!r} is not ported yet: ROADMAP Queue 1 item 9 "
+            f"engine {engine!r} is not ported yet: ROADMAP Queue 1 item 4 "
             f"(forest, tree and LRT builds)"
         )
     raise ValueError(engine)

@@ -313,7 +313,7 @@ def build_bss(
     the CUDA device; raises without one unless ``device="cpu"``)."""
     if mesh is not None:
         raise NotImplementedError(
-            "sharded BSS is not ported yet: ROADMAP Queue 1 item 10"
+            "sharded BSS is not ported yet: ROADMAP Queue 1 item 6"
         )
     device = resolve_device(device)
     metric = get_metric(metric_name)  # validates; registers power names

@@ -29,7 +29,7 @@ bf16 and oracle paths agree bit for bit on hits, kNN results and per-query
 distance counts.
 
 The sharded branches of the reference have no counterpart yet (ROADMAP
-Queue 1 item 10): the port's index carries no mesh (``build_bss`` refuses
+Queue 1 item 6): the port's index carries no mesh (``build_bss`` refuses
 one), and ``MutationStats.sharded_in_place`` stays ``False``.
 """
 

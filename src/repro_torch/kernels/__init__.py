@@ -24,6 +24,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    from repro_torch.kernels import _build
+
     for c in _counters():
-        for name in c:
-            c[name] = 0
+        _build.reset_counts(c)

@@ -13,6 +13,18 @@ tree never rebuilds and an edited source never loads a stale library.
 ``build()`` starts one ``nvcc`` per missing library, all at once, and keeps
 each compiler log (``-Xptxas=-v``: registers, shared memory, spills) beside
 its library.  Nothing is compiled when this module is imported.
+
+A serving front launches kernels from its own driver thread while client
+threads may call the engines directly, so one lock covers the load of a
+library (``library``: each source is built and loaded once per process,
+which ``load_count`` reports) and another every wrapper's launch count
+(``count_launch``), so a launch never waits for another source's build.
+
+``load_count`` is what a serving front's compile guard watches.  Loading a
+library is the port's only form of a rebuild, and a library is loaded
+once per process, so the count reads 0 before the first use and 1 after
+it: the guard only catches a library loaded again within the process.
+It is not a check on ``nvcc`` or on the card's JIT.
 """
 
 from __future__ import annotations
@@ -22,10 +34,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "library", "check", "compiler_log"]
+__all__ = ["SOURCES", "build", "library", "check", "compiler_log", "load_count",
+           "count_launch", "reset_counts"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -42,6 +56,10 @@ _FLAGS = (
 # and sqrtf stay IEEE and fp32 denormals are kept.
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# times each source's library was built or loaded in this process
+_LOADS: dict[str, int] = dict.fromkeys(SOURCES, 0)
+_LOCK = threading.Lock()  # build and load
+_COUNT_LOCK = threading.Lock()  # launch counts
 
 
 def _target(name: str) -> Path:
@@ -105,16 +123,43 @@ def compiler_log(name: str) -> str:
 def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built on first use,
     with each C entry point in ``signatures`` (function name -> ctypes
-    argument types) declared to return ``int`` (a ``cudaError_t``)."""
+    argument types) declared to return ``int`` (a ``cudaError_t``).  Safe
+    to call from several threads: the first caller builds and loads, the
+    others wait for it."""
     lib = _LIBS.get(name)
-    if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
+            _LOADS[name] += 1
     return lib
+
+
+def load_count(name: str) -> int:
+    """How many times ``csrc/<name>.cu``'s library was built or loaded in
+    this process: 1 once it serves, and it never grows after that."""
+    return _LOADS[name]
+
+
+def count_launch(counts: dict[str, int], entry: str) -> None:
+    """Add one launch of ``entry`` to a wrapper's count, exactly even when
+    several threads launch at once."""
+    with _COUNT_LOCK:
+        counts[entry] += 1
+
+
+def reset_counts(counts: dict[str, int]) -> None:
+    """Zero every entry of a wrapper's launch count."""
+    with _COUNT_LOCK:
+        for entry in counts:
+            counts[entry] = 0
 
 
 def check(err: int, what: str) -> None:

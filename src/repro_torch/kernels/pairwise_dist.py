@@ -135,7 +135,7 @@ def _launch(source: str, entry: str, out: torch.Tensor, *args) -> None:
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(*args, stream)
     _build.check(err, entry)
-    LAUNCHES[entry] += 1
+    _build.count_launch(LAUNCHES, entry)
 
 
 def _tile(metric_name: str) -> _Tile:

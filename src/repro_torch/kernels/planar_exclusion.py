@@ -73,7 +73,7 @@ def _launch(fn: str, tensors: tuple, ints: tuple, q: int, b: int) -> torch.Tenso
             err = getattr(lib, fn)(*(t.data_ptr() for t in tensors), out.data_ptr(),
                                    *ints, stream)
         _build.check(err, fn)
-        LAUNCHES[fn] += 1
+        _build.count_launch(LAUNCHES, fn)
     return out
 
 

@@ -17,14 +17,20 @@ from repro.core import projection as r_projection
 from repro.core import refpoints as r_refpoints
 from repro.data import metricsets as r_metricsets
 from repro.kernels import tiles as r_tiles
+from repro.obs import registry as r_registry
 from repro.obs import schema as r_schema
+from repro.obs import trace as r_trace
+from repro.serve import queue as r_queue
 from repro_torch.core import constants as t_constants
 from repro_torch.core import npdist as t_npdist
 from repro_torch.core import projection as t_projection
 from repro_torch.core import refpoints as t_refpoints
 from repro_torch.data import metricsets as t_metricsets
 from repro_torch.kernels import tiles as t_tiles
+from repro_torch.obs import registry as t_registry
 from repro_torch.obs import schema as t_schema
+from repro_torch.obs import trace as t_trace
+from repro_torch.serve import queue as t_queue
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
@@ -34,6 +40,12 @@ COPIES = [
     "core/refpoints.py",
     "kernels/tiles.py",
     "obs/schema.py",
+    "obs/buckets.py",
+    "obs/registry.py",
+    "obs/spans.py",
+    "obs/trace.py",
+    "obs/export.py",
+    "serve/queue.py",
     "data/metricsets.py",
 ]
 
@@ -192,3 +204,28 @@ def test_constants_and_tiles_equal():
         env=env, capture_output=True, text=True, check=True,
     )
     assert out.stdout.split() == ["64", "256"]
+
+
+def test_obs_and_queue_copies_give_the_same_results():
+    """The copied registry, trace and queue helpers produce the reference's
+    output on the same inputs: percentiles, snapshot, exposition, and a
+    trace event list."""
+    xs = np.random.default_rng(7).random(37).tolist()
+    for p in (0.0, 0.5, 0.95, 0.99, 1.0):
+        assert t_queue.nearest_rank(xs, p) == r_queue.nearest_rank(xs, p)
+
+    def fill(mod):
+        reg = mod.MetricsRegistry()
+        reg.counter("engine/dists", engine="bss", kind="range").inc(5)
+        reg.gauge("index/generation").set(3)
+        h = reg.histogram("serve/engine_s", kind="knn")
+        for v in xs:
+            h.observe(v * 1e-3)
+        return reg
+
+    t_reg, r_reg = fill(t_registry), fill(r_registry)
+    assert t_reg.snapshot() == r_reg.snapshot()
+    assert t_reg.to_prometheus() == r_reg.to_prometheus()
+    ev = dict(name="dispatch/engine", start_s=1.25, dur_s=0.5, tid=0, cat="dispatch",
+              args={"n": 1})
+    assert t_trace.complete_event(**ev) == r_trace.complete_event(**ev)
