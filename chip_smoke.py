@@ -7,6 +7,8 @@ H100: the quickest proof that the port builds and serves on the card.
                                          # JSD / Triangular small-distance
                                          # errors, and each metric's bound
                                          # phase and masked tile timed alone
+    python3 chip_smoke.py --plain-l2     # only the plain "torch" l2 range
+                                         # search over all queries
 
 Phases (any failure is reported and the script exits non-zero; each
 phase prints its seconds):
@@ -110,11 +112,41 @@ phase prints its seconds):
    batches by bucket, padding waste, cache hits and the device's idle
    share.  A difference, a failed future, a path kernel not launched, a
    recompile, or a problem in the exposition or the trace fails the run.
-11. One JSON line with every kernel's numbers (``launches`` from the range
+11. The forest (``repro_torch.forest``), l2: the paper's ``hpt_fft_log``
+   tree of the corpus (``build_index(engine="tree")``, encoded for the
+   card; build and encode seconds, levels, nodes, leaves), all queries in
+   512-query batches at the three l2 thresholds under Hilbert on
+   ``"cuda"``, the first 2,048 on ``"torch"`` too and 64 against the
+   numpy host walk: a hit that differs must lie within 1e-5 * max(1, t)
+   of t in float64, and a query whose ``per_query_dists`` differ must
+   have, on its float64 host walk, a predicate within 1e-5 of its
+   threshold (``tree_margin``; both kinds are counted).  The middle
+   threshold again under Hyperbolic.  Prints queries/s,
+   ``dists_per_query`` beside BSS's at the same thresholds, exclusion
+   attribution and frontier occupancy per query; four batches of each
+   backend profiled.
+12. Forest bf16: ``precision="bf16"`` at selectivities 1e-5 and 1e-3 over
+   all queries: hits, ``per_query_dists``, ``excluded`` and the frontier
+   equal to phase 11's fp32 runs bit for bit; the re-checked share.
+13. Forest monotone: the ``lrt`` / ``far`` tree
+   (``build_index(engine="lrt")``), all queries at the widest l2
+   threshold, held as in phase 11 (``monotone_margin``).
+14. Forest JSD: ``hpt_fft_log`` under JSD, 2,048 queries at the widest
+   JSD threshold, held as in phase 11, and the leaf table's cells near t
+   within the error budget (``prob_error_near_t``).
+15. Serving forest: ``RetrievalServer(index="forest", metric="l2")`` and
+   its front: one wave of 2,048 range requests at the three thresholds
+   (every 16th bf16) from 8 client threads, every result equal to a
+   direct ``forest_range_search`` on the batch the front formed, every
+   field; a kNN request must raise ``FOREST_KNN_ERROR``.  Launch counts
+   are zeroed before and read after each forest phase.
+16. One JSON line with every kernel's numbers (``launches`` from the range
    path of its metric and precision, ``serving_launches`` from the serving
-   phase; the unmasked bf16 forms and the d1/d2 form of the planar bound
-   are on no engine path and carry ``"on_main_path": false``), then the
-   result line ``{"ok": true, "device": {...}}``.
+   phase, ``forest_launches`` from the forest phases, which must have
+   launched the masked l2, bf16 l2 and JSD tiles; the unmasked bf16 forms
+   and the d1/d2 form of the planar bound are on no engine path and carry
+   ``"on_main_path": false``), then the result line ``{"ok": true,
+   "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -130,6 +162,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -947,7 +980,7 @@ def l2_tile_breakdown(torch, np, dev, shapes=MAIN_SHAPES) -> dict:
 
 
 def prob_error_near_t(torch, np, failures: list, record: dict, index, queries32, metric: str,
-                      ts) -> None:
+                      ts, label: str | None = None) -> None:
     """The largest |d_cuda - d_float64| over the first batch's cells within
     ``band_eps`` of each threshold, beside the derived error budget and the
     bf16 margin's fp32 arithmetic term (``precision.prob_error_verdict``):
@@ -974,10 +1007,10 @@ def prob_error_near_t(torch, np, failures: list, record: dict, index, queries32,
             for s in range(0, len(qi), 65536)])
         row = dict(t=t, band_eps=band, **prob_error_verdict(metric, k, got, d64, t))
         rows.append(row)
-        log(f"error budget {metric} range " + json.dumps(row))
+        log(f"error budget {label or metric + ' range'} " + json.dumps(row))
         if not row["ok"]:
-            failures.append(f"{metric} t={t}: error budget {row}")
-    record.setdefault("error budget", {})[metric] = rows
+            failures.append(f"{label or metric} t={t}: error budget {row}")
+    record.setdefault("error budget", {})[label or metric] = rows
 
 
 def prob_small_distances(torch, np, failures: list, dev) -> dict:
@@ -1846,6 +1879,571 @@ def serving(torch, np, failures: list, record: dict, corpus, queries, metric: st
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the device forest (phases 11-15)
+# ---------------------------------------------------------------------------
+
+FOREST_TORCH_QUERIES = 4 * BATCH  # the "torch" comparisons of the forest phases
+# the tiles the forest phases must launch (the Triangular forest runs in
+# the CPU and card tests only)
+FOREST_PATH = ("masked_pairwise_l2", "masked_pairwise_l2_bf16", "masked_pairwise_jsd")
+
+
+def _rel_gap(np, value, threshold) -> float:
+    """The smallest |value - threshold| / max(1, |threshold|) (inf if none)."""
+    value = np.asarray(value, np.float64).ravel()
+    threshold = np.broadcast_to(np.asarray(threshold, np.float64), value.shape).ravel()
+    keep = np.isfinite(value) & np.isfinite(threshold)
+    if not keep.any():
+        return float("inf")
+    return float((np.abs(value[keep] - threshold[keep])
+                  / np.maximum(1.0, np.abs(threshold[keep]))).min())
+
+
+def tree_margin(np, tr, query, t: float, mech: str) -> float:
+    """The float64 host walk of one query through a partition tree: the
+    smallest relative gap between any predicate it evaluates (a hit, a
+    cover radius, a hyperplane or centre criterion) and its threshold.  A
+    float32 walk can part from it only where that gap is within BAND."""
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.core.constants import DEGENERATE_DELTA, MIN_DELTA
+    from repro_torch.core.exclusion import HILBERT
+    from repro_torch.core.npdist import pairwise_np
+
+    q = np.asarray(query, np.float64)[None, :]  # lint: disable=R3
+    best = float("inf")
+    stack = [(tr.root, None)]
+    while stack:
+        node, dc = stack.pop()
+        if node is None:
+            continue
+        if isinstance(node, np.ndarray):
+            if len(node):
+                best = min(best, _rel_gap(np, pairwise_np(tr.metric, q, tr.data[node])[0], t))
+            continue
+        k = len(node.ref_idx)
+        if k == 0:
+            stack.extend((ch, None) for ch in node.children)
+            continue
+        dq = pairwise_np(tr.metric, q, tr.data[node.ref_idx])[0]
+        off = ~np.eye(k, dtype=bool)
+        if mech == HILBERT:
+            crit = (dq[:, None] ** 2 - dq[None, :] ** 2) / np.maximum(node.ref_dists, MIN_DELTA)
+            off &= node.ref_dists >= DEGENERATE_DELTA
+        else:
+            crit = dq[:, None] - dq[None, :]
+        best = min(best, _rel_gap(np, dq, t), _rel_gap(np, dq, node.cover_r + t),
+                   _rel_gap(np, crit[off], 2.0 * t))
+        if dc is not None and not np.any(np.isnan(node.centre_dists)):
+            cd = node.centre_dists
+            cc = ((dq ** 2 - dc ** 2) / np.maximum(cd, MIN_DELTA) if mech == HILBERT
+                  else dq - dc)
+            if mech == HILBERT:
+                cc = cc[cd >= DEGENERATE_DELTA]
+            best = min(best, _rel_gap(np, cc, 2.0 * t))
+        excl = tree_mod._exclusion_masks(
+            dq[None, :], node, t, mech, None if dc is None else np.array([dc]))[0]
+        stack.extend((ch, dq[j]) for j, ch in enumerate(node.children)
+                     if ch is not None and not excl[j])
+    return best
+
+
+def monotone_margin(np, tr, query, t: float, mech: str) -> float:
+    """``tree_margin`` for a monotone tree: hits and the margin tests
+    ``m < t`` and ``m > -t`` along the float64 host walk."""
+    from repro_torch.core import exclusion, projection
+    from repro_torch.core.exclusion import HYPERBOLIC
+    from repro_torch.core.npdist import pairwise_np
+
+    q = np.asarray(query, np.float64)[None, :]  # lint: disable=R3
+    d_root = pairwise_np(tr.metric, q, tr.data[tr.root_p1][None, :])[0, 0]
+    best = _rel_gap(np, d_root, t)
+    stack = [(tr.root, d_root)]
+    while stack:
+        node, d1 = stack.pop()
+        if node is None:
+            continue
+        if isinstance(node, np.ndarray):
+            if len(node):
+                best = min(best, _rel_gap(np, pairwise_np(tr.metric, q, tr.data[node])[0], t))
+            continue
+        d2 = pairwise_np(tr.metric, q, tr.data[node.p2][None, :])[0, 0]
+        if mech == HYPERBOLIC:
+            m = exclusion.hyperbolic_margin(d1, d2, xp=np)
+        else:
+            x, y = projection.project(d1, d2, node.delta, xp=np)
+            m = exclusion.planar_margin(x, y, node.theta, node.h, node.nx, node.ny,
+                                        node.split, xp=np)
+        best = min(best, _rel_gap(np, d2, t), _rel_gap(np, m, t), _rel_gap(np, m, -t))
+        if m < t:
+            stack.append((node.left, d1))
+        if m > -t:
+            stack.append((node.right, d2))
+    return best
+
+
+def forest_diffs(np, metric: str, corpus, queries, a, b, t: float, margin) -> dict:
+    """Two walks' results on the same queries, ``a`` and ``b`` each (hits,
+    per-query counts): hits that differ, those farther than BAND * max(1,
+    t) from t in float64 (faults), counts that differ and those of queries
+    whose float64 walk has no predicate within BAND of its threshold
+    (``margin(query)``: faults)."""
+    from repro_torch.core.npdist import pairwise_np
+
+    # the host walks list a query's hits in another order
+    (ha, ca), (hb, cb) = ([sorted(h) for h in a[0]], a[1]), ([sorted(h) for h in b[0]], b[1])
+    n_hits, bad_hits = boundary_hit_diffs(np, pairwise_np, metric, corpus, queries, ha, hb, t)
+    moved = np.nonzero(np.asarray(ca) != np.asarray(cb))[0]
+    bad_counts = [int(qi) for qi in moved if margin(queries[qi]) > BAND]
+    return dict(hit_diffs=n_hits, hit_faults=bad_hits[:10], count_diffs=int(moved.size),
+                count_diffs_at_a_threshold=int(moved.size) - len(bad_counts),
+                count_faults=bad_counts[:10])
+
+
+def _margin(np, tr, t, mech, monotone=False):
+    if monotone:
+        return lambda q: monotone_margin(np, tr, q, t, mech)
+    return lambda q: tree_margin(np, tr, q, t, mech)
+
+
+def run_forest(search, enc, queries, t, mech, backend, precision="fp32"):
+    """All ``queries`` in batches of BATCH through a forest walk: hits, the
+    per-query counts and each batch's stats."""
+    from repro_torch.core.backends import EngineOpts
+
+    hits, stats = [], []
+    for s in range(0, len(queries), BATCH):
+        h, st = search(enc, queries[s:s + BATCH], t, mech,
+                       opts=EngineOpts(backend=backend, precision=precision))
+        hits += h
+        stats.append(st)
+    return hits, per_query(stats, "per_query_dists"), stats
+
+
+def _forest_totals(np, stats: list) -> dict:
+    """Exclusion attribution per query and frontier occupancy per level,
+    over all the batches of a run."""
+    nq = sum(len(st["per_query_dists"]) for st in stats)
+    excl = {m: float(sum(int(np.sum(st["excluded"][m])) for st in stats)) / nq
+            for m in stats[0]["excluded"]}
+    front = np.sum([st["frontier_occupancy"] for st in stats], axis=0)
+    return dict(excluded_per_query=excl,
+                frontier_occupancy_per_query=[round(float(v) / nq, 3) for v in front])
+
+
+def _check_forest(failures, name, diffs: dict) -> None:
+    if diffs["hit_faults"] or diffs["count_faults"]:
+        failures.append(f"{name}: differences away from the threshold {diffs}")
+
+
+def forest_l2(torch, np, failures: list, record: dict, dev, corpus, queries, cfg, ts: list,
+              bss_rows: list) -> dict:
+    """Phase 11: the ``hpt_fft_log`` forest of SISAP colors at paper size
+    (``build_index(engine="tree")``, encoded for the card), all queries at
+    the three l2 thresholds under Hilbert on ``"cuda"``, the first
+    FOREST_TORCH_QUERIES on ``"torch"`` too, 64 against the numpy host
+    walk; the middle threshold under Hyperbolic; four batches profiled.
+    Returns the launch counts, the encoding, the tree and the fp32 runs."""
+    from repro_torch.configs.supermetric import build_index
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.core.exclusion import HILBERT, HYPERBOLIC
+    from repro_torch.core.npdist import pairwise_np
+    from repro_torch.forest import encode_tree, forest_range_search
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    corpus32, queries32 = corpus.astype(np.float32), queries.astype(np.float32)
+    nq = len(queries32)
+    t0 = time.perf_counter()
+    tr = build_index(cfg, corpus, engine="tree")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = encode_tree(tr, device=dev)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _ = enc.device
+    torch.cuda.synchronize()
+    mirror_s = time.perf_counter() - t0
+    widest = max(range(len(enc.levels)), key=lambda i: enc.levels[i].ref_data.shape[0])
+    shape = dict(variant=tr.variant, build_seconds=build_s, encode_seconds=encode_s,
+                 mirror_seconds=mirror_s, levels=len(enc.levels), nodes=enc.n_nodes,
+                 leaves=enc.leaf.n_leaves, leaf_rows=int(enc.leaf.data.shape[0]),
+                 widest_level=widest,
+                 widest_level_rows=int(enc.levels[widest].ref_data.shape[0]),
+                 widest_level_nodes=int(enc.levels[widest].n_refs.shape[0]),
+                 widest_level_kmax=int(enc.levels[widest].ref_idx.shape[1]))
+    log("forest l2 encoding " + json.dumps(shape))
+    forest_range_search(enc, queries32[:BATCH], ts[0])  # warm-up
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    runs = []
+    for t in ts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = run_forest(forest_range_search, enc, queries32, t, HILBERT, "cuda")
+        torch.cuda.synchronize()
+        runs.append((run, time.perf_counter() - t0))
+    counts = launch_counts()
+    n_batches = -(-nq // BATCH)
+    expect_launches(failures, "forest l2", counts,
+                    {"masked_pairwise_l2": len(ts) * n_batches * (len(enc.levels) + 1)})
+    log(f"forest l2 launch counts: {counts}")
+
+    rows = []
+    nt = FOREST_TORCH_QUERIES
+    for t, sel, ((hits, cnt, stats), secs), bss in zip(ts, cfg.selectivities, runs, bss_rows):
+        margin = _margin(np, tr, t, HILBERT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_hits, p_cnt, _ = run_forest(forest_range_search, enc, queries32[:nt], t, HILBERT,
+                                      "torch")
+        torch.cuda.synchronize()
+        plain_secs = time.perf_counter() - t0
+        vs_torch = forest_diffs(np, "l2", corpus32, queries32, (hits[:nt], cnt[:nt]),
+                                (p_hits, p_cnt), t, margin)
+        t0 = time.perf_counter()
+        o_hits, counter = tree_mod.range_search(tr, queries32[:ORACLE_QUERIES], t, HILBERT)
+        oracle_secs = time.perf_counter() - t0
+        vs_oracle = forest_diffs(np, "l2", corpus32, queries32,
+                                 (hits[:ORACLE_QUERIES], cnt[:ORACLE_QUERIES]),
+                                 (o_hits, counter.per_query), t, margin)
+        row = dict(selectivity=sel, t=t, queries=nq, seconds=secs, queries_per_s=nq / secs,
+                   plain_torch_queries_per_s=nt / plain_secs,
+                   hits=sum(len(h) for h in hits), dists_per_query=float(cnt.mean()),
+                   bss_dists_per_query=bss["dists_per_query"],
+                   bss_queries_per_s=bss["queries_per_s"], **_forest_totals(np, stats),
+                   vs_torch=vs_torch, vs_oracle=vs_oracle, oracle_seconds=oracle_secs)
+        rows.append(row)
+        log("forest l2 " + json.dumps(row))
+        _check_forest(failures, f"forest l2 t={t} vs torch", vs_torch)
+        _check_forest(failures, f"forest l2 t={t} vs oracle", vs_oracle)
+    if sum(row["hits"] for row in rows) == 0:
+        failures.append("the forest l2 path found no hits at any threshold")
+
+    # one threshold under Hyperbolic: the same exact hits, more distances
+    t = ts[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_hits, y_cnt, y_stats = run_forest(forest_range_search, enc, queries32, t, HYPERBOLIC,
+                                        "cuda")
+    torch.cuda.synchronize()
+    y_secs = time.perf_counter() - t0
+    (hil_hits, hil_cnt, _), _ = runs[1]
+    o_hits, counter = tree_mod.range_search(tr, queries32[:ORACLE_QUERIES], t, HYPERBOLIC)
+    vs_oracle = forest_diffs(np, "l2", corpus32, queries32,
+                             (y_hits[:ORACLE_QUERIES], y_cnt[:ORACLE_QUERIES]),
+                             (o_hits, counter.per_query), t, _margin(np, tr, t, HYPERBOLIC))
+    n_hd, bad_h = boundary_hit_diffs(np, pairwise_np, "l2", corpus32, queries32, y_hits,
+                                     hil_hits, t)
+    hyp = dict(mechanism=HYPERBOLIC, t=t, queries=nq, seconds=y_secs, queries_per_s=nq / y_secs,
+               dists_per_query=float(y_cnt.mean()),
+               hilbert_dists_per_query=float(hil_cnt.mean()),
+               hit_boundary_diffs_vs_hilbert=n_hd, vs_oracle=vs_oracle,
+               **_forest_totals(np, y_stats))
+    log("forest l2 hyperbolic " + json.dumps(hyp))
+    _check_forest(failures, "forest l2 hyperbolic vs oracle", vs_oracle)
+    if bad_h:
+        failures.append(f"forest l2 hyperbolic: hits differ from Hilbert's {bad_h[:10]}")
+
+    profiles = {}
+    try:  # a failed profile fails the run but keeps the checks above
+        for name in ("cuda", "torch"):
+            prof = profile_batches(
+                torch, lambda qb: forest_range_search(
+                    enc, qb, ts[-1], HILBERT, opts=EngineOpts(backend=name)),
+                queries32, t=ts[-1], backend=name)
+            profiles[name] = prof
+            log(f"profile forest l2 {name} " + json.dumps(prof))
+            if name == "cuda" and prof["port_kernel_launches"] != 4 * (len(enc.levels) + 1):
+                failures.append(f"forest l2 profile: {prof['port_kernel_launches']} launches "
+                                f"in 4 batches, expected {4 * (len(enc.levels) + 1)}")
+    except Exception:
+        failures.append(f"phase profile forest l2 raised:\n{traceback.format_exc()}")
+    record["forest l2"] = dict(encoding=shape, rows=rows, hyperbolic=hyp, profiles=profiles)
+    return dict(counts=counts, enc=enc, tree=tr, runs={t: r for t, (r, _) in zip(ts, runs)})
+
+
+def forest_bf16(torch, np, failures: list, record: dict, queries, cfg, l2: dict) -> dict:
+    """Phase 12: ``precision="bf16"`` over all queries on ``"cuda"`` at
+    selectivities 1e-5 and 1e-3: hits, ``per_query_dists``, ``excluded``
+    and the frontier must equal phase 11's fp32 runs bit for bit."""
+    from repro_torch.core.exclusion import HILBERT
+    from repro_torch.forest import forest_range_search
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.tiles import TILE_BLOCK, TILE_BQ
+
+    enc = l2["enc"]
+    queries32 = queries.astype(np.float32)
+    nq = len(queries32)
+    forest_range_search(enc, queries32[:BATCH], min(l2["runs"]), precision="bf16")  # warm-up
+    torch.cuda.synchronize()
+    if not torch.equal(enc.leaf_bf16.float().cpu(),
+                       torch.as_tensor(enc.leaf.data).to(torch.bfloat16).float()):
+        failures.append("forest bf16: the leaf mirror is not the fp32 leaf table's rounding")
+    leaf_tiles = -(-nq // BATCH) * (-(-BATCH // TILE_BQ)) * (enc.leaf.data.shape[0] // TILE_BLOCK)
+    reset_launch_counts()
+    rows = []
+    for sel in (1e-5, 1e-3):
+        t = sorted(l2["runs"])[cfg.selectivities.index(sel)]
+        hits32, cnt32, st32 = l2["runs"][t]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hits, cnt, stats = run_forest(forest_range_search, enc, queries32, t, HILBERT,
+                                      "cuda", "bf16")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        same = dict(
+            hits=hits == hits32,
+            per_query_dists=bool(np.array_equal(cnt, cnt32)),
+            excluded=all(np.array_equal(a["excluded"][m], b["excluded"][m])
+                         for a, b in zip(stats, st32) for m in b["excluded"]),
+            frontier=all(np.array_equal(a["frontier_occupancy"], b["frontier_occupancy"])
+                         for a, b in zip(stats, st32)))
+        recheck = int(sum(st["recheck_tiles"] for st in stats))
+        row = dict(selectivity=sel, t=t, queries=nq, seconds=secs, queries_per_s=nq / secs,
+                   band_eps=stats[0]["band_eps"], recheck_tiles=recheck,
+                   recheck_share_of_leaf_tiles=recheck / leaf_tiles,
+                   recheck_points_per_query=float(
+                       per_query(stats, "per_query_recheck").mean()),
+                   equal_to_fp32=same)
+        rows.append(row)
+        log("forest bf16 " + json.dumps(row))
+        if not all(same.values()):
+            failures.append(f"forest bf16 t={t}: differs from fp32 {same}")
+    counts = launch_counts()
+    log(f"forest bf16 launch counts: {counts}")
+    record["forest bf16"] = rows
+    return counts
+
+
+def forest_monotone(torch, np, failures: list, record: dict, dev, corpus, queries, cfg,
+                    t: float) -> dict:
+    """Phase 13: the monotone ``lrt``/``far`` tree
+    (``build_index(engine="lrt")``) at paper size, all queries at the
+    widest l2 threshold on ``"cuda"``, the first FOREST_TORCH_QUERIES on
+    ``"torch"``, 64 against ``lrt.range_search_monotone``."""
+    from repro_torch.configs.supermetric import build_index
+    from repro_torch.core import lrt
+    from repro_torch.core.exclusion import HILBERT
+    from repro_torch.forest import encode_monotone, monotone_range_search
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    corpus32, queries32 = corpus.astype(np.float32), queries.astype(np.float32)
+    nq = len(queries32)
+    t0 = time.perf_counter()
+    tr = build_index(cfg, corpus, engine="lrt")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = encode_monotone(tr, device=dev)
+    _ = enc.device
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    monotone_range_search(enc, queries32[:BATCH], t)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hits, cnt, stats = run_forest(monotone_range_search, enc, queries32, t, HILBERT, "cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    expect_launches(failures, "forest monotone", counts,
+                    {"masked_pairwise_l2": -(-nq // BATCH) * (len(enc.levels) + 1)})
+    margin = _margin(np, tr, t, HILBERT, monotone=True)
+    nt = FOREST_TORCH_QUERIES
+    t0 = time.perf_counter()
+    p_hits, p_cnt, _ = run_forest(monotone_range_search, enc, queries32[:nt], t, HILBERT,
+                                  "torch")
+    torch.cuda.synchronize()
+    plain_secs = time.perf_counter() - t0
+    vs_torch = forest_diffs(np, "l2", corpus32, queries32, (hits[:nt], cnt[:nt]),
+                            (p_hits, p_cnt), t, margin)
+    o_hits, counter = lrt.range_search_monotone(tr, queries32[:ORACLE_QUERIES], t, HILBERT)
+    vs_oracle = forest_diffs(np, "l2", corpus32, queries32,
+                             (hits[:ORACLE_QUERIES], cnt[:ORACLE_QUERIES]),
+                             (o_hits, counter.per_query), t, margin)
+    row = dict(partition=tr.partition, select=tr.select, build_seconds=build_s,
+               encode_seconds=encode_s, levels=len(enc.levels), nodes=enc.n_nodes,
+               leaves=enc.leaf.n_leaves, leaf_rows=int(enc.leaf.data.shape[0]), t=t,
+               queries=nq, seconds=secs, queries_per_s=nq / secs,
+               plain_torch_queries_per_s=nt / plain_secs, hits=sum(len(h) for h in hits),
+               dists_per_query=float(cnt.mean()), **_forest_totals(np, stats),
+               vs_torch=vs_torch, vs_oracle=vs_oracle)
+    log("forest monotone " + json.dumps(row))
+    _check_forest(failures, "forest monotone vs torch", vs_torch)
+    _check_forest(failures, "forest monotone vs oracle", vs_oracle)
+    if row["hits"] == 0:
+        failures.append("forest monotone: no hits")
+    record["forest monotone"] = row
+    return counts
+
+
+class _LeafIndex:
+    """The leaf table of an encoded forest in the shape ``prob_error_near_t``
+    reads an index: its device rows, valid mask, host data and margin."""
+
+    def __init__(self, enc):
+        leaves = enc.device.leaves
+        self.device = types.SimpleNamespace(data=leaves.leaf_data, valid=leaves.leaf_valid)
+        self.data = enc.leaf.data
+        self.torch_device = enc.torch_device
+        self.bf16_margin = enc.bf16_eps
+
+
+def forest_jsd(torch, np, failures: list, record: dict, dev, corpus, queries, cfg,
+               t: float) -> dict:
+    """Phase 14: ``hpt_fft_log`` under JSD at paper size, the first
+    FOREST_TORCH_QUERIES queries at the widest JSD threshold on ``"cuda"``
+    and ``"torch"``, 64 against the host walk; the leaf table's cells near
+    t held to float64 within the error budget (``prob_error_near_t``)."""
+    from repro_torch.configs.supermetric import build_index
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.core.exclusion import HILBERT
+    from repro_torch.forest import encode_tree, forest_range_search
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = dataclasses.replace(cfg, metric="jsd")
+    corpus32, queries32 = corpus.astype(np.float32), queries.astype(np.float32)
+    nt = FOREST_TORCH_QUERIES
+    t0 = time.perf_counter()
+    tr = build_index(cfg, corpus, engine="tree")
+    build_s = time.perf_counter() - t0
+    enc = encode_tree(tr, device=dev)
+    forest_range_search(enc, queries32[:BATCH], t)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hits, cnt, stats = run_forest(forest_range_search, enc, queries32[:nt], t, HILBERT, "cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    expect_launches(failures, "forest jsd", counts,
+                    {"masked_pairwise_jsd": -(-nt // BATCH) * (len(enc.levels) + 1)})
+    margin = _margin(np, tr, t, HILBERT)
+    p_hits, p_cnt, _ = run_forest(forest_range_search, enc, queries32[:nt], t, HILBERT, "torch")
+    vs_torch = forest_diffs(np, "jsd", corpus32, queries32, (hits, cnt), (p_hits, p_cnt), t,
+                            margin)
+    o_hits, counter = tree_mod.range_search(tr, queries32[:ORACLE_QUERIES], t, HILBERT)
+    vs_oracle = forest_diffs(np, "jsd", corpus32, queries32,
+                             (hits[:ORACLE_QUERIES], cnt[:ORACLE_QUERIES]),
+                             (o_hits, counter.per_query), t, margin)
+    row = dict(t=t, build_seconds=build_s, levels=len(enc.levels), nodes=enc.n_nodes,
+               leaves=enc.leaf.n_leaves, queries=nt, seconds=secs, queries_per_s=nt / secs,
+               hits=sum(len(h) for h in hits), dists_per_query=float(cnt.mean()),
+               **_forest_totals(np, stats), vs_torch=vs_torch, vs_oracle=vs_oracle)
+    log("forest jsd " + json.dumps(row))
+    _check_forest(failures, "forest jsd vs torch", vs_torch)
+    _check_forest(failures, "forest jsd vs oracle", vs_oracle)
+    if row["hits"] == 0:
+        failures.append("forest jsd: no hits")
+    prob_error_near_t(torch, np, failures, record, _LeafIndex(enc), queries32, "jsd", [t],
+                      label="forest jsd")
+    record["forest jsd"] = row
+    return counts
+
+
+def serving_forest(torch, np, failures: list, record: dict, corpus, queries, ts: list) -> dict:
+    """Phase 15: ``RetrievalServer(index="forest", metric="l2")`` on the card
+    and its ``async_front`` (default ladder, ``max_delay_s=0.002``,
+    ``cache_size=4096``): one wave of 4 * BATCH range requests at the three
+    thresholds (every 16th bf16, 1% sent again) from SERVE_CLIENTS
+    threads.  Every result must equal a direct ``forest_range_search`` on
+    the batch the front formed, every field; a kNN request must raise
+    ``FOREST_KNN_ERROR``."""
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.forest import forest_range_search
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.retrieval import FOREST_KNN_ERROR, RetrievalServer
+
+    corpus32, queries32 = corpus.astype(np.float32), queries.astype(np.float32)
+    t0 = time.perf_counter()
+    server = RetrievalServer(corpus32, metric="l2", index="forest")
+    row = dict(build_seconds=time.perf_counter() - t0, thresholds=ts, clients=SERVE_CLIENTS)
+    n = 4 * BATCH
+    reqs = serving_requests(np, n, ts, seed=4, knn=False)
+    reset_launch_counts()
+    with server.async_front(max_delay_s=0.002, cache_size=4096) as front:
+        try:
+            front.submit(queries32[0], "knn", k=KNN_K)
+            knn_refused = False
+        except NotImplementedError as e:
+            knn_refused = str(e) == FOREST_KNN_ERROR
+        res, errors, secs = serve_wave(front, queries32, reqs, n)
+        st = front.stats()
+        rec = front.explain()
+    counts = launch_counts()
+    row.update(serving_numbers(np, res, secs))
+    row.update({k: st[k] for k in ("batches", "per_bucket_batches", "padding_waste",
+                                   "batch_size_mean", "engine_s_per_batch", "errors")})
+    row["explain_last"] = {k: rec[k] for k in ("excluded", "frontier_occupancy")} if rec else None
+    # every batch the front formed, rebuilt and walked directly
+    batches: dict = {}
+    for j, r in enumerate(res):
+        if r is not None and not r.cache_hit:
+            batches.setdefault((reqs[j][2], reqs[j][3], r.batch_size, r.padded_to,
+                                r.engine_s), []).append(j)
+    differing, rows_checked = [], 0
+    for (t, precision, nb, bucket, _), js in batches.items():
+        js = sorted(js, key=lambda j: res[j].trace_id)
+        if len(js) != nb:
+            differing.append(("batch", t, precision, nb, len(js)))
+            continue
+        qs = queries32[[reqs[j][0] for j in js] + [reqs[js[0]][0]] * (bucket - nb)]
+        hits, stt = forest_range_search(server.index, qs, t, server.forest_mechanism,
+                                        opts=EngineOpts(backend="cuda", precision=precision))
+        for m, j in enumerate(js):
+            r = res[j]
+            bad = [f for f, ok in (
+                ("hits", r.hits == hits[m]),
+                ("n_dists", r.n_dists == stt["per_query_dists"][m]),
+                ("n_recheck", precision == "fp32"
+                 or r.n_recheck == stt["per_query_recheck"][m])) if not ok]
+            if bad:
+                differing.append((j, t, precision, bad))
+        rows_checked += len(js)
+    row["checks"] = dict(rows=rows_checked, batches=len(batches), differing=len(differing),
+                         first=differing[:10])
+    row["knn_refused"] = knn_refused
+    row["request_failures"] = errors[:10]
+    row["launches"] = {k: v for k, v in counts.items() if v}
+    log("serving forest " + json.dumps(row))
+    record["serving forest"] = row
+    missing = [k for k in ("masked_pairwise_l2", "masked_pairwise_l2_bf16")
+               if counts.get(k, 0) <= 0]
+    if errors or differing or missing or not knn_refused or st["errors"]:
+        failures.append(f"serving forest: failed requests {errors[:3]}, differences "
+                        f"{differing[:5]}, kernels not launched {missing}, kNN refused "
+                        f"{knn_refused}, driver errors {st['errors']}")
+    return counts
+
+
+def plain_l2(torch, np, dev, cfg) -> dict:
+    """The plain ``"torch"`` backend's l2 range search on the card: all
+    queries at the three calibrated thresholds, in batches of BATCH."""
+    from repro_torch.configs.supermetric import build_index
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.data.metricsets import calibrate_threshold
+
+    corpus, queries = load(np, cfg)
+    index = build_index(cfg, corpus, device=dev)
+    ts = [calibrate_threshold("l2", corpus, s) for s in cfg.selectivities]
+    run_queries(flat_index, EngineOpts, index, queries[:BATCH], ts[0], "torch")  # warm-up
+    out = {}
+    for t in ts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hits, _ = run_queries(flat_index, EngineOpts, index, queries, t, "torch")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[str(t)] = dict(seconds=secs, queries_per_s=len(queries) / secs,
+                           ms_per_batch=secs * 1e3 / -(-len(queries) // BATCH),
+                           hits=sum(len(h) for h in hits))
+        log(f"plain l2 t={t} " + json.dumps(out[str(t)]))
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1903,8 +2501,16 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     kernels, record, paths, bf16_paths, knns, serving_counts = {}, {}, {}, {}, {}, {}
+    forest, forest_counts = {}, {}
     dev = torch.device("cuda")
     data = {}
+    if "--plain-l2" in sys.argv[1:]:
+        # the plain "torch" backend's l2 range search alone (all queries,
+        # the three thresholds), e.g. beside another checkout's (copy this
+        # script there)
+        record["plain l2"] = plain_l2(torch, np, dev, SISAP_COLORS)
+        log(json.dumps(record))
+        return 0
     if "--tiles-only" in sys.argv[1:]:
         # the tile kernels alone, e.g. beside another checkout's (copy this
         # script and core/precision.py there): the planar kernel at the
@@ -1944,6 +2550,15 @@ def main() -> int:
         knn_path(torch, np, failures, record, dev, *data["colors"], "cosine", SISAP_COLORS,
                  n_queries=BATCH)
 
+    def forest_phase(counts: dict) -> None:
+        for k, v in counts.items():
+            forest_counts[k] = forest_counts.get(k, 0) + v
+
+    def forest_l2_phase():
+        forest["l2"] = forest_l2(torch, np, failures, record, dev, *data["colors"],
+                                 SISAP_COLORS, paths["l2"]["ts"], record["l2"])
+        forest_phase(forest["l2"]["counts"])
+
     phases = (
         ("kernels", lambda: kernels.update(check_kernels(torch, np, failures, dev))),
         ("prob small distances", lambda: record.update(
@@ -1974,6 +2589,17 @@ def main() -> int:
         ("serving jsd", lambda: serving_counts.update(jsd=serving(
             torch, np, failures, record, *data["colors"], "jsd", SISAP_COLORS,
             paths["jsd"]["ts"], n_requests=4 * BATCH, mutate=False))),
+        ("forest l2", forest_l2_phase),
+        ("forest bf16", lambda: forest_phase(forest_bf16(
+            torch, np, failures, record, data["colors"][1], SISAP_COLORS, forest["l2"]))),
+        ("forest monotone", lambda: forest_phase(forest_monotone(
+            torch, np, failures, record, dev, *data["colors"], SISAP_COLORS,
+            paths["l2"]["ts"][-1]))),
+        ("forest jsd", lambda: forest_phase(forest_jsd(
+            torch, np, failures, record, dev, *data["colors"], SISAP_COLORS,
+            paths["jsd"]["ts"][-1]))),
+        ("serving forest", lambda: forest_phase(serving_forest(
+            torch, np, failures, record, *data["colors"], paths["l2"]["ts"]))),
     )
     for phase, fn in phases:
         t0 = time.perf_counter()
@@ -1990,6 +2616,9 @@ def main() -> int:
         on_path = bf16_paths if entry.endswith("_bf16") else paths
         rec["launches"] = int(on_path.get(metric, {}).get("counts", {}).get(entry, 0))
         rec["serving_launches"] = int(serving_counts.get(metric, {}).get(entry, 0))
+        rec["forest_launches"] = int(forest_counts.get(entry, 0))
+        if entry in FOREST_PATH and rec["forest_launches"] <= 0:
+            failures.append(f"kernel {name} was not launched by the forest")
         if entry in OFF_PATH:
             rec["on_main_path"] = False
         elif rec["launches"] <= 0:

@@ -4,7 +4,8 @@ package ``repro``, which stays the reference.
 Layout mirrors ``repro`` module for module so each counterpart is easy to
 find: ``core`` (metrics, projection, the BSS index), ``kernels`` (the
 hand-written Hopper kernels under ``csrc/`` and their plain PyTorch
-versions), ``data``, ``configs`` and ``obs``.  Nothing here imports ``jax``
+versions), ``forest`` (the partition trees' batched walks), ``index``,
+``serve``, ``data``, ``configs`` and ``obs``.  Nothing here imports ``jax``
 or any ``repro.*`` module; framework-neutral numpy modules are carried over
 as copies.
 

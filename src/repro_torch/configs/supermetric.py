@@ -11,7 +11,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core import flat_index
+from repro_torch.core import flat_index, lrt, tree
 from repro_torch.data import metricsets
 
 
@@ -65,16 +65,21 @@ def load_corpus(cfg: SearchConfig, seed: int = 0):
 
 def build_index(cfg: SearchConfig, corpus: np.ndarray, engine: str = "bss",
                 seed: int = 0, *, device=None):
-    """engine: 'bss' (device defaults to the CUDA device, as in
-    ``build_bss``); the reference's 'tree' and 'lrt' are not ported yet."""
+    """engine: 'bss' (a ``BSSIndex`` on ``device``, which defaults to the
+    CUDA device, as in ``build_bss``) | 'tree' (paper §4) | 'lrt' (paper
+    §5).  The trees are host builds (``device`` is not used): encode them
+    for a device with ``repro_torch.forest.encode_tree`` /
+    ``encode_monotone``."""
     if engine == "bss":
         return flat_index.build_bss(
             cfg.metric, corpus, n_pivots=cfg.n_pivots, n_pairs=cfg.n_pairs,
             block=cfg.block, seed=seed, device=device,
         )
-    if engine in ("tree", "lrt"):
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet: ROADMAP Queue 1 item 4 "
-            f"(forest, tree and LRT builds)"
+    if engine == "tree":
+        return tree.build_tree(cfg.tree_variant, cfg.metric, corpus, seed=seed)
+    if engine == "lrt":
+        return lrt.build_monotone_tree(
+            cfg.lrt_partition, cfg.lrt_select, cfg.metric, corpus,
+            seed=seed, split_quantile=cfg.split_quantile,
         )
     raise ValueError(engine)

@@ -15,6 +15,10 @@ either enabled.
 
 The broadcast metrics (jsd, triangular, l1, linf) evaluate ``y`` in column
 chunks whose (n, chunk, K) transient stays within ``PAIRWISE_CHUNK_BYTES``.
+So does the inner product of l2 and cosine (``row_dot``): each element is
+its own sum over K, so a row's distances have the same bits in a batch of
+any size.  A BLAS matmul would not promise that: its blocking follows the
+batch's row count.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ __all__ = [
     "power_transform",
     "PAIRWISE_CHUNK_BYTES",
     "pair_chunk_cols",
+    "row_dot",
 ]
 
 _EPS = 1e-12
@@ -115,7 +120,7 @@ def _l2_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     x = x.float()
     y = y.float()
     check_ieee_fp32(x)
-    sq = _sq_norms(x)[:, None] + _sq_norms(y)[None, :] - 2.0 * (x @ y.T)
+    sq = _sq_norms(x)[:, None] + _sq_norms(y)[None, :] - 2.0 * row_dot(x, y)
     return torch.sqrt(torch.clamp_min(sq, 0.0))
 
 
@@ -127,7 +132,7 @@ def _cosine_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     check_ieee_fp32(x)
     xn = x / torch.clamp_min(torch.linalg.norm(x, dim=-1, keepdim=True), _EPS)
     yn = y / torch.clamp_min(torch.linalg.norm(y, dim=-1, keepdim=True), _EPS)
-    cos = torch.clamp(xn @ yn.T, -1.0, 1.0)
+    cos = torch.clamp(row_dot(xn, yn), -1.0, 1.0)
     return torch.sqrt(torch.clamp_min(2.0 - 2.0 * cos, 0.0))
 
 
@@ -167,6 +172,16 @@ def _broadcast_pairwise(
     for s in range(0, m, cols):
         out[:, s:s + cols] = body(x, y[None, s:s + cols, :])
     return out
+
+
+def _dot_body(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.sum(x * y, dim=-1)
+
+
+def row_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(n, K), (m, K) -> (n, m) float32 inner products, each summed over K
+    by itself (no matmul), so its bits do not depend on n or m."""
+    return _broadcast_pairwise(_dot_body, x, y)
 
 
 def _jsd_body(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

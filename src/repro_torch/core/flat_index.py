@@ -61,7 +61,7 @@ from repro_torch.core.backends import (
     resolve_engine_opts,
     tile_survival,
 )
-from repro_torch.core.distances import Metric, check_ieee_fp32, get_metric
+from repro_torch.core.distances import Metric, check_ieee_fp32, get_metric, row_dot
 from repro_torch.core.npdist import pairwise_np
 from repro_torch.core.precision import bf16_margin, bf16_round_np
 from repro_torch.core.refpoints import select_fft
@@ -689,7 +689,7 @@ def _dense_hit_mask(
     if metric_name == "l2":
         qf, df = queries.float(), data.float()
         check_ieee_fp32(qf)
-        s = -2.0 * (qf @ df.T) + torch.sum(df * df, dim=-1)[None, :]
+        s = -2.0 * row_dot(qf, df) + torch.sum(df * df, dim=-1)[None, :]
         thresh = torch.where(t >= 0, t * t - torch.sum(qf * qf, dim=-1), -torch.inf)
         raw_hit = s <= thresh[:, None]
     else:

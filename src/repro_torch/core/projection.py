@@ -15,6 +15,12 @@ device — the query side).  Both branches run ONE body with the reference's
 op order, so the bounds the build stores and the bounds the queries compute
 cannot drift apart.  Degenerate planes (delta below ``DEGENERATE_DELTA``)
 project to the ring (0, d1) on both sides.
+
+``rotate`` is the LRT's rigid transform of the plane; ``rotate_cs`` takes
+cos(theta) and sin(theta) instead of theta, so a caller that computes them
+once on the host (the encoded monotone forest does) gives every device the
+same bits: a device's own ``cosf`` / ``sinf`` may differ from another's by
+an ulp.
 """
 
 from __future__ import annotations
@@ -24,13 +30,22 @@ import torch
 
 from repro_torch.core.constants import DEGENERATE_DELTA, MIN_DELTA
 
-__all__ = ["project", "project_x", "point_to_interval", "point_to_box"]
+__all__ = [
+    "project",
+    "project_x",
+    "rotate",
+    "rotate_cs",
+    "planar_lower_bound",
+    "point_to_interval",
+    "point_to_box",
+]
 
 
 class _TorchOps:
-    """The three numpy functions the geometry uses, on torch tensors.
-    ``maximum`` with a Python scalar is ``clamp_min`` (torch.maximum takes
-    tensors only); the value is the same for every non-NaN input."""
+    """The numpy functions the geometry (here and in ``core/exclusion.py``)
+    uses, on torch tensors.  ``maximum`` with a Python scalar is
+    ``clamp_min`` (torch.maximum takes tensors only); both keep a NaN, as
+    ``np.maximum`` does, so a NaN operand still compares False."""
 
     @staticmethod
     def maximum(a, b):
@@ -38,8 +53,15 @@ class _TorchOps:
             return torch.maximum(a, b)
         return torch.clamp_min(a, b)
 
+    @staticmethod
+    def any(a, axis=None):
+        return torch.any(a) if axis is None else torch.any(a, dim=axis)
+
     where = staticmethod(torch.where)
     sqrt = staticmethod(torch.sqrt)
+    abs = staticmethod(torch.abs)
+    cos = staticmethod(torch.cos)
+    sin = staticmethod(torch.sin)
 
 
 def _ops(xp):
@@ -81,6 +103,36 @@ def project_x(d1, d2, delta, *, xp=torch):
     return xp.where(
         raw < DEGENERATE_DELTA, 0.0, (d1 * d1 - d2 * d2) / (2.0 * delta)
     )
+
+
+def rotate(x, y, theta, h, *, xp=torch):
+    """The LRT transform of the plane around the X-intercept ``(h, 0)``
+    (paper Eq. 2-3), a rigid motion, so planar lower bounds survive it:
+
+        r_x = (x - h) cos(theta) + y sin(theta)
+        r_y = -(x - h) sin(theta) + y cos(theta)
+    """
+    x, y, theta, h = _coerce(xp, x, y, theta, h)
+    ops = _ops(xp)
+    return _rotate(x, y, ops.cos(theta), ops.sin(theta), h)
+
+
+def rotate_cs(x, y, cos_theta, sin_theta, h, *, xp=torch):
+    """``rotate`` with cos(theta) and sin(theta) given by the caller."""
+    x, y, c, s, h = _coerce(xp, x, y, cos_theta, sin_theta, h)
+    _ops(xp)
+    return _rotate(x, y, c, s, h)
+
+
+def _rotate(x, y, c, s, h):
+    xs = x - h
+    return xs * c + y * s, -xs * s + y * c
+
+
+def planar_lower_bound(x1, y1, x2, y2, *, xp=torch):
+    """l2 distance in the plane: a lower bound on the true distance
+    (supermetric)."""
+    return _ops(xp).sqrt((x1 - x2) ** 2 + (y1 - y2) ** 2)
 
 
 def point_to_interval(v, lo, hi, *, xp=torch):

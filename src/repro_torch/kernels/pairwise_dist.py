@@ -49,6 +49,7 @@ __all__ = [
     "masked_pairwise_kernel_call",
     "KERNEL_METRICS",
     "LAUNCHES",
+    "kernel_source",
 ]
 
 DEFAULT_BM = TILE_BQ
@@ -147,6 +148,12 @@ def _tile(metric_name: str) -> _Tile:
             f"pairwise)"
         )
     return tile
+
+
+def kernel_source(metric_name: str) -> str:
+    """The ``csrc/<source>.cu`` (and ``_build`` library) of a metric's
+    tile."""
+    return _tile(metric_name).source
 
 
 def _pairwise(metric_name: str, x: torch.Tensor, y: torch.Tensor,

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.constants import DEGENERATE_DELTA, MIN_DELTA
-from repro_torch.core.distances import check_ieee_fp32, jsd, triangular
+from repro_torch.core.distances import check_ieee_fp32, jsd, row_dot, triangular
 
 __all__ = [
     "pairwise_l2_ref",
@@ -37,7 +37,7 @@ def pairwise_l2_ref(x: torch.Tensor, y: torch.Tensor, squared: bool = False) -> 
     sq = (
         torch.sum(x * x, dim=1)[:, None]
         + torch.sum(y * y, dim=1)[None, :]
-        - 2.0 * (x @ y.T)
+        - 2.0 * row_dot(x, y)
     )
     sq = torch.clamp_min(sq, 0.0)
     return sq if squared else torch.sqrt(sq)

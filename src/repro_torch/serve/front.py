@@ -1,10 +1,11 @@
 """Async serving front of the port: deadline micro-batching and
 shape-bucketed dispatch over the PyTorch/CUDA engines — the port of
-``repro.serve.front`` for a :class:`~repro_torch.core.flat_index.BSSIndex`.
+``repro.serve.front``.
 
-The engines (``bss_query_batched`` / ``bss_knn_batched``) only earn their
-keep on BATCHES; a stream of single queries each paying a full engine call
-wastes them.  This front assembles those batches from live traffic:
+The engines (``bss_query_batched`` / ``bss_knn_batched`` / the forest
+walkers) only earn their keep on BATCHES; a stream of single queries each
+paying a full engine call wastes them.  This front assembles those
+batches from live traffic:
 
 * ``submit(query, kind="range"|"knn", ...)`` admits one request and
   returns a ``concurrent.futures.Future`` immediately (driver-threaded —
@@ -28,14 +29,15 @@ every future of its batch: nothing falls back to the CPU or to a plain
 version.
 
 Exactness is inherited, not re-proven: the front never post-processes
-engine output beyond row demuxing.  Range batches mix PER-REQUEST
+engine output beyond row demuxing.  BSS range batches mix PER-REQUEST
 thresholds through the engine's per-query radii; padding rows ride with
 radius -1, which the planar bound (>= 0) can never meet — padded rows
-survive no block, evaluate no distance and hit nothing.  kNN batches group
-on their scalar engine parameters (k / r0 / max_rounds), and their padding
-rows duplicate the batch's first query — per-query rows of the engine are
-independent, so real rows are untouched and the duplicate's cost is
-bounded by the bucket rounding (reported as ``padding_waste``).
+survive no block, evaluate no distance and hit nothing.  kNN and forest
+range batches group on their scalar engine parameters (k / r0 /
+max_rounds; the walker's single t), and their padding rows duplicate the
+batch's first query — per-query rows of those engines are independent, so
+real rows are untouched and the duplicate's cost is bounded by the bucket
+rounding (reported as ``padding_waste``).
 
 Admission is a bounded queue with a load-shed policy (block until space,
 or fail fast with ``ShedError``), plus an optional exact-hit LRU result
@@ -58,8 +60,9 @@ the cache key, and the re-check volume rides the telemetry (``bf16_rows``,
 waste, engine time, shed/cache counters.  It is total: an empty telemetry
 window yields zeros, never a raise.
 
-Living corpus: ``front.append(rows)`` / ``front.delete(ids)`` /
-``front.compact()`` build a NEW index snapshot (``repro_torch.index``) and
+Living corpus: a BSS front's ``front.append(rows)`` /
+``front.delete(ids)`` / ``front.compact()`` build a NEW index snapshot
+(``repro_torch.index``) and
 swap ``self.index`` between micro-batches — ``_dispatch`` captures the
 index reference once per batch, so queries in flight finish on the old
 snapshot.  Every mutation bumps the index ``generation``, which is a typed
@@ -73,8 +76,9 @@ a ``torch.profiler`` trace (CPU and, on the card, CUDA activities) written
 there as Chrome trace JSON, with the engine call inside a
 ``record_function`` named after the dispatch.
 
-The forest walker is not ported yet (ROADMAP Queue 1 item 4): the front
-takes a ``BSSIndex`` only.
+An encoded forest (``repro_torch.forest``) serves range requests only:
+kNN on a forest raises ``FOREST_KNN_ERROR`` at ``submit`` and the forest
+is immutable, so mutations raise.
 """
 
 from __future__ import annotations
@@ -97,8 +101,16 @@ from repro_torch.core.backends import (
     bucket_for,
     resolve_engine_opts,
 )
+from repro_torch.core.exclusion import HILBERT
+from repro_torch.forest import (
+    EncodedForest,
+    EncodedMonotone,
+    forest_range_search,
+    monotone_range_search,
+)
 from repro_torch.index import maintain as index_maintain
 from repro_torch.kernels import _build
+from repro_torch.kernels.pairwise_dist import KERNEL_METRICS, kernel_source
 from repro_torch.obs.fold import (
     fold_engine_stats,
     fold_mutation,
@@ -121,7 +133,7 @@ from repro_torch.serve.queue import (
     nearest_rank,
     now,
 )
-from repro_torch.serve.retrieval import FOREST_NOT_PORTED
+from repro_torch.serve.retrieval import FOREST_IMMUTABLE, FOREST_KNN_ERROR
 
 __all__ = ["ServingFront", "ServeResult", "ShedError"]
 
@@ -224,13 +236,17 @@ class _LRU:
 
 
 class ServingFront:
-    """Deadline-based micro-batching front over a built
-    :class:`~repro_torch.core.flat_index.BSSIndex` (range + kNN).
+    """Deadline-based micro-batching front over a built index.
+
+    ``index`` is a :class:`~repro_torch.core.flat_index.BSSIndex` (range +
+    kNN) or an encoded forest (range only, walked under ``mechanism``;
+    kNN on trees is ROADMAP work, as on
+    :class:`~repro_torch.serve.retrieval.RetrievalServer`).
 
     ``prep`` optionally maps raw query batches into the index's engine
-    space; the BSS engines do their own prep, so fronts normally leave it
-    None and feed the engines exactly what a direct call would —
-    bit-identity preserved.
+    space (a cosine forest's unit-sphere normalisation); the BSS engines
+    do their own prep, so BSS fronts leave it None and feed the engines
+    exactly what a direct call would — bit-identity preserved.
 
     Without ``opts`` the front pins the ``"torch"`` backend's exact phase
     to the dense realisation, as the reference's front pins its jnp
@@ -253,13 +269,17 @@ class ServingFront:
         start: bool = True,
         metrics: bool = True,
         profile_dir: str | None = None,
+        mechanism: str = HILBERT,
     ):
-        if not isinstance(index, flat_index.BSSIndex):
+        if isinstance(index, flat_index.BSSIndex):
+            self._engine = "bss"
+        elif isinstance(index, (EncodedForest, EncodedMonotone)):
+            self._engine = "forest"
+        else:
             raise TypeError(
-                f"index must be a BSSIndex, got {type(index).__name__} "
-                f"({FOREST_NOT_PORTED})"
+                f"index must be a BSSIndex or an encoded forest, got "
+                f"{type(index).__name__}"
             )
-        self._engine = "bss"
         if not buckets or list(buckets) != sorted(set(int(b) for b in buckets)):
             raise ValueError(
                 f"buckets must be a strictly ascending ladder, got {buckets!r}"
@@ -276,6 +296,7 @@ class ServingFront:
         # "adaptive" (see class doc)
         self.opts = (EngineOpts(realisation="dense") if opts is None
                      else resolve_engine_opts(opts))
+        self.mechanism = mechanism
         self.prep = prep
         self._queue = BoundedRequestQueue(max_queue)
         self._cache = _LRU(cache_size) if cache_size > 0 else None
@@ -302,10 +323,17 @@ class ServingFront:
         self._compile_last: dict[str, int] = {}
         self._profiles = itertools.count()
         # the counterpart of the reference's jit caches: how many times each
-        # CUDA source's library was built or loaded in this process
+        # CUDA source the engine launches was built or loaded in this
+        # process (the forest walk launches only its metric's tile)
+        if self._engine == "bss":
+            sources = _build.SOURCES
+        elif index.metric in KERNEL_METRICS:
+            sources = (kernel_source(index.metric),)
+        else:
+            sources = ()
         self._compile_watch = {
             name: functools.partial(_build.load_count, name)
-            for name in _build.SOURCES
+            for name in sources
         }
         if self.metrics_enabled:
             # the bucket-ladder recompile contract, visible at runtime:
@@ -313,14 +341,15 @@ class ServingFront:
             self._metrics.gauge("compile/ladder_buckets").set(
                 len(self.buckets)
             )
-            # the living-corpus gauges exist from birth (a fresh front
-            # reports its snapshot, not an absent series)
-            self._metrics.gauge("index/generation").set(
-                int(index.generation)
-            )
-            self._metrics.gauge("index/tombstone_frac").set(
-                float(index.tombstone_frac)
-            )
+            if self._engine == "bss":
+                # the living-corpus gauges exist from birth (a fresh front
+                # reports its snapshot, not an absent series)
+                self._metrics.gauge("index/generation").set(
+                    int(index.generation)
+                )
+                self._metrics.gauge("index/tombstone_frac").set(
+                    float(index.tombstone_frac)
+                )
         self._thread: threading.Thread | None = None
         if start:
             self.start()
@@ -409,8 +438,14 @@ class ServingFront:
                     f"t must be >= 0 (negative radii are the engine's "
                     f"padding sentinel), got {t}"
                 )
-            group = ("range", precision)
+            group = (
+                ("range", t, precision)
+                if self._engine == "forest"
+                else ("range", precision)
+            )
         elif kind == "knn":
+            if self._engine == "forest":
+                raise NotImplementedError(FOREST_KNN_ERROR)
             if k is None or int(k) <= 0:
                 raise ValueError(f"knn requests need a positive k, got {k}")
             k = int(k)
@@ -589,12 +624,21 @@ class ServingFront:
             f"gen={generation} t_dispatch={t_wait:.6f}"
         )
         with self._profiler(index.torch_device), self._annotate(ann):
-            if head.kind == "range":
+            if head.kind == "range" and self._engine == "bss":
                 t_vec = np.array(
                     [r.t for r in group] + [-1.0] * pad, np.float32
                 )
                 hits, stats = flat_index.bss_query_batched(
                     index, qs, t_vec, opts=eng_opts,
+                )
+            elif head.kind == "range":  # forest: the scalar-t walker
+                search = (
+                    monotone_range_search
+                    if isinstance(index, EncodedMonotone)
+                    else forest_range_search
+                )
+                hits, stats = search(
+                    index, qs, head.t, self.mechanism, opts=eng_opts,
                 )
             else:  # knn
                 _, k, r0, max_rounds, _ = head.group
@@ -692,6 +736,12 @@ class ServingFront:
                     "excluded": {m: int(v[i]) for m, v in excluded.items()},
                     "spans": durs,
                 }
+                if "frontier_occupancy" in stats:
+                    # the forest walk's nodes alive per level over the
+                    # whole batch (padding rows included) — batch-level
+                    rec["frontier_occupancy"] = np.asarray(
+                        stats["frontier_occupancy"], np.int64
+                    ).tolist()
                 if "shard_dists" in stats:
                     # the sharded engine's per-shard split of the batch's
                     # exact-phase work — batch-level, same for every row
@@ -742,8 +792,11 @@ class ServingFront:
         dispatches wholly on the old snapshot or wholly on the new one.
         ``_mutate_lock`` only serialises concurrent MUTATORS (so two
         appends compose instead of one clobbering the other); it is never
-        held by the query path.
+        held by the query path.  An encoded forest is immutable: its front
+        raises.
         """
+        if self._engine != "bss":
+            raise NotImplementedError(FOREST_IMMUTABLE)
         t0 = now()
         with self._mutate_lock:
             new_index, mstats = fn(self.index)
@@ -829,8 +882,10 @@ class ServingFront:
     def explain(self, trace_id: str | None = None) -> dict | None:
         """The per-request explain record for ``trace_id`` (most recent
         request when None): span durations, batch shape, this row's
-        distance charge, per-mechanism exclusion attribution and — on the
-        sharded engine — the batch's per-shard work split.
+        distance charge, per-mechanism exclusion attribution (the forest's
+        cover / hyperplane / centre, BSS's hilbert) and, batch-level, the
+        forest walk's frontier occupancy or the sharded engine's per-shard
+        work split.
 
         Records live in a bounded ring of the last 256 dispatched
         requests.  Asking for a specific ``trace_id`` that is not in the

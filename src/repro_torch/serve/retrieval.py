@@ -23,9 +23,20 @@ registry is served exactly:
 
 The server runs on the CUDA device unless the caller passes ``device=``
 (``"cpu"`` runs the plain ``"torch"`` backend); ``device=None`` raises
-where there is no card.  ``index="forest"`` and ``mesh=`` raise: the
-forest walker and the sharded engine are not ported yet (ROADMAP Queue 1
-items 4 and 6).
+where there is no card.  ``mesh=`` raises: the sharded engine is not
+ported yet (ROADMAP Queue 1 item 6).
+
+Index backends
+--------------
+``index="bss"`` (default) serves through the Blocked Supermetric Scan;
+``index="forest"`` builds one of the paper's partition trees
+(``forest_variant``, default the paper's best ``hpt_fft_log``), encodes it
+for the server's device with ``repro_torch.forest`` and serves range
+queries through the batched tree walk (``forest_mechanism``, default
+Hilbert) — the same exactness contract, tree-shaped pruning.  kNN serving
+stays a BSS capability, so ``top_k`` and ``search(kind="knn")`` on a
+forest server raise ``FOREST_KNN_ERROR``, and the encoded forest is
+immutable: mutations raise.
 
 Unified search API
 ------------------
@@ -54,19 +65,21 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core import flat_index
+from repro_torch.core import flat_index, tree
 from repro_torch.core.backends import EngineOpts, resolve_engine_opts
+from repro_torch.core.exclusion import HILBERT
 from repro_torch.core.npdist import pairwise_np
+from repro_torch.forest import encode_tree, forest_range_search
 from repro_torch.index import maintain as index_maintain
 from repro_torch.obs.fold import fold_engine_stats, fold_mutation
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.serve.queue import now
 
 __all__ = ["RetrievalServer", "SearchResult", "ServeStats", "score_to_distance",
-           "distance_to_score", "FOREST_KNN_ERROR", "FOREST_NOT_PORTED"]
+           "distance_to_score", "FOREST_KNN_ERROR", "FOREST_IMMUTABLE"]
 
-# The reference's message for kNN on a forest server, kept so that callers
-# match on the same words once the forest is ported.
+# The one message every forest-kNN refusal raises (RetrievalServer and the
+# async front alike), the reference's words.
 FOREST_KNN_ERROR = (
     "top_k serving runs on the BSS engine — rebuild with index='bss'; the "
     "forest walker is a range engine, and its radius-deepening kNN "
@@ -74,10 +87,11 @@ FOREST_KNN_ERROR = (
     "item"
 )
 
-# What every forest request of the port raises (server and front alike).
-FOREST_NOT_PORTED = (
-    "index='forest' is not ported yet: the forest walker is ROADMAP Queue 1 "
-    "item 4; serve with index='bss'"
+# What a mutation of a forest server raises (the reference's words).
+FOREST_IMMUTABLE = (
+    "living-corpus mutations run on the BSS engine; the encoded forest is "
+    "immutable — rebuild the server (incremental tree maintenance is "
+    "ROADMAP work)"
 )
 
 
@@ -122,20 +136,19 @@ class ServeStats:
 
 
 class RetrievalServer:
-    """Batched exact retrieval over an embedded corpus (BSS engine on the
-    index's device), parametrised by any four-point metric in the
-    registry."""
+    """Batched exact retrieval over an embedded corpus (the BSS engine or the
+    forest walk on the index's device), parametrised by any four-point
+    metric in the registry."""
 
     def __init__(self, corpus_embeddings: np.ndarray, *, metric: str = "cosine",
                  n_pivots: int = 16, n_pairs: int = 24, block: int = 128,
                  seed: int = 0, opts: EngineOpts | None = None,
-                 index: str = "bss", mesh=None,
+                 index: str = "bss", forest_variant: str = "hpt_fft_log",
+                 forest_mechanism: str = HILBERT, mesh=None,
                  device=None):
         """``device`` is where the index lives (``None``: the CUDA device,
         raising without one; ``"cpu"`` for the plain backend)."""
-        if index == "forest":
-            raise NotImplementedError(FOREST_NOT_PORTED)
-        if index != "bss":
+        if index not in ("bss", "forest"):
             raise ValueError(f"index must be bss|forest, got {index!r}")
         if mesh is not None:
             raise NotImplementedError(
@@ -154,10 +167,21 @@ class RetrievalServer:
         # brute-force oracle stays aligned with the served index
         self._live = np.ones(len(corpus), dtype=bool)
         self.opts = EngineOpts() if opts is None else resolve_engine_opts(opts)
-        self.index = flat_index.build_bss(
-            metric, corpus, n_pivots=n_pivots, n_pairs=n_pairs, block=block,
-            seed=seed, device=device,
-        )
+        self.index_kind = index
+        if index == "forest":
+            # cosine rides the l2 geometry on the normalised corpus, as in
+            # the BSS engine; other metrics build natively
+            self.forest_mechanism = forest_mechanism
+            self.tree = tree.build_tree(
+                forest_variant, flat_index._engine_metric(metric), corpus,
+                seed=seed,
+            )
+            self.index = encode_tree(self.tree, device=device)
+        else:
+            self.index = flat_index.build_bss(
+                metric, corpus, n_pivots=n_pivots, n_pairs=n_pairs,
+                block=block, seed=seed, device=device,
+            )
         self.stats = ServeStats()
         # engine-call metrics (same registry/fold machinery as the async
         # front); synchronous serving folds once per batched call
@@ -195,14 +219,25 @@ class RetrievalServer:
         it was served on — after a mutation, results from the old snapshot
         are distinguishable by that field alone."""
         eng = self.opts if opts is None else resolve_engine_opts(opts)
-        q = self._prep(queries)
+        # the BSS engines map cosine queries onto the unit sphere themselves
+        # (mapping them here too would round them twice, and a front, which
+        # feeds the engines raw rows, would differ from this call); the
+        # forest walks a tree built on the normalised corpus, so its
+        # queries are mapped here
+        q = (self._prep(queries) if self.index_kind == "forest"
+             else np.asarray(queries, np.float32))
         if kind == "range":
             if t is None:
                 raise ValueError("range search needs t= (a metric distance)")
             t0 = now()
-            hits, s = flat_index.bss_query_batched(
-                self.index, q, float(t), opts=eng,
-            )
+            if self.index_kind == "forest":
+                hits, s = forest_range_search(
+                    self.index, q, float(t), self.forest_mechanism, opts=eng,
+                )
+            else:
+                hits, s = flat_index.bss_query_batched(
+                    self.index, q, float(t), opts=eng,
+                )
             self._account(len(q), s, t0)
             return SearchResult(
                 kind="range", hits=hits, stats=s,
@@ -211,6 +246,8 @@ class RetrievalServer:
         if kind == "knn":
             if k is None or int(k) <= 0:
                 raise ValueError(f"knn search needs a positive k, got {k}")
+            if self.index_kind == "forest":
+                raise NotImplementedError(FOREST_KNN_ERROR)
             t0 = now()
             idx, dists, s = flat_index.bss_knn_batched(
                 self.index, q, int(k), r0=r0, max_rounds=max_rounds,
@@ -240,7 +277,8 @@ class RetrievalServer:
         return self.range_by_distance(user_embeddings, t)
 
     def range_by_distance(self, user_embeddings: np.ndarray, t: float):
-        """All items within metric distance t — exact, one fused pass.
+        """All items within metric distance t — exact, one batched pass
+        (the BSS masked scan or the forest walk, per ``index=``).
 
         Compatibility delegate: prefer ``search(q, "range", t=t)``, which
         also returns the engine stats and index generation."""
@@ -265,6 +303,8 @@ class RetrievalServer:
     # ------------------------------------------------------------ mutations
 
     def _mutate(self, fn):
+        if self.index_kind != "bss":
+            raise NotImplementedError(FOREST_IMMUTABLE)
         t0 = now()
         new_index, mstats = fn(self.index)
         self.index = new_index
@@ -338,6 +378,12 @@ class RetrievalServer:
         after this call don't reach an already-built front)."""
         from repro_torch.serve.front import ServingFront
 
+        if self.index_kind == "forest":
+            kw.setdefault("mechanism", self.forest_mechanism)
+            if self.metric == "cosine":
+                # the tree was built on the normalised corpus under the l2
+                # engine metric, so raw queries need the same mapping
+                kw.setdefault("prep", self._prep)
         if "opts" not in kw:
             # inherit the server's engine knobs, but let the front keep its
             # own "dense" realisation default (bucket-ladder contract);

@@ -25,15 +25,20 @@ import threading
 import numpy as np
 import pytest
 
+from repro import forest as jax_forest
 from repro.core import flat_index as jax_flat_index
+from repro.core import lrt as jax_lrt
+from repro.core import tree as jax_tree
 from repro.serve.front import ServingFront as JaxFront
 from repro.serve.front import _cache_key as jax_cache_key
-from repro_torch.core import flat_index
+from repro_torch import forest
+from repro_torch.core import flat_index, lrt, tree
 from repro_torch.core.backends import EngineOpts, bucket_for
 from repro_torch.core.npdist import pairwise_np
 from repro_torch.kernels import _build
 from repro_torch.serve import front as front_mod
 from repro_torch.serve.front import ServingFront, ShedError, _cache_key
+from repro_torch.serve.retrieval import FOREST_IMMUTABLE, FOREST_KNN_ERROR
 
 DIM = 16
 DENSE = EngineOpts(realisation="dense")
@@ -317,7 +322,7 @@ def test_validation_and_lifecycle():
     front.close()  # idempotent
     with pytest.raises(ShedError, match="closed"):
         front.submit(q[0], "range", t=ts[0])
-    with pytest.raises(TypeError, match="BSSIndex.*Queue 1 item 4"):
+    with pytest.raises(TypeError, match="BSSIndex or an encoded forest"):
         ServingFront(object())
     with pytest.raises(ValueError, match="ladder"):
         ServingFront(idx, buckets=(8, 4), start=False)
@@ -518,3 +523,102 @@ def test_mutation_between_batches_names_its_generation():
     assert not set(range(0, 1700, 17)) & {h for r in results[2][:6] for h in r.hits}
     assert snap["gauges"]["index/generation"] == 2.0
     assert snap["counters"]["index/mutations{op=append}"] == 1.0
+
+
+# ---------------------------------------------------------------- forest
+
+
+@functools.lru_cache(maxsize=None)
+def _forest(kind: str):
+    """(port encoding, JAX encoding of the same tree, queries, thresholds)
+    over the l2 space of ``_built``."""
+    _, q, ts, db = _built("l2")
+    if kind == "tree":
+        enc = forest.encode_tree(tree.build_tree("hpt_fft_log", "l2", db, seed=5),
+                                 device="cpu")
+        jenc = jax_forest.encode_tree(jax_tree.build_tree("hpt_fft_log", "l2", db, seed=5))
+    else:
+        enc = forest.encode_monotone(
+            lrt.build_monotone_tree("lrt", "far", "l2", db, seed=5), device="cpu")
+        jenc = jax_forest.encode_monotone(
+            jax_lrt.build_monotone_tree("lrt", "far", "l2", db, seed=5))
+    return enc, jenc, q, ts
+
+
+def _forest_dispatched(reqs, buckets):
+    """The batches a forest front forms from requests queued before its
+    driver starts: range groups key on (t, precision), FIFO by head."""
+    pending = list(range(len(reqs)))
+    out = []
+    while pending:
+        take = [i for i in pending if reqs[i] == reqs[pending[0]]][:buckets[-1]]
+        out.append(take)
+        pending = [i for i in pending if i not in take]
+    return out
+
+
+@pytest.mark.parametrize("kind", ["tree", "monotone"])
+def test_forest_front_matches_direct_calls_and_jax(kind):
+    """Forest range requests at two thresholds and both precisions: every
+    row equals a direct walk on the padded batch the front formed (hits,
+    counts, attribution), and the JAX package's forest front on the same
+    stream (hits, counts)."""
+    enc, jenc, q, ts = _forest(kind)
+    buckets = (8, 32)
+    reqs = [(ts[i % 2], "bf16" if i % 5 == 0 else "fp32") for i in range(len(q))]
+    front = ServingFront(enc, buckets=buckets, max_delay_s=0.05, start=False)
+    futs = [front.submit(q[i], "range", t=t, precision=p) for i, (t, p) in enumerate(reqs)]
+    front.start()
+    res = _drain(futs)
+    recs = {r.trace_id: front.explain(r.trace_id) for r in res[-len(q):]}
+    front.close()
+    search = forest.forest_range_search if kind == "tree" else forest.monotone_range_search
+    for batch in _forest_dispatched(reqs, buckets):
+        bucket = bucket_for(len(batch), buckets)
+        qs = np.concatenate([q[batch], np.repeat(q[batch[:1]], bucket - len(batch), axis=0)])
+        t, precision = reqs[batch[0]]
+        hits, st = search(enc, qs, t, opts=EngineOpts(precision=precision))
+        for j, i in enumerate(batch):
+            assert (res[i].batch_size, res[i].padded_to) == (len(batch), bucket), i
+            assert res[i].hits == hits[j], i
+            assert res[i].n_dists == st["per_query_dists"][j], i
+            rec = recs[res[i].trace_id]
+            assert rec["engine"] == st["engine"] and rec["precision"] == precision
+            assert rec["excluded"] == {m: int(v[j]) for m, v in st["excluded"].items()}
+            assert rec["frontier_occupancy"] == st["frontier_occupancy"].tolist()
+            if precision == "bf16":
+                assert res[i].n_recheck == st["per_query_recheck"][j], i
+    with JaxFront(jenc, buckets=buckets, max_delay_s=0.05) as jfront:
+        jres = _drain([jfront.submit(q[i], "range", t=t, precision=p)
+                       for i, (t, p) in enumerate(reqs)])
+    for r, jr in zip(res, jres):
+        assert sorted(r.hits) == sorted(jr.hits) and r.n_dists == jr.n_dists
+    assert sum(len(r.hits) for r in res) > 0
+
+
+def test_forest_front_refuses_knn_and_mutations_and_watches_its_tile():
+    enc, _, q, ts = _forest("tree")
+    front = ServingFront(enc, buckets=(8,), start=False)
+    with pytest.raises(NotImplementedError) as e:
+        front.submit(q[0], "knn", k=3)
+    assert str(e.value) == FOREST_KNN_ERROR
+    for op in (lambda: front.append(q[:2]), lambda: front.delete([0]),
+               lambda: front.compact(), lambda: front.maybe_compact()):
+        with pytest.raises(NotImplementedError) as e:
+            op()
+        assert str(e.value) == FOREST_IMMUTABLE
+    fut = front.submit(q[0], "range", t=ts[2])
+    front.start()
+    assert fut.result(timeout=120).hits
+    front.close()
+    snap = front.metrics().snapshot()
+    # the l2 walk launches only the l2 tile's library
+    assert [k for k in snap["gauges"] if k.startswith("compile/cache_size")] == [
+        "compile/cache_size{fn=pairwise_dist}"]
+    assert "index/generation" not in snap["gauges"]
+    assert snap["counters"]["engine/queries{engine=forest,kind=range}"] == 1.0
+    assert any(k.startswith("engine/frontier_nodes{") for k in snap["counters"])
+    excluded = {k for k in snap["counters"] if k.startswith("engine/excluded")}
+    assert excluded and excluded <= {
+        f"engine/excluded{{engine=forest,kind=range,mechanism={m}}}"
+        for m in ("cover", "hilbert", "centre")}

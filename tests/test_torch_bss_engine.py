@@ -336,6 +336,13 @@ def test_config_corpus_and_index_match_reference():
     r_idx = r_configs.build_index(r_cfg, r_db)
     for f in ("data", "perm", "pairs", "deltas", "boxes"):
         np.testing.assert_array_equal(getattr(t_idx, f), getattr(r_idx, f), err_msg=f)
+    # the host trees of the forest engines: the reference's builds
     for engine in ("tree", "lrt"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_configs.build_index(t_cfg, t_db, engine=engine, device="cpu")
+        t_tr = t_configs.build_index(t_cfg, t_db, engine=engine, device="cpu")
+        r_tr = r_configs.build_index(r_cfg, r_db, engine=engine)
+        assert type(t_tr).__name__ == type(r_tr).__name__
+        assert (t_tr.n_nodes, t_tr.max_depth, t_tr.build_distances) == (
+            r_tr.n_nodes, r_tr.max_depth, r_tr.build_distances), engine
+        np.testing.assert_array_equal(t_tr.data, r_tr.data)
+    with pytest.raises(ValueError):
+        t_configs.build_index(t_cfg, t_db, engine="nope", device="cpu")

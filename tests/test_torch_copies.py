@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from repro.core import constants as r_constants
+from repro.core import exclusion as r_exclusion
 from repro.core import npdist as r_npdist
 from repro.core import projection as r_projection
 from repro.core import refpoints as r_refpoints
@@ -22,6 +23,7 @@ from repro.obs import schema as r_schema
 from repro.obs import trace as r_trace
 from repro.serve import queue as r_queue
 from repro_torch.core import constants as t_constants
+from repro_torch.core import exclusion as t_exclusion
 from repro_torch.core import npdist as t_npdist
 from repro_torch.core import projection as t_projection
 from repro_torch.core import refpoints as t_refpoints
@@ -38,6 +40,8 @@ COPIES = [
     "core/constants.py",
     "core/npdist.py",
     "core/refpoints.py",
+    "core/tree.py",
+    "core/lrt.py",
     "kernels/tiles.py",
     "obs/schema.py",
     "obs/buckets.py",
@@ -137,6 +141,58 @@ def test_projection_numpy_branch_bit_equal(dtype):
         t_projection.point_to_box(got[0], got[1], box, xp=np),
         r_projection.point_to_box(want[0], want[1], box, xp=np),
     )
+    theta = rng.uniform(-1.5, 1.5, size=(1, 12)).astype(dtype)
+    h = rng.normal(size=(1, 12)).astype(dtype)
+    for g, w in zip(t_projection.rotate(got[0], got[1], theta, h, xp=np),
+                    r_projection.rotate(want[0], want[1], theta, h, xp=np)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(
+        t_projection.planar_lower_bound(got[0], got[1], d1, d2, xp=np),
+        r_projection.planar_lower_bound(want[0], want[1], d1, d2, xp=np),
+    )
+
+
+@pytest.mark.parametrize("mech", ["hyperbolic", "hilbert"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_exclusion_numpy_branch_bit_equal(dtype, mech):
+    """The port's exclusion predicates with ``xp=numpy`` (the host walks'
+    branch) are the reference's bit for bit, duplicate refs (delta 0), NaN
+    centre witnesses and +inf padded slots included."""
+    rng = np.random.default_rng(17)
+    nq, nodes, k = 9, 7, 5
+    dq = np.abs(rng.normal(size=(nq, nodes, k))).astype(dtype)
+    dq[:, 2, 4] = np.inf  # a padded slot
+    ref = np.abs(rng.normal(size=(nodes, k, k))).astype(dtype)
+    ref = ref + np.swapaxes(ref, 1, 2)
+    ref[:, np.arange(k), np.arange(k)] = 0
+    ref[3, 0, 1] = ref[3, 1, 0] = 0.0  # duplicate refs
+    cover = np.abs(rng.normal(size=(1, nodes, k))).astype(dtype)
+    centre = np.abs(rng.normal(size=(nodes, k))).astype(dtype)
+    centre[1] = np.nan  # the witness disabled at build
+    dcent = np.abs(rng.normal(size=(nq, nodes))).astype(dtype)
+    dcent[0] = np.nan  # no centre in hand (the root)
+    t = dtype(0.3)
+    for fn, args in (
+        ("cover_radius_exclusion_mask", (dq, cover, t)),
+        ("hyperplane_exclusion_mask", (dq, ref, t, mech)),
+        ("centre_witness_exclusion_mask", (dq, dcent, centre, t, mech)),
+        ("hyperbolic_margin", (dq[..., 0], dq[..., 1])),
+        ("hilbert_margin", (dq[..., 0], dq[..., 1], ref[None, :, 0, 2])),
+        ("planar_margin", (dq[..., 0], dq[..., 1], centre[:, 0], cover[0, :, 0],
+                           0.6, 0.8, 0.1)),
+    ):
+        got = getattr(t_exclusion, fn)(*args, xp=np)
+        want = getattr(r_exclusion, fn)(*args, xp=np)
+        assert got.dtype == want.dtype, fn
+        np.testing.assert_array_equal(got, want, err_msg=fn)
+    part = dict(theta=0.3, h=0.2, nx=0.6, ny=0.8, split=0.05)
+    np.testing.assert_array_equal(
+        t_exclusion.PlanarPartition(**part).separation(dq[..., 0], dq[..., 1], xp=np),
+        r_exclusion.PlanarPartition(**part).separation(dq[..., 0], dq[..., 1], xp=np),
+    )
+    assert (t_exclusion.HILBERT, t_exclusion.HYPERBOLIC) == (
+        r_exclusion.HILBERT, r_exclusion.HYPERBOLIC)
 
 
 @pytest.mark.parametrize("gen,kw", [

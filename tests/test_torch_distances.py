@@ -154,3 +154,25 @@ def test_broadcast_metrics_chunk_within_budget(metric, budget_cols, monkeypatch)
     assert all(4 * math.prod(shape) <= budget for shape in seen)
     assert sum(shape[1] for shape in seen) == 150
     assert torch.equal(got, whole)
+
+
+@pytest.mark.parametrize("k", [16, 112])
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_row_bits_independent_of_the_batch(metric, k):
+    """One row's distances have the same bits in a batch of 1, 7, 40, 128 or
+    512 rows, wherever the row sits in it: the plain l2 and cosine sum each
+    inner product over K by itself (``row_dot``), where a BLAS matmul's
+    blocking would follow the batch's row count.  The plain l2 tile keeps
+    them too, and so does ``y`` taken in column chunks."""
+    x, y = _inputs(metric, 512, 300, k, seed=k)
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+    pairwise = t_dist.get_metric(metric).pairwise
+    want = pairwise(x[:1], y)[0]
+    for n in (1, 7, 40, 128, 512):
+        for pos in {0, n // 2, n - 1}:
+            batch = torch.cat([x[1:pos + 1], x[:1], x[pos + 1:n]])
+            assert torch.equal(pairwise(batch, y)[pos], want), (n, pos)
+            if metric == "l2":
+                assert torch.equal(ref.pairwise_l2_ref(batch, y)[pos], want), (n, pos)
+    chunked = torch.cat([pairwise(x[:1], y[s:s + 7]) for s in range(0, 300, 7)], dim=1)
+    assert torch.equal(chunked[0], want)

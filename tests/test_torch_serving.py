@@ -23,7 +23,8 @@ from repro.serve.retrieval import RetrievalServer as JaxServer
 from repro_torch.core.backends import EngineOpts
 from repro_torch.core.npdist import pairwise_np
 from repro_torch.serve.retrieval import (
-    FOREST_NOT_PORTED,
+    FOREST_IMMUTABLE,
+    FOREST_KNN_ERROR,
     RetrievalServer,
     ServeStats,
     distance_to_score,
@@ -153,9 +154,6 @@ def test_score_distance_duality():
 
 def test_unported_options_raise_naming_their_roadmap_items():
     x = _space("l2", 300, seed=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4") as e:
-        RetrievalServer(x, metric="l2", index="forest", device="cpu")
-    assert str(e.value) == FOREST_NOT_PORTED
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         RetrievalServer(x, metric="l2", mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="bss"):
@@ -200,9 +198,60 @@ def test_async_front_matches_sync_paths():
         assert rres[i].n_dists == jr[i].n_dists == sync.stats["per_query_dists"][i], i
         np.testing.assert_array_equal(kres[i].indices, sync_k.indices[i])
         np.testing.assert_array_equal(kres[i].indices, jk[i].indices)
-        # the front ran these rows in a 128-row bucket: on the CPU the
-        # plain l2's matmul may round them an ulp apart from the 40-row
-        # call (tests/test_torch_async_front.py holds the front to direct
-        # calls on its own batches bit for bit)
-        np.testing.assert_allclose(kres[i].distances, sync_k.distances[i], **KNN_TOL)
+        # the front ran these rows in a 128-row bucket: the plain l2 gives
+        # a row the same bits in a batch of any size
+        np.testing.assert_array_equal(kres[i].distances, sync_k.distances[i])
         np.testing.assert_allclose(kres[i].distances, jk[i].distances, **KNN_TOL)
+
+
+# ---------------------------------------------------------------- forest
+
+
+def _forest_servers(metric: str, n: int = 1600):
+    data = _space(metric, n + 40, seed=3)
+    db, q = data[:n], data[n:]
+    kw = dict(seed=5, index="forest")
+    port = RetrievalServer(db, metric=metric, device="cpu", **kw)
+    ref = JaxServer(db, metric=metric, **kw)
+    bss = RetrievalServer(db, metric=metric, device="cpu", **BUILD)
+    d = pairwise_np("l2" if metric == "cosine" else metric, port._prep(q), port.corpus)
+    return port, ref, bss, q, _snap(d, 0.03)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2", "jsd"])
+def test_forest_server_matches_jax_and_bss(metric):
+    """``index="forest"``: the JAX forest server's hits and per-query
+    counts, the BSS server's hit sets, and the server accounting."""
+    port, ref, bss, q, t = _forest_servers(metric)
+    a, b = port.search(q, "range", t=t), ref.search(q, "range", t=t)
+    assert a.hits == b.hits
+    np.testing.assert_array_equal(a.stats["per_query_dists"], b.stats["per_query_dists"])
+    assert a.stats["engine"] == "forest" and a.stats["backend"] == "torch"
+    assert [sorted(h) for h in a.hits] == [sorted(h) for h in bss.range_by_distance(q, t)]
+    assert sum(map(len, a.hits)) > 0
+    assert port.stats.n_queries == ref.stats.n_queries == len(q)
+    assert port.stats.total_dists == ref.stats.total_dists
+    assert port.range_by_distance(q, t) == a.hits
+    # the tree is built under the engine metric (cosine rides l2)
+    assert port.index.metric == ("l2" if metric == "cosine" else metric)
+    with port.async_front(max_delay_s=0.02) as front:
+        assert front.mechanism == port.forest_mechanism
+        res = [f.result(timeout=120) for f in front.submit_many(q, "range", t=t)]
+    assert [sorted(r.hits) for r in res] == [sorted(h) for h in a.hits]
+
+
+def test_forest_server_refuses_knn_and_mutations():
+    port, *_, q, t = _forest_servers("l2", n=400)
+    for call in (lambda: port.top_k(q, 3), lambda: port.search(q, "knn", k=3)):
+        with pytest.raises(NotImplementedError) as e:
+            call()
+        assert str(e.value) == FOREST_KNN_ERROR
+    for op in (lambda: port.append(q), lambda: port.delete([0]),
+               lambda: port.compact(), lambda: port.maybe_compact()):
+        with pytest.raises(NotImplementedError) as e:
+            op()
+        assert str(e.value) == FOREST_IMMUTABLE
+    assert len(port.corpus) == 400 and port.search(q, "range", t=t).hits is not None
+    with pytest.raises(ValueError, match="unknown variant"):
+        RetrievalServer(port.corpus, metric="l2", index="forest", device="cpu",
+                        forest_variant="nope")
