@@ -43,8 +43,8 @@ phase prints its seconds):
    batches at the three thresholds calibrated per metric, under l2, JSD
    and Triangular, with every launch count zeroed just before each
    metric's run and read just after.  Checked against the plain
-   ``"torch"`` backend on the same card and the numpy oracle on 64
-   queries: a hit that differs must lie within 1e-5 * max(1, t) of t in
+   ``"torch"`` backend on the same card (all queries under l2, the first
+   2,048 under JSD and Triangular) and the numpy oracle on 16 queries: a hit that differs must lie within 1e-5 * max(1, t) of t in
    float64, an ``alive`` cell that differs must have its bound within 1e-5
    of t.  For JSD and Triangular, the largest |d_cuda - d_float64| over
    the first batch's cells within ``band_eps`` of each threshold is printed
@@ -52,8 +52,9 @@ phase prints its seconds):
    margin's arithmetic term: a cell over budget fails the run, and so does
    twice the budget over the arithmetic term.  One l2 batch is repeated
    for cosine.  Four batches of each
-   backend run under ``torch.profiler`` and ``cProfile`` (l2 at the
-   narrowest and widest threshold, JSD and Triangular at the widest):
+   backend (one of the plain JSD and Triangular) run under
+   ``torch.profiler`` and ``cProfile`` (l2 at the narrowest and widest
+   threshold, JSD and Triangular at the widest):
    device time and trace events per kernel (sort kernels counted apart),
    host time per operator and Python function, and the device's idle
    share.  Each metric's masked tile of the first batch at the widest
@@ -64,16 +65,15 @@ phase prints its seconds):
 5. kNN (k = 10): all queries in 512-query batches through
    ``bss_knn_batched`` under l2, JSD and Triangular on ``"cuda"``, plus one
    cosine batch; launch counts zeroed and read per metric.  The plain
-   ``"torch"`` backend runs all queries under l2 and the first four
-   batches (2,048 queries) under JSD and Triangular.  Ids must agree
-   between backends and with a float64 brute force on 64 queries, except
+   ``"torch"`` backend runs the first four batches (2,048 queries).  Ids must agree
+   between backends and with a float64 brute force on 16 queries, except
    where the two candidates' float64 distances lie within 1e-5 of each
    other (or of the kth); a query whose distance count differs between
    backends must have kth distances within 1e-5.  For JSD and Triangular
-   the returned distances of 64 queries are held to float64 within the
+   the returned distances of 16 queries are held to float64 within the
    error budget, which is also printed at the smallest kth.  The round
    top-k of the first batch is timed alone per round, beside the stable
-   sort it replaced.  One JSD batch of each backend is profiled.
+   sort it replaced.  One JSD batch on ``"cuda"`` is profiled.
 6. bf16 range: ``precision="bf16"`` over all queries on ``"cuda"`` under l2,
    JSD and Triangular at selectivities 1e-5 and 1e-3, through each
    metric's range-path index; launch counts zeroed and read per metric.
@@ -94,7 +94,7 @@ phase prints its seconds):
    the first 90% of the corpus rows, ``append`` the other 10%, ``delete``
    1% of the ids (seeded); at each generation range (selectivity 1e-3)
    and kNN on two batches in fp32 and bf16, bf16 equal to fp32 exactly and
-   fp32 range held to the numpy oracle on 64 queries; then
+   fp32 range held to the numpy oracle on 16 queries; then
    ``compact(refresh_pivots=True)`` must equal a fresh ``build_bss`` over
    the live rows field for field, and so must its hits.  Prints each
    mutation's seconds and ``table_dists``.
@@ -116,7 +116,7 @@ phase prints its seconds):
    tree of the corpus (``build_index(engine="tree")``, encoded for the
    card; build and encode seconds, levels, nodes, leaves), all queries in
    512-query batches at the three l2 thresholds under Hilbert on
-   ``"cuda"``, the first 2,048 on ``"torch"`` too and 64 against the
+   ``"cuda"``, the first 2,048 on ``"torch"`` too and 16 against the
    numpy host walk: a hit that differs must lie within 1e-5 * max(1, t)
    of t in float64, and a query whose ``per_query_dists`` differ must
    have, on its float64 host walk, a predicate within 1e-5 of its
@@ -140,13 +140,32 @@ phase prints its seconds):
    direct ``forest_range_search`` on the batch the front formed, every
    field; a kNN request must raise ``FOREST_KNN_ERROR``.  Launch counts
    are zeroed before and read after each forest phase.
-16. One JSON line with every kernel's numbers (``launches`` from the range
+16. Sharded BSS (``repro_torch.parallel``), every result against the
+   single-device ``"cuda"`` runs of phases 4-5 bit for bit, S shards on
+   ``local_mesh(S)`` (all on ``cuda:0`` on a one-card machine): range
+   under l2, JSD and Triangular at S = 2, 4, 8 over all queries at the
+   three thresholds (hits, the bounds through the shards and so
+   ``alive``, ``per_query_dists``, ``excluded``, ``tiles_computed``; every
+   batch's ``shard_dists`` summing to its exact-phase work; queries/s
+   beside the single device's, ``shard_imbalance``); bf16 range at 1e-3
+   on 4 shards equal to the 4-shard fp32 run; kNN (l2, JSD at S = 2, 4, 8;
+   bf16 l2 at S = 4) equal in ids, distances, rounds and counts; the
+   living corpus on 4 shards (an append into the padding in place, with no
+   library loaded again and nothing reshaped, a 1% append that re-lays
+   the shards out, a delete, a compact) against a single-device index put
+   through the same mutations; one wave of 2,048 requests through the
+   front of ``RetrievalServer(mesh=local_mesh(4))``, each against a direct
+   sharded call on its batch; four profiled batches of S = 1 and S = 4
+   (l2, JSD at 1e-3); one shard per card where the host has two or more
+   (said to be skipped otherwise; a skip is no pass).
+17. One JSON line with every kernel's numbers (``launches`` from the range
    path of its metric and precision, ``serving_launches`` from the serving
    phase, ``forest_launches`` from the forest phases, which must have
-   launched the masked l2, bf16 l2 and JSD tiles; the unmasked bf16 forms
-   and the d1/d2 form of the planar bound are on no engine path and carry
-   ``"on_main_path": false``), then the result line ``{"ok": true,
-   "device": {...}}``.
+   launched the masked l2, bf16 l2 and JSD tiles, ``sharded_launches``
+   from the sharded phases, nonzero for every kernel a shard launches;
+   the unmasked bf16 forms and the d1/d2 form of the planar bound are on
+   no engine path and carry ``"on_main_path": false``), then the result
+   line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -190,7 +209,13 @@ PLANAR_ISSUED, PLANAR_MINMAX = 9.5, 2.5
 CARD: dict = {}
 
 BATCH = 512
-ORACLE_QUERIES = 64
+# Depth of the comparisons cut to make room for the sharded phases (16)
+# and keep the run under 600 s on the slowest host seen (PERF.md §4): the
+# float64 oracles take 16 queries (64 before); the plain "torch" range
+# comparison of JSD and Triangular and every plain kNN comparison their
+# first 4 batches
+ORACLE_QUERIES = 16
+PLAIN_QUERIES = 4 * BATCH
 KNN_K = 10  # as benchmarks/bss_engine.py runs kNN
 RTOL = ATOL = 1e-5  # as tests/test_kernels.py holds the reference kernels
 # the reference's sweep of the unmasked JSD / Triangular tiles
@@ -816,19 +841,20 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
     # l2: 2 fp32 operations per (i, j, k); JSD / Triangular: one SFU result
     ops_per, rate = (1, CARD["sfu_rate"]) if metric in PROB else (2, FP32_PEAK)
     live_share = 0.0
+    n_plain = min(nq, PLAIN_QUERIES) if metric in PROB else nq
     for t, sel, ((hits, stats), secs) in zip(ts, cfg.selectivities, cuda_runs):
         dists, excl = per_query(stats, "per_query_dists"), per_query(stats, "excluded")
         tiles = [st["tiles_computed"] for st in stats]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        p_hits, _ = run_queries(flat_index, EngineOpts, index, queries, t, "torch")
+        p_hits, _ = run_queries(flat_index, EngineOpts, index, queries[:n_plain], t, "torch")
         torch.cuda.synchronize()
         plain_secs = time.perf_counter() - t0
         alive_c, alive_p = lb[backend] <= np.float32(t), lb["torch"] <= np.float32(t)
         alive_diff = alive_c != alive_p
         bad_alive = int((np.abs(lb["torch"][alive_diff] - t) > BAND).sum())
         n_hit_diff, bad_hits = boundary_hit_diffs(
-            np, pairwise_np, metric, corpus32, queries32, hits, p_hits, t)
+            np, pairwise_np, metric, corpus32, queries32, hits[:n_plain], p_hits, t)
         t0 = time.perf_counter()
         o_hits, _ = flat_index.bss_query(index, queries[:ORACLE_QUERIES], t)
         oracle_secs = time.perf_counter() - t0
@@ -845,7 +871,8 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
         )
         row = dict(
             selectivity=sel, t=t, queries=nq, seconds=secs, queries_per_s=nq / secs,
-            plain_torch_queries_per_s=nq / plain_secs, hits=n_hits,
+            plain_torch_queries=n_plain, plain_torch_queries_per_s=n_plain / plain_secs,
+            hits=n_hits,
             dists_per_query=float(dists.mean()),
             block_exclusion_rate=float(excl.sum() / (nq * nb)),
             tile_exclusion_rate=1.0 - live_share,
@@ -875,9 +902,11 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
     try:  # a failed profile fails the run but keeps the checks above
         for t in ((ts[0], ts[-1]) if metric == "l2" else (ts[-1],)):
             for name in (backend, "torch"):
+                # the plain JSD / Triangular pass: one batch (PERF.md §4)
                 prof = profile_batches(
                     torch, lambda qb: flat_index.bss_query_batched(
-                        index, qb, t, opts=EngineOpts(backend=name)), queries, t=t)
+                        index, qb, t, opts=EngineOpts(backend=name)), queries,
+                    1 if name == "torch" and metric in PROB else 4, t=t)
                 log(f"profile {metric} range {name} " + json.dumps(prof))
     except Exception:
         failures.append(f"phase profile {metric} raised:\n{traceback.format_exc()}")
@@ -1214,7 +1243,9 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
     log(f"knn {metric} top-k per round " + json.dumps(row["top_k_per_round"]))
     if metric == "jsd":
         try:
-            for name in (backend, "torch"):
+            # the plain backend's rate is the row's plain_torch_queries_per_s
+            # (its profile took ~13 s on a slow host; PERF.md §4)
+            for name in (backend,):
                 prof = profile_batches(
                     torch, lambda qb: flat_index.bss_knn_batched(
                         index, qb, KNN_K, opts=EngineOpts(backend=name)), queries, 1, k=KNN_K)
@@ -2041,7 +2072,7 @@ def forest_l2(torch, np, failures: list, record: dict, dev, corpus, queries, cfg
     """Phase 11: the ``hpt_fft_log`` forest of SISAP colors at paper size
     (``build_index(engine="tree")``, encoded for the card), all queries at
     the three l2 thresholds under Hilbert on ``"cuda"``, the first
-    FOREST_TORCH_QUERIES on ``"torch"`` too, 64 against the numpy host
+    FOREST_TORCH_QUERIES on ``"torch"`` too, 16 against the numpy host
     walk; the middle threshold under Hyperbolic; four batches profiled.
     Returns the launch counts, the encoding, the tree and the fp32 runs."""
     from repro_torch.configs.supermetric import build_index
@@ -2222,7 +2253,7 @@ def forest_monotone(torch, np, failures: list, record: dict, dev, corpus, querie
     """Phase 13: the monotone ``lrt``/``far`` tree
     (``build_index(engine="lrt")``) at paper size, all queries at the
     widest l2 threshold on ``"cuda"``, the first FOREST_TORCH_QUERIES on
-    ``"torch"``, 64 against ``lrt.range_search_monotone``."""
+    ``"torch"``, 16 against ``lrt.range_search_monotone``."""
     from repro_torch.configs.supermetric import build_index
     from repro_torch.core import lrt
     from repro_torch.core.exclusion import HILBERT
@@ -2295,7 +2326,7 @@ def forest_jsd(torch, np, failures: list, record: dict, dev, corpus, queries, cf
                t: float) -> dict:
     """Phase 14: ``hpt_fft_log`` under JSD at paper size, the first
     FOREST_TORCH_QUERIES queries at the widest JSD threshold on ``"cuda"``
-    and ``"torch"``, 64 against the host walk; the leaf table's cells near
+    and ``"torch"``, 16 against the host walk; the leaf table's cells near
     t held to float64 within the error budget (``prob_error_near_t``)."""
     from repro_torch.configs.supermetric import build_index
     from repro_torch.core import tree as tree_mod
@@ -2418,6 +2449,441 @@ def serving_forest(torch, np, failures: list, record: dict, corpus, queries, ts:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# sharded BSS (phase 16): every result against the single-device "cuda" runs
+# ---------------------------------------------------------------------------
+
+SHARDS = (2, 4, 8)
+# the kernels every shard launches on the sharded path
+SHARDED_PATH = ("pairwise_l2", "masked_pairwise_l2", "masked_pairwise_l2_bf16",
+                "planar_lower_bound_pairs", "pairwise_jsd", "masked_pairwise_jsd",
+                "masked_pairwise_jsd_bf16", "pairwise_tri", "masked_pairwise_tri",
+                "masked_pairwise_tri_bf16")
+
+
+def mesh_view(index, n_shards: int):
+    """The same index (its host arrays) with a mesh of ``n_shards`` shards
+    on this host's cards (``local_mesh``: round-robin, all on cuda:0 on a
+    one-card machine): what ``build_bss(mesh=...)`` gives, without building
+    the layout again."""
+    from repro_torch.parallel import local_mesh
+
+    return dataclasses.replace(index, mesh=local_mesh(n_shards), _device=None, _bf16=None,
+                               _sharded=None)
+
+
+def add_counts(acc: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        acc[k] = acc.get(k, 0) + v
+
+
+def same_bits(np, a, b) -> bool:
+    """Float arrays equal bit for bit (-0.0 apart from +0.0)."""
+    a, b = np.ascontiguousarray(a, np.float32), np.ascontiguousarray(b, np.float32)
+    return a.shape == b.shape and bool(np.array_equal(a.view(np.uint32), b.view(np.uint32)))
+
+
+def range_fields(np, stats: list) -> dict:
+    return dict(per_query_dists=per_query(stats, "per_query_dists"),
+                excluded=per_query(stats, "excluded"),
+                tiles_computed=np.array([st["tiles_computed"] for st in stats]))
+
+
+def equal_fields(np, got: dict, want: dict) -> dict:
+    return {k: bool(np.array_equal(got[k], want[k])) for k in want}
+
+
+def sharded_range(torch, np, failures: list, record: dict, queries, metric: str, cfg,
+                  single: dict, sharded_counts: dict) -> dict:
+    """Sharded range for one metric at S = 2, 4, 8 shards: all queries in
+    512-query batches at the three thresholds, each batch held to the
+    single-device "cuda" run of phase 4 bit for bit (hits, ``alive``
+    through the bounds, ``per_query_dists``, ``excluded``,
+    ``tiles_computed``), and each batch's ``shard_dists`` summing to its
+    exact-phase work.  Returns the S = 4 runs."""
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.tiles import TILE_BQ
+    from repro_torch.obs import shard_imbalance
+    from repro_torch.parallel.shard_index import _range_pass, sharded_lower_bounds
+
+    index, ts = single["index"], single["ts"]
+    nq, nb = len(queries), index.n_blocks
+    n_piv = index.pivots.shape[0]
+    per_form = len(ts) * -(-nq // BATCH)
+    entry = PROB.get(metric, "pairwise_l2")
+    q_first = flat_index._engine_queries(metric, queries[:BATCH].astype(np.float32))
+
+    def time_single() -> dict:
+        out = {}
+        for t in ts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_queries(flat_index, EngineOpts, index, queries, t, "cuda")
+            torch.cuda.synchronize()
+            out[t] = time.perf_counter() - t0
+        return out
+
+    # the single device timed again in this phase, before and after the
+    # shards (S = 1, S = 2, 4, 8, S = 1): host speed drifts over a run
+    single_secs = [time_single()]
+    kept, rows = {}, []
+    for n_shards in SHARDS:
+        view = mesh_view(index, n_shards)
+        sidx = view.sharded()
+        flat_index.bss_query_batched(view, queries[:BATCH], ts[0],
+                                     opts=EngineOpts(backend="cuda"))  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        runs = {}
+        for t in ts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run = run_queries(flat_index, EngineOpts, view, queries, t, "cuda")
+            torch.cuda.synchronize()
+            runs[t] = (run, time.perf_counter() - t0)
+        counts = launch_counts()
+        add_counts(sharded_counts, counts)
+        expect_launches(failures, f"sharded {metric} S={n_shards} range", counts,
+                        {entry: n_shards * per_form, "masked_" + entry: n_shards * per_form,
+                         "planar_lower_bound_pairs": n_shards * per_form})
+        # alive: the bounds of every batch through the shards, bit for bit
+        lb = np.concatenate([sharded_lower_bounds(sidx, queries[s:s + BATCH], backend="cuda")
+                             for s in range(0, nq, BATCH)])
+        lb_equal = same_bits(np, lb, single["lb"])
+        for t, sel in zip(ts, cfg.selectivities):
+            (hits, stats), secs = runs[t]
+            w_hits, w_stats = single["fp32"][t]
+            # the first batch's alive mask straight from the sharded pass
+            alive = _range_pass(sidx, metric, q_first, np.full(len(q_first), t, np.float32),
+                                bq=TILE_BQ, backend="cuda")[1][:, :nb]
+            equal = dict(hits=hits == w_hits, lower_bounds=lb_equal,
+                         alive_first_batch=bool(np.array_equal(
+                             alive, single["lb"][:BATCH] <= np.float32(t))),
+                         **equal_fields(np, range_fields(np, stats), range_fields(np, w_stats)))
+            work = all(int(st["shard_dists"].sum())
+                       == int(st["per_query_dists"].sum()) - len(st["per_query_dists"]) * n_piv
+                       for st in stats)
+            sd = sum(st["shard_dists"] for st in stats)
+            row = dict(metric=metric, shards=n_shards, selectivity=sel, t=t, queries=nq,
+                       seconds=secs, queries_per_s=nq / secs,
+                       phase4_single_queries_per_s=nq / single["fp32_secs"][t],
+                       shard_dists=sd.tolist(),
+                       shard_blocks=sum(st["shard_blocks"] for st in stats).tolist(),
+                       shard_imbalance=shard_imbalance(sd),
+                       batch_imbalance_max=max(shard_imbalance(st["shard_dists"]) for st in stats),
+                       shard_work_sums=work, equal_to_single=equal)
+            rows.append(row)
+            if not (work and all(equal.values())):
+                failures.append(f"sharded {metric} S={n_shards} t={t}: shard work sums {work}, "
+                                f"equal to single-device cuda {equal}")
+        if n_shards == 4:
+            kept = dict(view=view, runs=runs)
+    single_secs.append(time_single())
+    for row in rows:
+        secs1 = sum(s_[row["t"]] for s_ in single_secs) / len(single_secs)
+        row.update(single_queries_per_s=nq / secs1, speed_vs_single=secs1 / row["seconds"],
+                   single_seconds_before_after=[s_[row["t"]] for s_ in single_secs])
+        record.setdefault("sharded range", []).append(row)
+        log("sharded range " + json.dumps(row))
+    return kept
+
+
+
+def sharded_bf16_range(torch, np, failures: list, record: dict, queries, metric: str,
+                       s4: dict, t: float, sharded_counts: dict) -> None:
+    """bf16 range at selectivity 1e-3 on 4 shards: every field equal to the
+    4-shard fp32 run, the shard vectors included."""
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    view = s4["view"]
+    nq = len(queries)
+    n_batches = -(-nq // BATCH)
+    flat_index.bss_query_batched(view, queries[:BATCH], t,
+                                 opts=EngineOpts(backend="cuda", precision="bf16"))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hits, stats = run_queries(flat_index, EngineOpts, view, queries, t, "cuda", "bf16")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    add_counts(sharded_counts, counts)
+    entry = PROB.get(metric, "pairwise_l2")
+    per = 4 * n_batches
+    expect_launches(failures, f"sharded {metric} bf16 range", counts,
+                    {entry: per, "planar_lower_bound_pairs": per, "masked_" + entry: per,
+                     "masked_" + entry + "_bf16": per})
+    (w_hits, w_stats), w_secs = s4["runs"][t]
+    fields = ("shard_dists", "shard_blocks")
+    equal = dict(hits=hits == w_hits,
+                 **equal_fields(np, range_fields(np, stats), range_fields(np, w_stats)),
+                 **{f: all(np.array_equal(a[f], b[f]) for a, b in zip(stats, w_stats))
+                    for f in fields})
+    tiles = sum(st["tiles_computed"] for st in stats)
+    row = dict(metric=metric, shards=4, t=t, queries_per_s=nq / secs,
+               fp32_queries_per_s=nq / w_secs, band_eps=stats[0]["band_eps"],
+               recheck_share_of_computed_tiles=(sum(st["recheck_tiles"] for st in stats) / tiles
+                                                if tiles else 0.0),
+               equal_to_fp32=equal)
+    record.setdefault("sharded bf16 range", []).append(row)
+    log("sharded bf16 range " + json.dumps(row))
+    if not all(equal.values()):
+        failures.append(f"sharded bf16 range {metric} differs from fp32: {equal}")
+
+
+def sharded_knn(torch, np, failures: list, record: dict, queries, metric: str, single: dict,
+                sharded_counts: dict, shards=SHARDS, precision: str = "fp32") -> None:
+    """kNN (k = 10) over all queries on S shards: ids, distances, rounds and
+    ``per_query_dists`` equal to the single-device "cuda" run of phase 5."""
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import shard_imbalance
+
+    nq = len(queries)
+    opts = EngineOpts(backend="cuda", precision=precision)
+    entry = PROB.get(metric, "pairwise_l2")
+
+    def time_single() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(0, nq, BATCH):
+            flat_index.bss_knn_batched(single["index"], queries[s:s + BATCH], KNN_K, opts=opts)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # the single device timed again in this phase, before and after the
+    # shards: host speed drifts over a run
+    single_secs, rows = [time_single()], []
+    for n_shards in shards:
+        view = mesh_view(single["index"], n_shards)
+        flat_index.bss_knn_batched(view, queries[:BATCH], KNN_K, opts=opts)  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ids, dists, rounds, per_q, imb = [], [], [], [], []
+        t0 = time.perf_counter()
+        for s in range(0, nq, BATCH):
+            i, d, st = flat_index.bss_knn_batched(view, queries[s:s + BATCH], KNN_K, opts=opts)
+            ids.append(i)
+            dists.append(d)
+            rounds.append(st["rounds"])
+            per_q.append(st["per_query_dists"])
+            imb.append(st["shard_dists"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        add_counts(sharded_counts, counts)
+        want = {entry: n_shards * len(rounds), "planar_lower_bound_pairs": n_shards * len(rounds),
+                "masked_" + entry: n_shards * sum(rounds)}
+        if precision == "bf16":
+            want["masked_" + entry + "_bf16"] = n_shards * sum(rounds)
+        expect_launches(failures, f"sharded {metric} {precision} kNN S={n_shards}", counts, want)
+        equal = dict(ids=bool(np.array_equal(np.concatenate(ids), single["ids"])),
+                     dists=same_bits(np, np.concatenate(dists), single["dists"]),
+                     rounds=rounds == single["rounds"],
+                     per_query_dists=bool(np.array_equal(np.concatenate(per_q),
+                                                         single["per_query"])))
+        rows.append(dict(metric=metric, precision=precision, shards=n_shards, k=KNN_K,
+                         seconds=secs, queries_per_s=nq / secs,
+                         phase5_single_fp32_queries_per_s=nq / single["secs"],
+                         rounds_per_batch=rounds, shard_imbalance=shard_imbalance(sum(imb)),
+                         equal_to_single=equal))
+        if not all(equal.values()):
+            failures.append(f"sharded {precision} kNN {metric} S={n_shards} differs from the "
+                            f"single-device cuda run: {equal}")
+    single_secs.append(time_single())
+    secs1 = sum(single_secs) / len(single_secs)
+    for row in rows:
+        row.update(single_queries_per_s=nq / secs1, speed_vs_single=secs1 / row["seconds"],
+                   single_seconds_before_after=single_secs)
+        record.setdefault("sharded knn", []).append(row)
+        log("sharded knn " + json.dumps(row))
+
+
+def sharded_living_corpus(torch, np, failures: list, record: dict, dev, corpus, queries, cfg,
+                          t: float) -> None:
+    """The living corpus on 4 shards (l2): build on 99,000 rows (774
+    blocks, padded to 776), append one block (it fits the padding: written
+    in place, no library loaded again, no shard tensor reshaped, the old
+    generation's tensors unchanged), append 1% (re-laid out), delete 1% of
+    the ids, compact.  Each generation is held to a single-device index put
+    through the same mutations, bit for bit: range (fp32 and bf16) and kNN
+    on two batches."""
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.index import append, compact, delete
+    from repro_torch.kernels import _build
+    from repro_torch.parallel import local_mesh
+
+    corpus32 = corpus.astype(np.float32)
+    q = queries[:2 * BATCH].astype(np.float32)
+    n0, small, big = 99_000, 128, len(corpus32) // 100
+    mesh = local_mesh(4)
+    row = dict(shards=4, built_on=n0, generations=[])
+
+    def check(sharded, single, label):
+        eq = {}
+        for precision in ("fp32", "bf16"):
+            opts = EngineOpts(backend="cuda", precision=precision)
+            for s in (0, BATCH):
+                h, st = flat_index.bss_query_batched(sharded, q[s:s + BATCH], t, opts=opts)
+                wh, wst = flat_index.bss_query_batched(single, q[s:s + BATCH], t, opts=opts)
+                eq[f"range {precision} {s}"] = (
+                    h == wh and st["n_shards"] == 4
+                    and bool(np.array_equal(st["per_query_dists"], wst["per_query_dists"])))
+                k = flat_index.bss_knn_batched(sharded, q[s:s + BATCH], KNN_K, opts=opts)
+                wk = flat_index.bss_knn_batched(single, q[s:s + BATCH], KNN_K, opts=opts)
+                eq[f"knn {precision} {s}"] = (
+                    bool(np.array_equal(k[0], wk[0])) and same_bits(np, k[1], wk[1])
+                    and k[2]["rounds"] == wk[2]["rounds"]
+                    and bool(np.array_equal(k[2]["per_query_dists"], wk[2]["per_query_dists"])))
+        gen = dict(label=label, generation=sharded.generation, n_blocks=sharded.n_blocks,
+                   n_blocks_pad=sharded.sharded().n_blocks_pad, equal=all(eq.values()))
+        row["generations"].append(gen)
+        log("sharded living corpus " + json.dumps(gen))
+        if not gen["equal"]:
+            failures.append(f"sharded living corpus {label}: {eq}")
+
+    idx0 = flat_index.build_bss("l2", corpus32[:n0], cfg.n_pivots, cfg.n_pairs, cfg.block,
+                                mesh=mesh)
+    one0 = flat_index.build_bss("l2", corpus32[:n0], cfg.n_pivots, cfg.n_pairs, cfg.block,
+                                device=dev)
+    check(idx0, one0, f"built on {n0} rows")
+    s0 = idx0.sharded()
+    shapes = [tuple(getattr(sh, f).shape) for sh in s0.shards for f in sh._fields]
+    old = [[getattr(sh, f).clone() for f in sh._fields] for sh in s0.shards]
+    old16 = [d.clone() for d in s0.data16]
+    loads = {s: _build.load_count(s) for s in _build.SOURCES}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx1, ms1 = append(idx0, corpus32[n0:n0 + small])
+    torch.cuda.synchronize()
+    row["in_place_append_seconds"] = time.perf_counter() - t0
+    one1, _ = append(one0, corpus32[n0:n0 + small])
+    check(idx1, one1, "appended one block in place")
+    s1 = idx1.sharded()
+    row["in_place"] = dict(
+        sharded_in_place=ms1.sharded_in_place,
+        shapes_unchanged=[tuple(getattr(sh, f).shape)
+                          for sh in s1.shards for f in sh._fields] == shapes,
+        libraries_not_reloaded={s: _build.load_count(s) for s in _build.SOURCES} == loads,
+        old_generation_untouched=all(
+            torch.equal(getattr(sh, f), o) for sh, os_ in zip(s0.shards, old)
+            for f, o in zip(sh._fields, os_)) and all(
+            torch.equal(a, b) for a, b in zip(s0.data16, old16)),
+        shards_rewritten=sum(a is not b for a, b in zip(s0.shards, s1.shards)))
+    idx2, ms2 = append(idx1, corpus32[n0 + small:n0 + small + big])
+    one2, _ = append(one1, corpus32[n0 + small:n0 + small + big])
+    row["relaid_out"] = not ms2.sharded_in_place and idx2._sharded is None
+    check(idx2, one2, "appended 1%, re-laid out")
+    dead = np.random.default_rng(5).choice(n0, size=n0 // 100, replace=False).tolist()
+    valid_before = [sh.valid.clone() for sh in idx2.sharded().shards]
+    idx3, _ = delete(idx2, dead)
+    one3, _ = delete(one2, dead)
+    row["delete_old_valid_untouched"] = all(
+        torch.equal(a, sh.valid) for a, sh in zip(valid_before, idx2.sharded().shards))
+    check(idx3, one3, "deleted 1%")
+    idx4, _ = compact(idx3)
+    one4, _ = compact(one3)
+    row["compact_keeps_mesh"] = idx4.mesh is mesh
+    check(idx4, one4, "compacted")
+    record["sharded living corpus"] = row
+    log("sharded living corpus " + json.dumps(
+        {k: v for k, v in row.items() if k != "generations"}))
+    ok = (all(row["in_place"][k] for k in ("sharded_in_place", "shapes_unchanged",
+                                           "libraries_not_reloaded", "old_generation_untouched"))
+          and row["relaid_out"] and row["delete_old_valid_untouched"] and row["compact_keeps_mesh"])
+    if not ok:
+        failures.append(f"sharded living corpus: {row}")
+
+
+def sharded_serving(torch, np, failures: list, record: dict, corpus, queries, cfg, ts: list,
+                    n_requests: int = 4 * BATCH) -> None:
+    """One wave through the ``ServingFront`` of a ``RetrievalServer(mesh=
+    local_mesh(4))`` (l2): every result equal to a direct sharded call on
+    the batch the front formed (``check_served``)."""
+    from repro_torch.serve.retrieval import RetrievalServer
+    from repro_torch.parallel import local_mesh
+
+    corpus32, queries32 = corpus.astype(np.float32), queries.astype(np.float32)
+    t0 = time.perf_counter()
+    server = RetrievalServer(corpus32, metric="l2", n_pivots=cfg.n_pivots, n_pairs=cfg.n_pairs,
+                             block=cfg.block, mesh=local_mesh(4))
+    row = dict(metric="l2", shards=4, build_seconds=time.perf_counter() - t0)
+    with server.async_front(max_delay_s=0.002, cache_size=4096) as front:
+        snapshots = {front.index.generation: front.index}
+        reqs = serving_requests(np, n_requests, ts, seed=4)
+        res, errors, secs = serve_wave(front, queries32, reqs)
+        st = front.stats()
+        snap = front.metrics().snapshot()
+        rec = front.explain()
+    row.update(serving_numbers(np, res, secs))
+    row.update({k: st[k] for k in ("completed", "errors", "batches", "per_bucket_batches",
+                                   "padding_waste")})
+    row["shard_imbalance"] = {k: v for k, v in snap["gauges"].items()
+                              if k.startswith("shard/imbalance")}
+    row["explain_shard_dists"] = rec.get("shard_dists")
+    row["checks"] = check_served(np, snapshots, queries32, reqs, res)
+    record["sharded serving"] = row
+    log("sharded serving " + json.dumps(row))
+    c = row["checks"]
+    if (errors or st["errors"] or c["same_batch"]["differing"] or c["other_batch"]["differing"]
+            or not row["shard_imbalance"] or len(rec.get("shard_dists", [])) != 4):
+        failures.append(f"sharded serving: failed requests {errors[:3]}, differences "
+                        f"{c['same_batch']['first'], c['other_batch']['first']}, gauges "
+                        f"{row['shard_imbalance']}, explain {rec}")
+
+
+def sharded_profiles(torch, np, record: dict, queries, paths: dict) -> None:
+    """Four batches of S = 1 (the single-device engine) and S = 4 under the
+    profiler, l2 and JSD at selectivity 1e-3: ms per batch, the device's
+    idle share and the port's launches per batch."""
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+
+    for metric in ("l2", "jsd"):
+        index, t = paths[metric]["index"], paths[metric]["ts"][-1]
+        for n_shards, idx in ((1, index), (4, mesh_view(index, 4))):
+            prof = profile_batches(torch, lambda qb: flat_index.bss_query_batched(
+                idx, qb, t, opts=EngineOpts(backend="cuda")), queries, t=t, shards=n_shards)
+            prof["launches_per_batch"] = prof["port_kernel_launches"] / prof["batches"]
+            record.setdefault("sharded profile", []).append(
+                {k: prof[k] for k in ("t", "shards", "batch_ms", "traced_batch_ms",
+                                      "device_busy_ms_per_batch", "device_idle_share",
+                                      "launches_per_batch", "port_kernel_events")})
+            log(f"profile sharded {metric} S={n_shards} " + json.dumps(prof))
+
+
+def sharded_distinct_devices(torch, np, failures: list, record: dict, queries, single: dict,
+                             t: float) -> None:
+    """One shard per card, where the host has two or more: two l2 range
+    batches against the single-device run.  Skipped,
+    and said so, on a one-card machine: the skip is no pass."""
+    from repro_torch.core import flat_index
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.parallel import local_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        record["sharded distinct devices"] = f"skipped: {n} CUDA device (needs 2)"
+        log(f"sharded distinct devices: SKIPPED, not run, not passed: this machine has {n} "
+            f"CUDA device")
+        return
+    view = dataclasses.replace(single["index"], mesh=local_mesh(), _device=None, _bf16=None,
+                               _sharded=None)
+    (w_hits, w_stats) = single["fp32"][t]
+    hits, _ = run_queries(flat_index, EngineOpts, view, queries[:2 * BATCH], t, "cuda")
+    ok = hits == w_hits[:2 * BATCH]
+    record["sharded distinct devices"] = dict(devices=n, equal=ok)
+    log("sharded distinct devices " + json.dumps(record["sharded distinct devices"]))
+    if not ok:
+        failures.append("sharded distinct devices: hits differ from the single-device run")
+
+
 def plain_l2(torch, np, dev, cfg) -> dict:
     """The plain ``"torch"`` backend's l2 range search on the card: all
     queries at the three calibrated thresholds, in batches of BATCH."""
@@ -2502,6 +2968,7 @@ def main() -> int:
 
     kernels, record, paths, bf16_paths, knns, serving_counts = {}, {}, {}, {}, {}, {}
     forest, forest_counts = {}, {}
+    sharded_s4, sharded_counts = {}, {}
     dev = torch.device("cuda")
     data = {}
     if "--plain-l2" in sys.argv[1:]:
@@ -2544,9 +3011,9 @@ def main() -> int:
 
     def knn_phase():
         for metric in ("l2", "jsd", "triangular"):
-            # the plain backend takes 1.7 s a JSD batch: 4 batches for JSD / Triangular
+            # the plain backend takes 1.7 s a JSD batch: its first 4 batches
             knns[metric] = knn_path(torch, np, failures, record, dev, *data["colors"], metric,
-                                    SISAP_COLORS, plain_batches=None if metric == "l2" else 4)
+                                    SISAP_COLORS, plain_batches=PLAIN_QUERIES // BATCH)
         knn_path(torch, np, failures, record, dev, *data["colors"], "cosine", SISAP_COLORS,
                  n_queries=BATCH)
 
@@ -2600,6 +3067,26 @@ def main() -> int:
             paths["jsd"]["ts"][-1]))),
         ("serving forest", lambda: forest_phase(serving_forest(
             torch, np, failures, record, *data["colors"], paths["l2"]["ts"]))),
+        *((f"sharded range {m}", lambda m=m: sharded_s4.update({m: sharded_range(
+            torch, np, failures, record, data["colors"][1], m, SISAP_COLORS, paths[m],
+            sharded_counts)})) for m in ("l2", "jsd", "triangular")),
+        ("sharded bf16 range", lambda: [sharded_bf16_range(
+            torch, np, failures, record, data["colors"][1], m, sharded_s4[m],
+            paths[m]["ts"][SISAP_COLORS.selectivities.index(1e-3)], sharded_counts)
+            for m in ("l2", "jsd", "triangular")]),
+        ("sharded knn", lambda: [sharded_knn(
+            torch, np, failures, record, data["colors"][1], m, knns[m], sharded_counts, *args)
+            for m, args in (("l2", ()), ("jsd", ()), ("l2", ((4,), "bf16")))]),
+        ("sharded living corpus", lambda: sharded_living_corpus(
+            torch, np, failures, record, dev, *data["colors"], SISAP_COLORS,
+            paths["l2"]["ts"][SISAP_COLORS.selectivities.index(1e-3)])),
+        ("sharded serving", lambda: sharded_serving(
+            torch, np, failures, record, *data["colors"], SISAP_COLORS, paths["l2"]["ts"])),
+        ("sharded profiles", lambda: sharded_profiles(
+            torch, np, record, data["colors"][1], paths)),
+        ("sharded distinct devices", lambda: sharded_distinct_devices(
+            torch, np, failures, record, data["colors"][1], paths["l2"],
+            paths["l2"]["ts"][SISAP_COLORS.selectivities.index(1e-3)])),
     )
     for phase, fn in phases:
         t0 = time.perf_counter()
@@ -2617,6 +3104,9 @@ def main() -> int:
         rec["launches"] = int(on_path.get(metric, {}).get("counts", {}).get(entry, 0))
         rec["serving_launches"] = int(serving_counts.get(metric, {}).get(entry, 0))
         rec["forest_launches"] = int(forest_counts.get(entry, 0))
+        rec["sharded_launches"] = int(sharded_counts.get(entry, 0))
+        if entry in SHARDED_PATH and rec["sharded_launches"] <= 0:
+            failures.append(f"kernel {name} was not launched by the sharded phases")
         if entry in FOREST_PATH and rec["forest_launches"] <= 0:
             failures.append(f"kernel {name} was not launched by the forest")
         if entry in OFF_PATH:

@@ -37,10 +37,17 @@ bf16:   ``precision="bf16"`` streams the index's bfloat16 corpus mirror
 ``bss_query`` is the reference's numpy oracle (float64 exact phase), kept
 as the correctness check both backends are held to.
 
+mesh:   ``build_bss(mesh=...)`` (a ``repro_torch.parallel.ShardMesh``)
+        partitions the blocks over the mesh's devices: the batched paths
+        and ``bss_lower_bounds`` of such an index serve through the sharded
+        engine (``repro_torch.parallel.shard_index``), with the
+        single-device results bit for bit.  They never build the unsharded
+        mirror; ``index.device`` builds it on the mesh's lead device only
+        when a caller reads it.
+
 Device rule: ``build_bss(device=None)`` builds for the CUDA device and
 raises when there is none; the CPU is used only when the caller asks for
-it.  Not ported yet (ROADMAP.md): sharding (``mesh``).  The living corpus (append,
-delete, compact) is ``repro_torch.index``.
+it.  The living corpus (append, delete, compact) is ``repro_torch.index``.
 Power transforms keep the reference's rule: with no tile kernel their
 distances run as plain pairwise on either backend.
 """
@@ -150,11 +157,19 @@ class BSSIndex:
     generation: int = 0
     next_id: int = 0
     tombstones: int = 0
-    # where the device mirror lives; None resolves to the CUDA device
+    # where the device mirror lives; None resolves to the CUDA device (to
+    # the mesh's lead device for a mesh-built index)
     torch_device: torch.device | None = dataclasses.field(
         default=None, compare=False
     )
+    # a ShardMesh: the batched paths then serve through the sharded engine
+    mesh: object | None = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
     _device: BSSDeviceArrays | None = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+    _sharded: object | None = dataclasses.field(
         default=None, repr=False, compare=False
     )
     # bf16 exact-phase mirror (lazy): the corpus rounded to bfloat16, and
@@ -169,7 +184,7 @@ class BSSIndex:
     )
 
     def __post_init__(self):
-        self.torch_device = resolve_device(self.torch_device)
+        self.torch_device = _mesh_device(self.mesh, self.torch_device)
 
     @property
     def n_blocks(self) -> int:
@@ -193,7 +208,9 @@ class BSSIndex:
     def device(self) -> BSSDeviceArrays:
         """The index's arrays on ``torch_device``, copied once.  Every pivot
         pair is checked here to lie in [0, P): the planar kernel reads
-        ``dqp[q, pairs[m, i]]`` unchecked."""
+        ``dqp[q, pairs[m, i]]`` unchecked.  For a mesh-built index this is
+        an unsharded copy on the lead device, built only when a caller
+        reads it: the engines read ``sharded()``."""
         if self._device is None:
             n_pivots = self.pivots.shape[0]
             if ((self.pairs < 0) | (self.pairs >= n_pivots)).any():
@@ -230,6 +247,43 @@ class BSSIndex:
                 _engine_metric(self.metric_name), self.data, self.valid
             )
         return self._bf16_eps
+
+    def sharded(self, mesh=None):
+        """The :class:`~repro_torch.parallel.shard_index.ShardedBSSIndex` view
+        of this index over ``mesh`` (default: the mesh given at build time),
+        cached per mesh."""
+        mesh = mesh if mesh is not None else self.mesh
+        if mesh is None:
+            raise ValueError(
+                "no mesh: pass one here or build with build_bss(mesh=...)"
+            )
+        if self._sharded is None or self._sharded.mesh != mesh:
+            from repro_torch.parallel.shard_index import ShardedBSSIndex
+
+            self._sharded = ShardedBSSIndex(self, mesh)
+        return self._sharded
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """The index's device: ``device`` (``resolve_device``), or with a mesh
+    its lead device, which a ``device`` given too must be."""
+    if mesh is None:
+        return resolve_device(device)
+    from repro_torch.parallel.sharding import check_mesh
+
+    check_mesh(mesh)
+    if device is not None and _indexed(device) != _indexed(mesh.lead):
+        raise ValueError(f"device {device} is not the mesh's lead device {mesh.lead}")
+    return mesh.lead
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with the current CUDA device's index where it names none
+    ("cuda" is "cuda:0" on a one-card host)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 # ---------------------------------------------------------------------------
@@ -310,12 +364,11 @@ def build_bss(
     mesh=None,
 ) -> BSSIndex:
     """Build the blocked index (module docstring) for ``device`` (default:
-    the CUDA device; raises without one unless ``device="cpu"``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded BSS is not ported yet: ROADMAP Queue 1 item 6"
-        )
-    device = resolve_device(device)
+    the CUDA device; raises without one unless ``device="cpu"``).  With
+    ``mesh`` (a ``ShardMesh``) the index lives on the mesh's lead device
+    and the batched paths serve through the sharded engine; the host
+    arrays and the numpy oracle are unaffected."""
+    device = _mesh_device(mesh, device)
     metric = get_metric(metric_name)  # validates; registers power names
     if not metric.four_point:
         raise ValueError(
@@ -328,10 +381,12 @@ def build_bss(
         # corpus onto the unit sphere once: cosine distance IS l2 there
         norms = np.linalg.norm(data, axis=1, keepdims=True)
         data = data / np.maximum(norms, _MIN_NORM)
-    return _build_engine_index(
+    index = _build_engine_index(
         metric_name, data, n_pivots=n_pivots, n_pairs=n_pairs, block=block,
         seed=seed, device=device,
     )
+    index.mesh = mesh
+    return index
 
 
 def _build_engine_index(
@@ -386,10 +441,10 @@ def _build_engine_index(
     )
 
 
-def index_from_arrays(fields: dict, *, device=None) -> BSSIndex:
+def index_from_arrays(fields: dict, *, device=None, mesh=None) -> BSSIndex:
     """A ``BSSIndex`` from the reference index's fields as numpy arrays and
     ints (``INDEX_FIELDS``) — the port queries the very index the JAX
-    package built.  ``device`` as in ``build_bss``."""
+    package built.  ``device`` and ``mesh`` as in ``build_bss``."""
     missing = [f for f in INDEX_FIELDS if f not in fields]
     if missing:
         raise KeyError(f"index fields missing: {missing}")
@@ -407,7 +462,8 @@ def index_from_arrays(fields: dict, *, device=None) -> BSSIndex:
         generation=int(fields["generation"]),
         next_id=int(fields["next_id"]),
         tombstones=int(fields["tombstones"]),
-        torch_device=resolve_device(device),
+        torch_device=_mesh_device(mesh, device),
+        mesh=mesh,
     )
 
 
@@ -418,7 +474,12 @@ def index_from_arrays(fields: dict, *, device=None) -> BSSIndex:
 
 def bss_lower_bounds(index: BSSIndex, queries: np.ndarray) -> np.ndarray:
     """(Q, n_blocks) planar lower bounds, in plain torch on the index's
-    device (the reference computes them with its jnp backend)."""
+    device (the reference computes them with its jnp backend); shard by
+    shard for a mesh-built index."""
+    if index.mesh is not None:
+        from repro_torch.parallel.shard_index import sharded_lower_bounds
+
+        return sharded_lower_bounds(index.sharded(), queries)
     queries = _engine_queries(index.metric_name, np.asarray(queries, np.float32))
     dev = index.device
     lb = _fused_lower_bounds(
@@ -873,11 +934,20 @@ def bss_query_batched(
     block (``_dense_hit_mask``), bf16 the masked scheme above.  ``"dense"``
     always runs the dense pass.  Either is exact; hits and stats are the
     same.  ``"cuda"`` runs the masked kernel whatever ``realisation``
-    says, as the reference's Pallas backend does."""
+    says, as the reference's Pallas backend does.
+
+    A mesh-built index serves through the sharded engine
+    (``sharded_query_batched``: one pass per shard, the hit masks
+    concatenated in corpus order), with the same results and stats bit for
+    bit and ``n_shards``, ``shard_dists`` and ``shard_blocks`` added."""
     opts = resolve_engine_opts(
         opts, bq=bq, backend=backend, realisation=realisation,
         precision=precision,
     )
+    if index.mesh is not None:
+        from repro_torch.parallel.shard_index import sharded_query_batched
+
+        return sharded_query_batched(index.sharded(), queries, t, opts=opts)
     precision = opts.precision
     bq = opts.bq if opts.bq is not None else _DEFAULT_BQ
     backend = resolve_backend(opts.backend, index.torch_device)
@@ -1178,7 +1248,7 @@ def _tiles_computed(alive: np.ndarray, bq: int) -> int:
 
 
 def _knn_empty_stats(index: BSSIndex, nq: int, precision: str,
-                     backend: str) -> dict:
+                     backend: str, engine: str = "bss") -> dict:
     """Stats of the kNN early returns (no queries, or no valid corpus
     point): zero rounds, zero work."""
     stats = {
@@ -1192,7 +1262,7 @@ def _knn_empty_stats(index: BSSIndex, nq: int, precision: str,
     }
     if precision == "bf16":
         _bf16_stats(stats, index.bf16_margin(), 0, np.zeros(nq, np.int64))
-    return _finish_stats(stats, kind="knn", backend=backend)
+    return _finish_stats(stats, kind="knn", backend=backend, engine=engine)
 
 
 def bss_knn_batched(
@@ -1250,11 +1320,22 @@ def bss_knn_batched(
 
     Returns (ids (Q, k) original ids by ascending distance, -1 where the
     corpus holds fewer than k valid points; dists (Q, k) float32, +inf
-    there; stats with ``kind="knn"``)."""
+    there; stats with ``kind="knn"``).
+
+    A mesh-built index serves through the sharded engine
+    (``sharded_knn_batched``: per-shard rounds merged by a second top-k
+    under the same radius schedule), with the same results bit for bit."""
     opts = resolve_engine_opts(
         opts, bq=bq, backend=backend, realisation=realisation,
         precision=precision,
     )
+    if index.mesh is not None:
+        from repro_torch.parallel.shard_index import sharded_knn_batched
+
+        return sharded_knn_batched(
+            index.sharded(), queries, k, r0=r0, growth=growth,
+            max_rounds=max_rounds, opts=opts,
+        )
     precision = opts.precision
     bq = opts.bq if opts.bq is not None else _DEFAULT_BQ
     backend = resolve_backend(opts.backend, index.torch_device)

@@ -28,9 +28,15 @@ old generation keeps reading its own arrays.  At every generation the fp32,
 bf16 and oracle paths agree bit for bit on hits, kNN results and per-query
 distance counts.
 
-The sharded branches of the reference have no counterpart yet (ROADMAP
-Queue 1 item 6): the port's index carries no mesh (``build_bss`` refuses
-one), and ``MutationStats.sharded_in_place`` stays ``False``.
+A mesh-built index (``build_bss(mesh=...)``) keeps its mesh through every
+mutation, and a live sharded view follows it
+(``repro_torch.parallel.shard_index``): an append whose fresh blocks fit
+the view's empty padding blocks is written into them, on the shards they
+land on only, with no tensor changing shape (``sharded_in_place``); a
+larger one leaves the view to be laid out again on the next query; a
+delete clears the valid bits on the shards that hold the rows; compact
+lays the new generation out afresh.  Here too a changed shard gets fresh
+tensors and the old generation's are never written.
 """
 
 from __future__ import annotations
@@ -78,7 +84,7 @@ class MutationStats:
     n_blocks: int              # the NEW index's block count
     tombstone_frac: float      # the NEW index's tombstone fraction
     new_blocks: int = 0        # append: blocks added
-    sharded_in_place: bool = False  # append: sharded mirror spliced (no sharding yet)
+    sharded_in_place: bool = False  # append: written into the sharded padding
     refreshed_pivots: bool = False  # compact: pivot tables re-derived
 
 
@@ -123,7 +129,9 @@ def append(
     The new rows get original ids ``[index.next_id, index.next_id + m)``,
     are laid out against the existing pivots and follow the current
     blocks.  Live device mirrors are extended by the new blocks, not
-    rebuilt; the old generation's tensors are left as they were."""
+    rebuilt, and a live sharded view takes them into its padding when they
+    fit (module docstring); the old generation's tensors are left as they
+    were."""
     rows = _engine_rows(index, rows)
     m = rows.shape[0]
     if m == 0:
@@ -146,6 +154,7 @@ def append(
         generation=index.generation + 1,
         next_id=index.next_id + m,
         _device=None,
+        _sharded=None,
         _bf16=None,
         # the margin is a corpus max and new rows can raise it: measured
         # again on the new generation's first bf16 query
@@ -168,6 +177,12 @@ def append(
         # rounded on the host, as ``device_bf16`` rounds the whole corpus
         tail16 = torch.as_tensor(bf16_round_np(tail_data), device=dev)
         new._bf16 = torch.cat([index._bf16, tail16.to(torch.bfloat16)])
+    sharded_in_place = False
+    if index._sharded is not None:
+        ext = index._sharded.extended(new, tail_data, tail_valid, tail_boxes, tail_perm)
+        if ext is not None:
+            new._sharded = ext
+            sharded_in_place = True
 
     return new, MutationStats(
         op="append",
@@ -177,6 +192,7 @@ def append(
         n_blocks=new.n_blocks,
         tombstone_frac=new.tombstone_frac,
         new_blocks=tail_boxes.shape[0],
+        sharded_in_place=sharded_in_place,
     )
 
 
@@ -222,6 +238,7 @@ def delete(
         generation=index.generation + 1,
         tombstones=index.tombstones + int(want.size),
         _device=None,
+        _sharded=None,
         # data is untouched: the bf16 mirror stays valid, and the old
         # margin (a max over a SUPERSET of the live rows) stays sound
         _bf16=index._bf16,
@@ -233,6 +250,8 @@ def delete(
         # is never written, so a query in flight on it reads its own bits
         dev_valid[torch.as_tensor(pos, device=dev_valid.device)] = False
         new._device = index._device._replace(valid=dev_valid)
+    if index._sharded is not None:
+        new._sharded = index._sharded.with_tombstones(new, pos)
 
     return new, MutationStats(
         op="delete",
@@ -301,6 +320,7 @@ def compact(
         generation=index.generation + 1,
         tombstones=0,
         _device=None,
+        _sharded=None,
         _bf16=None,
         _bf16_eps=None,
     )

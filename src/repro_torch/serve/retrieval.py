@@ -23,8 +23,11 @@ registry is served exactly:
 
 The server runs on the CUDA device unless the caller passes ``device=``
 (``"cpu"`` runs the plain ``"torch"`` backend); ``device=None`` raises
-where there is no card.  ``mesh=`` raises: the sharded engine is not
-ported yet (ROADMAP Queue 1 item 6).
+where there is no card.  ``mesh=`` (a ``repro_torch.parallel.ShardMesh``)
+shards the BSS corpus blocks over the mesh's devices: every call then runs
+one pass per shard with the merge on the lead device
+(``repro_torch.parallel.shard_index``), results identical to
+single-device serving.  BSS only: the forest is not sharded.
 
 Index backends
 --------------
@@ -147,13 +150,15 @@ class RetrievalServer:
                  forest_mechanism: str = HILBERT, mesh=None,
                  device=None):
         """``device`` is where the index lives (``None``: the CUDA device,
-        raising without one; ``"cpu"`` for the plain backend)."""
+        raising without one; ``"cpu"`` for the plain backend; with ``mesh``
+        the mesh's lead device).  ``mesh`` shards the BSS index (module
+        docstring)."""
         if index not in ("bss", "forest"):
             raise ValueError(f"index must be bss|forest, got {index!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= shards the BSS engine, which is not ported yet: "
-                "ROADMAP Queue 1 item 6"
+        if mesh is not None and index != "bss":
+            raise ValueError(
+                "mesh= shards the BSS engine; forest serving is single-device"
+                " (ROADMAP work)"
             )
         corpus = np.array(corpus_embeddings, np.float32, copy=True)
         self.metric = metric
@@ -180,7 +185,7 @@ class RetrievalServer:
         else:
             self.index = flat_index.build_bss(
                 metric, corpus, n_pivots=n_pivots, n_pairs=n_pairs,
-                block=block, seed=seed, device=device,
+                block=block, seed=seed, device=device, mesh=mesh,
             )
         self.stats = ServeStats()
         # engine-call metrics (same registry/fold machinery as the async

@@ -30,6 +30,7 @@ from repro_torch.configs import supermetric as t_configs
 from repro_torch.core import backends as t_backends
 from repro_torch.core import flat_index as t_flat
 from repro_torch.core.backends import EngineOpts
+from repro_torch.parallel import ShardMesh
 
 _JNP = REngineOpts(backend="jnp")
 _PALLAS = REngineOpts(backend="pallas", interpret=True, bq=8)
@@ -298,8 +299,16 @@ def test_backend_rules_on_a_cpu_index():
         t_flat.bss_query_batched(t_idx, q, 0.5, opts=EngineOpts(), bq=8)
     with pytest.raises(ValueError, match="auto\\|cuda\\|torch"):
         EngineOpts(backend="pallas")
-    with pytest.raises(NotImplementedError, match="sharded"):
+    # a mesh shards the index (tests/test_torch_sharded.py): one without a
+    # data axis raises, and a one-shard mesh answers as the meshless index
+    with pytest.raises(ValueError, match="data axis"):
+        t_flat.build_bss("l2", db, device="cpu",
+                         mesh=ShardMesh(("cpu",), axis_names=("model",)))
+    with pytest.raises(TypeError, match="ShardMesh"):
         t_flat.build_bss("l2", db, device="cpu", mesh=object())
+    one = dataclasses.replace(t_idx, mesh=ShardMesh(("cpu",)), _device=None)
+    h1, s1 = t_flat.bss_query_batched(one, q, 0.5, backend="torch")
+    assert h1 == auto and s1["engine"] == "sharded" and s1["n_shards"] == 1
     with pytest.raises(ValueError, match="four-point"):
         t_flat.build_bss("l1", db, n_pivots=4, n_pairs=4, block=32, device="cpu")
     with pytest.raises(ValueError, match="per-query t"):

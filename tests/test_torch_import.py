@@ -51,3 +51,33 @@ def test_no_jax_or_reference_import(relpath):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, (relpath, name)
+
+
+def test_sharded_engine_runs_with_jax_absent():
+    """``repro_torch.parallel`` imports, and a mesh-built index answers on
+    CPU shards, in a process where importing jax or ``repro`` fails."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np\n"
+        "from repro_torch.core import flat_index\n"
+        "from repro_torch.parallel import ShardMesh, shard_index\n"
+        "x = np.random.default_rng(0).random((300, 6)).astype(np.float32)\n"
+        "idx = flat_index.build_bss('l2', x[:290], n_pivots=4, n_pairs=4, block=32,\n"
+        "                           mesh=ShardMesh(('cpu',) * 4))\n"
+        "hits, st = flat_index.bss_query_batched(idx, x[290:], 0.4)\n"
+        "ids, _, ks = flat_index.bss_knn_batched(idx, x[290:], 3)\n"
+        "assert st['n_shards'] == ks['n_shards'] == 4 and ids.shape == (10, 3)\n"
+        "assert isinstance(idx.sharded(), shard_index.ShardedBSSIndex)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

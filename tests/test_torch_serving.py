@@ -22,6 +22,7 @@ import torch
 from repro.serve.retrieval import RetrievalServer as JaxServer
 from repro_torch.core.backends import EngineOpts
 from repro_torch.core.npdist import pairwise_np
+from repro_torch.parallel import ShardMesh
 from repro_torch.serve.retrieval import (
     FOREST_IMMUTABLE,
     FOREST_KNN_ERROR,
@@ -154,8 +155,16 @@ def test_score_distance_duality():
 
 def test_unported_options_raise_naming_their_roadmap_items():
     x = _space("l2", 300, seed=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        RetrievalServer(x, metric="l2", mesh=object(), device="cpu")
+    # the mesh shards BSS only (tests/test_torch_sharded.py); a one-shard
+    # mesh answers as the meshless server
+    with pytest.raises(ValueError, match="forest serving is single-device"):
+        RetrievalServer(x, metric="l2", index="forest", mesh=ShardMesh(("cpu",)))
+    one = RetrievalServer(x, metric="l2", mesh=ShardMesh(("cpu",)))
+    plain = RetrievalServer(x, metric="l2", device="cpu")
+    got, want = one.search(x[:7], "knn", k=3), plain.search(x[:7], "knn", k=3)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.distances, want.distances)
+    assert got.stats["engine"] == "sharded" and got.stats["n_shards"] == 1
     with pytest.raises(ValueError, match="bss"):
         RetrievalServer(x, metric="l2", index="tree", device="cpu")
 
