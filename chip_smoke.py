@@ -42,9 +42,13 @@ phase prints its seconds):
    all queries through ``bss_query_batched(backend="cuda")`` in 512-query
    batches at the three thresholds calibrated per metric, under l2, JSD
    and Triangular, with every launch count zeroed just before each
-   metric's run and read just after.  Checked against the plain
-   ``"torch"`` backend on the same card (all queries under l2, the first
-   2,048 under JSD and Triangular) and the numpy oracle on 16 queries: a hit that differs must lie within 1e-5 * max(1, t) of t in
+   metric's run and read just after.  The thresholds are
+   ``calibrate_threshold``'s, read off one distance matrix per metric
+   drawn when the corpus loads (phase 19 holds them bit-equal to
+   ``calibrate_threshold``'s own).  Checked against
+   the plain ``"torch"`` backend on the same card (all queries) and the
+   numpy oracle on 64 queries: a hit that differs must lie within 1e-5 *
+   max(1, t) of t in
    float64, an ``alive`` cell that differs must have its bound within 1e-5
    of t.  For JSD and Triangular, the largest |d_cuda - d_float64| over
    the first batch's cells within ``band_eps`` of each threshold is printed
@@ -52,9 +56,8 @@ phase prints its seconds):
    margin's arithmetic term: a cell over budget fails the run, and so does
    twice the budget over the arithmetic term.  One l2 batch is repeated
    for cosine.  Four batches of each
-   backend (one of the plain JSD and Triangular) run under
-   ``torch.profiler`` and ``cProfile`` (l2 at the narrowest and widest
-   threshold, JSD and Triangular at the widest):
+   backend run under ``torch.profiler`` and ``cProfile`` (l2 at the
+   narrowest and widest threshold, JSD and Triangular at the widest):
    device time and trace events per kernel (sort kernels counted apart),
    host time per operator and Python function, and the device's idle
    share.  Each metric's masked tile of the first batch at the widest
@@ -64,16 +67,18 @@ phase prints its seconds):
    sha256 of its output (bit-equality with another commit).
 5. kNN (k = 10): all queries in 512-query batches through
    ``bss_knn_batched`` under l2, JSD and Triangular on ``"cuda"``, plus one
-   cosine batch; launch counts zeroed and read per metric.  The plain
-   ``"torch"`` backend runs the first four batches (2,048 queries).  Ids must agree
-   between backends and with a float64 brute force on 16 queries, except
+   cosine batch, each on its range path's index; launch counts zeroed and
+   read per metric.  The plain ``"torch"`` backend runs all queries under
+   l2 and the first four batches (2,048 queries) under JSD and
+   Triangular.  Ids must agree
+   between backends and with a float64 brute force on 64 queries, except
    where the two candidates' float64 distances lie within 1e-5 of each
    other (or of the kth); a query whose distance count differs between
    backends must have kth distances within 1e-5.  For JSD and Triangular
-   the returned distances of 16 queries are held to float64 within the
+   the returned distances of 64 queries are held to float64 within the
    error budget, which is also printed at the smallest kth.  The round
    top-k of the first batch is timed alone per round, beside the stable
-   sort it replaced.  One JSD batch on ``"cuda"`` is profiled.
+   sort it replaced.  One JSD batch of each backend is profiled.
 6. bf16 range: ``precision="bf16"`` over all queries on ``"cuda"`` under l2,
    JSD and Triangular at selectivities 1e-5 and 1e-3, through each
    metric's range-path index; launch counts zeroed and read per metric.
@@ -94,7 +99,7 @@ phase prints its seconds):
    the first 90% of the corpus rows, ``append`` the other 10%, ``delete``
    1% of the ids (seeded); at each generation range (selectivity 1e-3)
    and kNN on two batches in fp32 and bf16, bf16 equal to fp32 exactly and
-   fp32 range held to the numpy oracle on 16 queries; then
+   fp32 range held to the numpy oracle on 64 queries; then
    ``compact(refresh_pivots=True)`` must equal a fresh ``build_bss`` over
    the live rows field for field, and so must its hits.  Prints each
    mutation's seconds and ``table_dists``.
@@ -116,7 +121,7 @@ phase prints its seconds):
    tree of the corpus (``build_index(engine="tree")``, encoded for the
    card; build and encode seconds, levels, nodes, leaves), all queries in
    512-query batches at the three l2 thresholds under Hilbert on
-   ``"cuda"``, the first 2,048 on ``"torch"`` too and 16 against the
+   ``"cuda"``, the first 2,048 on ``"torch"`` too and 64 against the
    numpy host walk: a hit that differs must lie within 1e-5 * max(1, t)
    of t in float64, and a query whose ``per_query_dists`` differ must
    have, on its float64 host walk, a predicate within 1e-5 of its
@@ -158,14 +163,31 @@ phase prints its seconds):
    sharded call on its batch; four profiled batches of S = 1 and S = 4
    (l2, JSD at 1e-3); one shard per card where the host has two or more
    (said to be skipped otherwise; a skip is no pass).
-17. One JSON line with every kernel's numbers (``launches`` from the range
+17. Invariants: the port's audit (``repro_torch.analysis.audit``) on the
+   card, every launch count zeroed before and read after: the full matrix
+   (``run_audit(full=True)``: l2, cosine, JSD, Triangular x ``"cuda"`` and
+   ``"torch"`` x realisation x fp32 / bf16 over BSS, sharded BSS on one
+   and two shards, the forest and the monotone walk), every pass under
+   ``torch.cuda.set_sync_debug_mode("error")`` and the audit's list of
+   operators that sync; the rebuild audit through
+   the serving front (``audit_rebuilds``); and one 512-query batch at 1e-3
+   per metric (l2, JSD, Triangular) on the range path's own index through
+   the range pass and one kNN round of each precision (``audit_index``).
+   Any problem fails the run.  Before it, ``calibrate_threshold`` starts
+   in background threads for every (metric, selectivity) of phase 4.
+18. Quickstart: ``examples/torch_quickstart.py --device cuda`` at its own
+   size (10,000 x 64, 100 queries) in a subprocess, which must exit 0.
+19. The threshold check: those ``calibrate_threshold`` values must equal
+   the thresholds the range paths used, bit for bit.
+20. One JSON line with every kernel's numbers (``launches`` from the range
    path of its metric and precision, ``serving_launches`` from the serving
    phase, ``forest_launches`` from the forest phases, which must have
    launched the masked l2, bf16 l2 and JSD tiles, ``sharded_launches``
    from the sharded phases, nonzero for every kernel a shard launches;
-   the unmasked bf16 forms and the d1/d2 form of the planar bound are on
-   no engine path and carry ``"on_main_path": false``), then the result
-   line ``{"ok": true, "device": {...}}``.
+   ``audit_launches`` from the invariants phase, nonzero for every kernel
+   on an engine path; the unmasked bf16 forms and the d1/d2 form of the
+   planar bound are on no engine path and carry ``"on_main_path":
+   false``), then the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -175,6 +197,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+from concurrent.futures import ThreadPoolExecutor
 import json
 import re
 import subprocess
@@ -209,13 +232,11 @@ PLANAR_ISSUED, PLANAR_MINMAX = 9.5, 2.5
 CARD: dict = {}
 
 BATCH = 512
-# Depth of the comparisons cut to make room for the sharded phases (16)
-# and keep the run under 600 s on the slowest host seen (PERF.md §4): the
-# float64 oracles take 16 queries (64 before); the plain "torch" range
-# comparison of JSD and Triangular and every plain kNN comparison their
-# first 4 batches
-ORACLE_QUERIES = 16
-PLAIN_QUERIES = 4 * BATCH
+ORACLE_QUERIES = 64  # queries held to the float64 oracles
+# threads for the float64 host work numpy can split without changing a bit
+# (its array loops release the interpreter lock; the card's host has 8 cores)
+HOST_THREADS = 4
+PLAIN_KNN_BATCHES = 4  # the plain JSD / Triangular kNN: 1.7 s a JSD batch
 KNN_K = 10  # as benchmarks/bss_engine.py runs kNN
 RTOL = ATOL = 1e-5  # as tests/test_kernels.py holds the reference kernels
 # the reference's sweep of the unmasked JSD / Triangular tiles
@@ -776,7 +797,7 @@ def load(np, cfg):
 
 
 def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, metric: str,
-               cfg, backend: str = "cuda") -> dict:
+               cfg, thresholds: "Thresholds", backend: str = "cuda") -> dict:
     """Phase 4 for one metric: SISAP colors at paper size through the cuda
     backend.  Returns the metric's launch counts and its mean live-tile
     share at the widest threshold."""
@@ -784,7 +805,6 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
     from repro_torch.core import flat_index
     from repro_torch.core.backends import EngineOpts
     from repro_torch.core.npdist import pairwise_np
-    from repro_torch.data.metricsets import calibrate_threshold
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.tiles import TILE_BQ
 
@@ -795,10 +815,8 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
     torch.cuda.synchronize()
     log(f"build_bss {metric}: n_pad {index.data.shape[0]} blocks {index.n_blocks} "
         f"planes {index.pairs.shape[0]} in {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    ts = [calibrate_threshold(metric, corpus, s) for s in cfg.selectivities]
-    log(f"{metric} thresholds (selectivity -> t): {dict(zip(cfg.selectivities, ts))} "
-        f"in {time.perf_counter() - t0:.2f} s")
+    ts = thresholds.get(metric)
+    log(f"{metric} thresholds (selectivity -> t): {dict(zip(cfg.selectivities, ts))}")
     nb = index.n_blocks
     nq = len(queries)
 
@@ -841,23 +859,34 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
     # l2: 2 fp32 operations per (i, j, k); JSD / Triangular: one SFU result
     ops_per, rate = (1, CARD["sfu_rate"]) if metric in PROB else (2, FP32_PEAK)
     live_share = 0.0
-    n_plain = min(nq, PLAIN_QUERIES) if metric in PROB else nq
-    for t, sel, ((hits, stats), secs) in zip(ts, cfg.selectivities, cuda_runs):
-        dists, excl = per_query(stats, "per_query_dists"), per_query(stats, "excluded")
-        tiles = [st["tiles_computed"] for st in stats]
+
+    def oracle(t):
+        t0 = time.perf_counter()
+        return flat_index.bss_query(index, queries[:ORACLE_QUERIES], t)[0], \
+            time.perf_counter() - t0
+
+    # the plain backend's timed runs first, with nothing beside them
+    plain_runs = []
+    for t in ts:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        p_hits, _ = run_queries(flat_index, EngineOpts, index, queries[:n_plain], t, "torch")
+        p_hits, _ = run_queries(flat_index, EngineOpts, index, queries, t, "torch")
         torch.cuda.synchronize()
-        plain_secs = time.perf_counter() - t0
+        plain_runs.append((p_hits, time.perf_counter() - t0))
+    # then the float64 oracle of each threshold in a thread of its own,
+    # beside the untimed comparisons (numpy's loops release the lock)
+    pool = ThreadPoolExecutor(len(ts))
+    oracles = [pool.submit(oracle, t) for t in ts]
+    for t, sel, ((hits, stats), secs), (p_hits, plain_secs), o_run in zip(
+            ts, cfg.selectivities, cuda_runs, plain_runs, oracles):
+        dists, excl = per_query(stats, "per_query_dists"), per_query(stats, "excluded")
+        tiles = [st["tiles_computed"] for st in stats]
         alive_c, alive_p = lb[backend] <= np.float32(t), lb["torch"] <= np.float32(t)
         alive_diff = alive_c != alive_p
         bad_alive = int((np.abs(lb["torch"][alive_diff] - t) > BAND).sum())
         n_hit_diff, bad_hits = boundary_hit_diffs(
-            np, pairwise_np, metric, corpus32, queries32, hits[:n_plain], p_hits, t)
-        t0 = time.perf_counter()
-        o_hits, _ = flat_index.bss_query(index, queries[:ORACLE_QUERIES], t)
-        oracle_secs = time.perf_counter() - t0
+            np, pairwise_np, metric, corpus32, queries32, hits, p_hits, t)
+        o_hits, oracle_secs = o_run.result()
         n_or_diff, bad_or = boundary_hit_diffs(
             np, pairwise_np, metric, corpus32, queries32, hits[:ORACLE_QUERIES], o_hits, t)
         n_hits = sum(len(h) for h in hits)
@@ -871,7 +900,7 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
         )
         row = dict(
             selectivity=sel, t=t, queries=nq, seconds=secs, queries_per_s=nq / secs,
-            plain_torch_queries=n_plain, plain_torch_queries_per_s=n_plain / plain_secs,
+            plain_torch_queries=nq, plain_torch_queries_per_s=nq / plain_secs,
             hits=n_hits,
             dists_per_query=float(dists.mean()),
             block_exclusion_rate=float(excl.sum() / (nq * nb)),
@@ -891,6 +920,7 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
         if not np.isfinite(dists).all():
             failures.append(f"{metric} t={t}: non-finite distance counts")
         total_hits += n_hits
+    pool.shutdown()
 
     if total_hits == 0:
         failures.append(f"the {metric} range path found no hits at any threshold")
@@ -902,18 +932,18 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
     try:  # a failed profile fails the run but keeps the checks above
         for t in ((ts[0], ts[-1]) if metric == "l2" else (ts[-1],)):
             for name in (backend, "torch"):
-                # the plain JSD / Triangular pass: one batch (PERF.md §4)
                 prof = profile_batches(
                     torch, lambda qb: flat_index.bss_query_batched(
-                        index, qb, t, opts=EngineOpts(backend=name)), queries,
-                    1 if name == "torch" and metric in PROB else 4, t=t)
+                        index, qb, t, opts=EngineOpts(backend=name)), queries, t=t)
                 log(f"profile {metric} range {name} " + json.dumps(prof))
     except Exception:
         failures.append(f"phase profile {metric} raised:\n{traceback.format_exc()}")
 
+    cosine_index = None
     if metric == "l2":
-        cosine_batch(np, failures, record, dev, corpus, queries32, cfg, backend)
+        cosine_index = cosine_batch(np, failures, record, dev, corpus, queries32, cfg, backend)
     return dict(counts=counts, live_share=live_share, index=index, ts=ts,
+                cosine_index=cosine_index,
                 fp32={t: run for t, (run, _) in zip(ts, cuda_runs)},
                 fp32_secs={t: secs for t, (_, secs) in zip(ts, cuda_runs)},
                 lb=lb[backend])
@@ -1089,8 +1119,9 @@ def prob_small_distances(torch, np, failures: list, dev) -> dict:
     return out
 
 
-def cosine_batch(np, failures, record, dev, corpus, queries32, cfg, backend) -> None:
-    """One cosine range batch on its own index, at the widest selectivity."""
+def cosine_batch(np, failures, record, dev, corpus, queries32, cfg, backend):
+    """One cosine range batch on its own index, at the widest selectivity.
+    Returns the index (the cosine kNN batch runs on it)."""
     from repro_torch.core import flat_index
     from repro_torch.core.backends import EngineOpts
     from repro_torch.core.npdist import pairwise_np
@@ -1119,6 +1150,7 @@ def cosine_batch(np, failures, record, dev, corpus, queries32, cfg, backend) -> 
     log("cosine batch " + json.dumps(row))
     if bad_c or bad_co or row["hits"] == 0:
         failures.append(f"cosine: hits differ away from the threshold: {(bad_c + bad_co)[:10]}")
+    return cindex
 
 
 def knn_id_diffs(np, pairwise_np, metric, corpus, queries, ids_a, ids_b) -> tuple[int, list]:
@@ -1147,21 +1179,23 @@ def knn_id_diffs(np, pairwise_np, metric, corpus, queries, ids_a, ids_b) -> tupl
 
 def brute_force_knn(np, pairwise_np, metric, corpus, queries, k, chunk=8192):
     """(Q, k) ids of the float64 brute force, by ascending distance (lowest
-    id first on ties), over corpus chunks: 64 x 101,414 x 112 float64 is
-    5.8 GB per intermediate whole."""
-    d = np.concatenate([pairwise_np(metric, queries, corpus[s:s + chunk])
-                        for s in range(0, len(corpus), chunk)], axis=1)
+    id first on ties), over corpus chunks (64 x 101,414 x 112 float64 is
+    5.8 GB per intermediate whole), ``HOST_THREADS`` chunks at a time."""
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        d = np.concatenate(list(pool.map(lambda s: pairwise_np(metric, queries,
+                                                               corpus[s:s + chunk]),
+                                         range(0, len(corpus), chunk))), axis=1)
     return np.argsort(d, axis=1, kind="stable")[:, :k]
 
 
-def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metric: str,
-             cfg, backend: str = "cuda", n_queries: int | None = None,
+def knn_path(torch, np, failures: list, record: dict, index, corpus, queries, metric: str,
+             backend: str = "cuda", n_queries: int | None = None,
              plain_batches: int | None = None) -> dict:
     """Phase 5 for one metric: kNN (k = 10) over the queries in 512-query
-    batches on the cuda backend, held to the torch backend (on its first
-    ``plain_batches`` batches, or all) and a float64 brute force.  Returns
-    the metric's launch counts, index and the cuda run's results."""
-    from repro_torch.configs.supermetric import build_index
+    batches on the cuda backend, on the metric's range-path ``index``, held
+    to the torch backend (on its first ``plain_batches`` batches, or all)
+    and a float64 brute force.  Returns the metric's launch counts, index
+    and the cuda run's results."""
     from repro_torch.core import flat_index
     from repro_torch.core.backends import EngineOpts
     from repro_torch.core.npdist import pairwise_np
@@ -1170,10 +1204,6 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
 
     queries = queries[:n_queries] if n_queries else queries
     corpus32, queries32 = corpus.astype(np.float32), queries.astype(np.float32)
-    t0 = time.perf_counter()
-    index = build_index(dataclasses.replace(cfg, metric=metric), corpus, device=dev)
-    _ = index.device
-    log(f"build_bss {metric} for kNN in {time.perf_counter() - t0:.2f} s")
     nq = len(queries)
 
     def run(name, n=nq):
@@ -1243,9 +1273,7 @@ def knn_path(torch, np, failures: list, record: dict, dev, corpus, queries, metr
     log(f"knn {metric} top-k per round " + json.dumps(row["top_k_per_round"]))
     if metric == "jsd":
         try:
-            # the plain backend's rate is the row's plain_torch_queries_per_s
-            # (its profile took ~13 s on a slow host; PERF.md §4)
-            for name in (backend,):
+            for name in (backend, "torch"):
                 prof = profile_batches(
                     torch, lambda qb: flat_index.bss_knn_batched(
                         index, qb, KNN_K, opts=EngineOpts(backend=name)), queries, 1, k=KNN_K)
@@ -1560,15 +1588,20 @@ def living_corpus(torch, np, failures: list, record: dict, dev, corpus, queries,
         return hits, per_query(stats, "per_query_dists"), stats
 
     def check(index, label):
-        h32, d32, _ = range_hits(index, fp32)
-        h16, d16, s16 = range_hits(index, bf16)
-        o_hits, _ = flat_index.bss_query(index, queries32[:ORACLE_QUERIES], t)
+        # the float64 oracle in a thread of its own, beside the card's runs
+        # (the device mirror is built first, by this thread alone)
+        _ = index.device
+        with ThreadPoolExecutor(1) as pool:
+            o_run = pool.submit(flat_index.bss_query, index, queries32[:ORACLE_QUERIES], t)
+            h32, d32, _ = range_hits(index, fp32)
+            h16, d16, s16 = range_hits(index, bf16)
+            k32 = [flat_index.bss_knn_batched(index, queries32[s:s + BATCH], KNN_K, opts=fp32)
+                   for s in (0, BATCH)]
+            k16 = [flat_index.bss_knn_batched(index, queries32[s:s + BATCH], KNN_K, opts=bf16)
+                   for s in (0, BATCH)]
+            o_hits, _ = o_run.result()
         n_or, bad_or = boundary_hit_diffs(np, pairwise_np, metric, corpus32, queries32,
                                           h32[:ORACLE_QUERIES], o_hits, t)
-        k32 = [flat_index.bss_knn_batched(index, queries32[s:s + BATCH], KNN_K, opts=fp32)
-               for s in (0, BATCH)]
-        k16 = [flat_index.bss_knn_batched(index, queries32[s:s + BATCH], KNN_K, opts=bf16)
-               for s in (0, BATCH)]
         knn_same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
                        and a[2]["rounds"] == b[2]["rounds"]
                        and np.array_equal(a[2]["per_query_dists"], b[2]["per_query_dists"])
@@ -2884,6 +2917,141 @@ def sharded_distinct_devices(torch, np, failures: list, record: dict, queries, s
         failures.append("sharded distinct devices: hits differ from the single-device run")
 
 
+class Thresholds:
+    """Each metric's range thresholds at the configuration's selectivities.
+    ``calibrate_threshold`` draws one 200 x 20,000 float64 distance matrix
+    per call, the same for every selectivity; here each metric's matrix is
+    drawn once (``calibration_distances``) and every quantile read off it.
+    ``start_check`` runs ``calibrate_threshold`` itself for every (metric,
+    selectivity) in background threads, during phases that time nothing
+    the host paces, and ``verify`` requires the two bit-equal."""
+
+    def __init__(self, np, corpus, selectivities, metrics):
+        t0 = time.perf_counter()
+        self.corpus, self.selectivities = corpus, tuple(selectivities)
+        self.ts = {}
+        for m in metrics:
+            d = calibration_distances(np, m, corpus)
+            self.ts[m] = [float(np.quantile(d, s)) for s in self.selectivities]
+        self.pool = self.theirs = None
+        log(f"thresholds of {list(metrics)} in {time.perf_counter() - t0:.2f} s")
+
+    def get(self, metric: str) -> list:
+        return self.ts[metric]
+
+    def start_check(self) -> None:
+        from repro_torch.data.metricsets import calibrate_threshold
+
+        # three at a time: a JSD matrix's float64 intermediates take ~15 GB
+        self.pool = ThreadPoolExecutor(max_workers=3)
+        self.theirs = {(m, s): self.pool.submit(calibrate_threshold, m, self.corpus, s)
+                       for s in self.selectivities for m in self.ts}
+
+    def verify(self, failures: list) -> dict:
+        if self.theirs is None:
+            self.start_check()
+        out = {}
+        for m, mine in self.ts.items():
+            theirs = [self.theirs[m, s].result() for s in self.selectivities]
+            out[m] = dict(thresholds=mine, calibrate_threshold=theirs, equal=mine == theirs)
+            if mine != theirs:
+                failures.append(f"{m} thresholds {mine} differ from calibrate_threshold's "
+                                f"{theirs}")
+        self.pool.shutdown()
+        return out
+
+
+def calibration_distances(np, metric: str, corpus, seed: int = 0,
+                          n_query_sample: int = 200, n_data_sample: int = 20_000):
+    """The distances ``calibrate_threshold`` (``repro_torch.data.metricsets``)
+    takes its quantile of, with its defaults: the same draws, the same
+    matrix, the same filter.  JSD and Triangular evaluate each (row,
+    column) on its own, so their rows are split over ``HOST_THREADS``
+    threads; l2 and cosine go through a matmul, whose blocking may follow
+    the shape, so they run whole."""
+    from repro_torch.core.npdist import pairwise_np
+
+    rng = np.random.default_rng(seed)
+    qi = rng.choice(corpus.shape[0], size=min(n_query_sample, corpus.shape[0]), replace=False)
+    di = rng.choice(corpus.shape[0], size=min(n_data_sample, corpus.shape[0]), replace=False)
+    parts = np.array_split(qi, HOST_THREADS if metric in ("jsd", "triangular") else 1)
+    with ThreadPoolExecutor(len(parts)) as pool:
+        rows = list(pool.map(lambda q: pairwise_np(metric, corpus[q], corpus[di]), parts))
+    d = np.concatenate(rows).ravel()
+    return d[d > 1e-12]
+
+
+# every kernel an engine path launches (PERF.md §6 rows 1, 2, 2b, 3b, 5, 6,
+# 6b, 7, 8, 8b): the invariants phase must run each
+AUDIT_PATH = ("pairwise_l2", "masked_pairwise_l2", "masked_pairwise_l2_bf16",
+              "planar_lower_bound_pairs", "pairwise_jsd", "masked_pairwise_jsd",
+              "masked_pairwise_jsd_bf16", "pairwise_tri", "masked_pairwise_tri",
+              "masked_pairwise_tri_bf16")
+
+
+def invariants(torch, np, failures: list, record: dict, queries, paths: dict, cfg) -> dict:
+    """Phase 17: the port's audit on the card (``repro_torch.analysis``).
+    Returns the launch counts of the phase."""
+    from repro_torch.analysis.audit import audit_index, audit_rebuilds, run_audit
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
+    problems = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    found, cells = run_audit(full=True, device=dev)
+    problems += found
+    row = dict(cells=len(cells), matrix_problems=len(found),
+               matrix_seconds=time.perf_counter() - t0,
+               backends=sorted({c["cell"].split("/")[2].split("-")[0] for c in cells}))
+    t0 = time.perf_counter()
+    found, info = audit_rebuilds(device=dev)
+    problems += found
+    row.update(rebuild_problems=len(found), rebuilds=info,
+               rebuild_seconds=time.perf_counter() - t0)
+    t = {m: p["ts"][cfg.selectivities.index(1e-3)] for m, p in paths.items()}
+    for metric in ("l2", "jsd", "triangular"):
+        t0 = time.perf_counter()
+        found, cells = audit_index(paths[metric]["index"], queries[:BATCH], t[metric])
+        problems += found
+        row[f"index_{metric}"] = dict(t=t[metric], cells=cells, problems=len(found),
+                                      seconds=time.perf_counter() - t0)
+    counts = launch_counts()
+    row.update(problems=[p.format() for p in problems], launches=counts)
+    record["invariants"] = row
+    log("invariants " + json.dumps(row))
+    for p in problems:
+        failures.append(f"invariants: {p.format()}")
+    for entry in AUDIT_PATH:
+        if counts.get(entry, 0) <= 0:
+            failures.append(f"invariants: kernel {entry} was not launched by the audit")
+    return counts
+
+
+def quickstart(torch, failures: list, record: dict) -> None:
+    """Phase 18: ``examples/torch_quickstart.py`` on the card at its own size,
+    in a subprocess that must exit 0 (its trace lands in build/quickstart)."""
+    import os
+
+    torch.cuda.empty_cache()  # the subprocess allocates on the same card
+    out_dir = ROOT / "build" / "quickstart"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_quickstart.py"), "--device", "cuda"],
+        env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=out_dir, capture_output=True,
+        text=True, timeout=900,
+    )
+    row = dict(rc=proc.returncode, seconds=time.perf_counter() - t0)
+    record["quickstart"] = row
+    for line in proc.stdout.splitlines():
+        if not line.startswith(("  ", "==")):  # the dashboard of step 12 is long
+            log(f"quickstart: {line}")
+    log("quickstart " + json.dumps(row))
+    if proc.returncode != 0:
+        failures.append(f"quickstart exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+
+
 def plain_l2(torch, np, dev, cfg) -> dict:
     """The plain ``"torch"`` backend's l2 range search on the card: all
     queries at the three calibrated thresholds, in batches of BATCH."""
@@ -2968,7 +3136,7 @@ def main() -> int:
 
     kernels, record, paths, bf16_paths, knns, serving_counts = {}, {}, {}, {}, {}, {}
     forest, forest_counts = {}, {}
-    sharded_s4, sharded_counts = {}, {}
+    sharded_s4, sharded_counts, audit_counts = {}, {}, {}
     dev = torch.device("cuda")
     data = {}
     if "--plain-l2" in sys.argv[1:]:
@@ -3005,17 +3173,22 @@ def main() -> int:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1 if failures else 0
 
+    def load_phase():
+        data["colors"] = load(np, SISAP_COLORS)
+        data["thresholds"] = Thresholds(np, data["colors"][0], SISAP_COLORS.selectivities,
+                                        ("l2", "jsd", "triangular"))
+
     def range_phase(metric):
         paths[metric] = range_path(torch, np, failures, record, dev, *data["colors"],
-                                   metric, SISAP_COLORS)
+                                   metric, SISAP_COLORS, data["thresholds"])
 
     def knn_phase():
         for metric in ("l2", "jsd", "triangular"):
-            # the plain backend takes 1.7 s a JSD batch: its first 4 batches
-            knns[metric] = knn_path(torch, np, failures, record, dev, *data["colors"], metric,
-                                    SISAP_COLORS, plain_batches=PLAIN_QUERIES // BATCH)
-        knn_path(torch, np, failures, record, dev, *data["colors"], "cosine", SISAP_COLORS,
-                 n_queries=BATCH)
+            knns[metric] = knn_path(
+                torch, np, failures, record, paths[metric]["index"], *data["colors"], metric,
+                plain_batches=None if metric == "l2" else PLAIN_KNN_BATCHES)
+        knn_path(torch, np, failures, record, paths["l2"]["cosine_index"], *data["colors"],
+                 "cosine", n_queries=BATCH)
 
     def forest_phase(counts: dict) -> None:
         for k, v in counts.items():
@@ -3030,7 +3203,7 @@ def main() -> int:
         ("kernels", lambda: kernels.update(check_kernels(torch, np, failures, dev))),
         ("prob small distances", lambda: record.update(
             small_distances=prob_small_distances(torch, np, failures, dev))),
-        ("corpus", lambda: data.update(colors=load(np, SISAP_COLORS))),
+        ("corpus", load_phase),
         ("range l2", lambda: range_phase("l2")),
         ("range jsd", lambda: range_phase("jsd")),
         ("range triangular", lambda: range_phase("triangular")),
@@ -3087,6 +3260,14 @@ def main() -> int:
         ("sharded distinct devices", lambda: sharded_distinct_devices(
             torch, np, failures, record, data["colors"][1], paths["l2"],
             paths["l2"]["ts"][SISAP_COLORS.selectivities.index(1e-3)])),
+        # calibrate_threshold's own values for the check below, in background
+        # threads beside phases that time nothing the host paces
+        ("thresholds check start", lambda: data["thresholds"].start_check()),
+        ("invariants", lambda: audit_counts.update(invariants(
+            torch, np, failures, record, data["colors"][1], paths, SISAP_COLORS))),
+        ("quickstart", lambda: quickstart(torch, failures, record)),
+        ("thresholds check", lambda: log("thresholds check " + json.dumps(
+            data["thresholds"].verify(failures)))),
     )
     for phase, fn in phases:
         t0 = time.perf_counter()
@@ -3105,6 +3286,7 @@ def main() -> int:
         rec["serving_launches"] = int(serving_counts.get(metric, {}).get(entry, 0))
         rec["forest_launches"] = int(forest_counts.get(entry, 0))
         rec["sharded_launches"] = int(sharded_counts.get(entry, 0))
+        rec["audit_launches"] = int(audit_counts.get(entry, 0))
         if entry in SHARDED_PATH and rec["sharded_launches"] <= 0:
             failures.append(f"kernel {name} was not launched by the sharded phases")
         if entry in FOREST_PATH and rec["forest_launches"] <= 0:
@@ -3113,6 +3295,8 @@ def main() -> int:
             rec["on_main_path"] = False
         elif rec["launches"] <= 0:
             failures.append(f"kernel {name} was not launched on the main path")
+    log(f"depth: float64 oracles {ORACLE_QUERIES} queries; plain range comparisons all "
+        f"queries; plain kNN l2 all queries, JSD / Triangular {PLAIN_KNN_BATCHES} batches")
     log(f"total: {time.perf_counter() - start:.2f} s")
     log(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}))
     if failures:

@@ -686,16 +686,22 @@ def _cells_exact(
     block: int,
 ):
     """The exact phase over an explicit alive-cell list (the reference's
-    ``_cells_exact_jit``): the hits of the gathered cells, each against its
-    own query's radius ``t[q]``.  Returns (hit_q, hit_pos) device tensors,
-    row-major over (cell, offset) with cells sorted by (query, block), so a
-    query's hits come in ascending position.  The reference's fixed-capacity
-    hit list is an XLA shape; here the list is as long as the hits."""
+    ``_cells_exact_jit``): the (C, block) hit mask of the gathered cells,
+    each against its own query's radius ``t[q]``.  The caller reads the hits
+    off it on the host (``_cell_hits``), as it reads the reference's
+    fixed-capacity hit list: nothing in here waits for the host."""
     d, pvalid = _gather_cell_dists(metric_name, queries, data, valid, qidx, bidx, block)
-    hit = (d <= t[qidx][:, None]) & pvalid & cell_valid[:, None]
+    return (d <= t[qidx][:, None]) & pvalid & cell_valid[:, None]
+
+
+def _cell_hits(hit: torch.Tensor, qidx: torch.Tensor, bidx: torch.Tensor,
+               block: int) -> tuple[np.ndarray, np.ndarray]:
+    """Host (hit_q, hit_pos) of a (C, block) cell hit mask, row-major over
+    (cell, offset) with cells sorted by (query, block), so a query's hits
+    come in ascending position."""
     pos = torch.nonzero(hit.reshape(-1)).squeeze(1)
     cell = pos // block
-    return qidx[cell], bidx[cell] * block + pos % block
+    return qidx[cell].cpu().numpy(), (bidx[cell] * block + pos % block).cpu().numpy()
 
 
 def _cells_exact_bf16(
@@ -716,19 +722,18 @@ def _cells_exact_bf16(
     cells that hold no band point (``t - eps < d16 <= t + eps``), the band
     flag of every cell, and the band points per query.  The caller re-checks
     the band cells through the fp32 ``_cells_exact``, whose values and hit
-    masks are the fp32 realisation's.  Returns (hit_q, hit_pos, band_cell
-    (C,), band_counts (Q,) int32)."""
+    masks are the fp32 realisation's.  Returns (the (C, block) sure-hit mask
+    of the cells without a band point, band_cell (C,), band_counts (Q,)
+    int32)."""
     d, pvalid = _gather_cell_dists(metric_name, queries, data16, valid, qidx, bidx, block)
     ok = pvalid & cell_valid[:, None]
     tq = t[qidx][:, None]
     sure = (d <= tq - eps) & ok
     band = (d <= tq + eps) & ok & ~sure
     band_cell = band.any(dim=1)
-    pos = torch.nonzero((sure & ~band_cell[:, None]).reshape(-1)).squeeze(1)
-    cell = pos // block
     band_counts = torch.zeros(queries.shape[0], dtype=torch.int32, device=d.device)
     band_counts.index_add_(0, qidx, band.sum(dim=1, dtype=torch.int32))
-    return qidx[cell], bidx[cell] * block + pos % block, band_cell, band_counts
+    return sure & ~band_cell[:, None], band_cell, band_counts
 
 
 def _dense_hit_mask(
@@ -1030,23 +1035,24 @@ def _query_cells(index: BSSIndex, metric_name: str, queries: torch.Tensor,
     every band cell re-checked through the fp32 ``_cells_exact``.  Returns
     host (hit_q, hit_pos) in (query, position) order, and the band points
     per query (bf16; None for fp32)."""
-    dev, device = index.device, index.torch_device
+    dev, device, block = index.device, index.torch_device, index.block
     qidx, bidx, cell_valid = _padded_cells(*np.nonzero(alive), device)
     if eps is None:
-        hit_q, hit_pos = _cells_exact(metric_name, queries, dev.data, dev.valid, qidx,
-                                      bidx, cell_valid, t, block=index.block)
-        return hit_q.cpu().numpy(), hit_pos.cpu().numpy(), None
-    hit_q, hit_pos, band_cell, band_counts = _cells_exact_bf16(
+        hit = _cells_exact(metric_name, queries, dev.data, dev.valid, qidx, bidx,
+                           cell_valid, t, block=block)
+        return (*_cell_hits(hit, qidx, bidx, block), None)
+    sure, band_cell, band_counts = _cells_exact_bf16(
         metric_name, queries, index.device_bf16, dev.valid, qidx, bidx, cell_valid, t,
-        torch.tensor(eps, dtype=torch.float32, device=device), block=index.block)
-    hit_q, hit_pos = hit_q.cpu().numpy(), hit_pos.cpu().numpy()
+        torch.tensor(eps, dtype=torch.float32, device=device), block=block)
+    hit_q, hit_pos = _cell_hits(sure, qidx, bidx, block)
     sel = torch.nonzero(band_cell).squeeze(1)
     if sel.numel():
         q2, b2, v2 = _padded_cells(qidx[sel].cpu().numpy(), bidx[sel].cpu().numpy(), device)
-        rq, rp = _cells_exact(metric_name, queries, dev.data, dev.valid, q2, b2, v2, t,
-                              block=index.block)
-        hit_q = np.concatenate([hit_q, rq.cpu().numpy()])
-        hit_pos = np.concatenate([hit_pos, rp.cpu().numpy()])
+        hit = _cells_exact(metric_name, queries, dev.data, dev.valid, q2, b2, v2, t,
+                           block=block)
+        rq, rp = _cell_hits(hit, q2, b2, block)
+        hit_q = np.concatenate([hit_q, rq])
+        hit_pos = np.concatenate([hit_pos, rp])
         order = np.lexsort((hit_pos, hit_q))
         hit_q, hit_pos = hit_q[order], hit_pos[order]
     return hit_q, hit_pos, band_counts.cpu().numpy()

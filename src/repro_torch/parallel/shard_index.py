@@ -90,6 +90,7 @@ from repro_torch.parallel.sharding import ShardMesh, check_mesh, n_shards, shard
 
 __all__ = [
     "ShardedBSSIndex",
+    "shard_bss",
     "sharded_lower_bounds",
     "sharded_query_batched",
     "sharded_knn_batched",
@@ -278,6 +279,14 @@ class ShardedBSSIndex:
         return clone
 
 
+def shard_bss(index: BSSIndex, mesh: ShardMesh) -> ShardedBSSIndex:
+    """Partition a built index's blocks over ``mesh`` (the reference's
+    ``shard_bss``): the :class:`ShardedBSSIndex` that
+    ``sharded_query_batched`` and ``sharded_knn_batched`` serve, the view
+    ``index.sharded(mesh)`` caches."""
+    return index.sharded(mesh)
+
+
 def _resolve(sidx: ShardedBSSIndex, opts, **legacy):
     """The options, the query tile and the backend; ``"cuda"`` is checked on
     every device of the mesh."""
@@ -447,8 +456,9 @@ def _knn_round(sidx: ShardedBSSIndex, metric: str, q_by: dict, radii_by: dict, l
                *, k: int, bq: int, backend: str, eps_by: dict | None = None):
     """One round over every shard (the reference's ``_knn_round_fn``, and
     with ``eps_by`` its ``_knn_round_bf16_fn``).  Returns (cand_idx,
-    cand_dist, alive (Q, n_blocks_pad) on the lead device, recheck_tiles,
-    band_counts (Q,) on the lead device; the last two None for fp32).
+    cand_dist, alive (Q, n_blocks_pad), recheck_tiles (0-d) and band_counts
+    (Q,), all on the lead device; the last two None for fp32).  Nothing in
+    a round waits for the host.
 
     bf16: the shards' bf16 candidates are merged into the GLOBAL bf16 kth
     first — a shard whose own kth16 is loose would re-check too little —
@@ -495,7 +505,7 @@ def _knn_round(sidx: ShardedBSSIndex, metric: str, q_by: dict, radii_by: dict, l
         rtiles.append(rmask.sum())
         bands.append(band.sum(dim=1, dtype=torch.int32)[:, None])
     cand_idx, cand_dist = _merge_top_k(sidx, dists, k)
-    recheck = int(sum(int(r) for r in rtiles))
+    recheck = sum(r.to(sidx.mesh.lead) for r in rtiles)
     return cand_idx, cand_dist, sidx.merged(alives), recheck, sidx.merged(bands).sum(dim=1)
 
 
@@ -584,7 +594,7 @@ def sharded_knn_batched(
         )
         ci, cd, alive_pad = ci.cpu().numpy(), cd.cpu().numpy(), alive_dev.cpu().numpy()
         if bf16:
-            recheck_tiles_total += rtiles
+            recheck_tiles_total += int(rtiles)
             recheck_pq += np.where(~done, band_counts.cpu().numpy(), 0)
         sdist, sblk = sidx.shard_work(alive_pad)
         shard_dists += sdist

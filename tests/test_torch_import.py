@@ -1,5 +1,6 @@
-"""The port (``src/repro_torch``) and ``chip_smoke.py`` import neither jax
-nor any module of the JAX package ``repro``."""
+"""The port (``src/repro_torch``), ``examples/torch_quickstart.py`` and
+``chip_smoke.py`` import neither jax nor any module of the JAX package
+``repro``."""
 
 import ast
 import os
@@ -13,6 +14,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
+QUICKSTART = "examples/torch_quickstart.py"
+# a finder that refuses to import jax or the JAX package
+BLOCK = (
+    "import sys\n"
+    "class Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+    "            raise ImportError(f'{name} is blocked')\n"
+    "sys.meta_path.insert(0, Block())\n"
+)
 
 
 def _modules():
@@ -39,7 +50,7 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("relpath", PORT_FILES + ["chip_smoke.py"])
+@pytest.mark.parametrize("relpath", PORT_FILES + ["chip_smoke.py", QUICKSTART])
 def test_no_jax_or_reference_import(relpath):
     tree = ast.parse((ROOT / relpath).read_text())
     for node in ast.walk(tree):
@@ -81,3 +92,51 @@ def test_sharded_engine_runs_with_jax_absent():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _run_blocked(target: str, args: list[str], cwd) -> subprocess.CompletedProcess:
+    """Run a module (``-m`` style) or a script with jax and ``repro`` blocked;
+    the child exits 3 if either was imported after all."""
+    run = (f"runpy.run_module({target!r}, run_name='__main__')" if not target.endswith(".py")
+           else f"runpy.run_path({str(ROOT / target)!r}, run_name='__main__')")
+    code = (
+        BLOCK
+        + "import runpy\n"
+        + f"sys.argv = [{target!r}, *{args!r}]\n"
+        + "try:\n"
+        + f"    {run}\n"
+        + "    rc = 0\n"
+        + "except SystemExit as e:\n"
+        + "    rc = e.code or 0\n"
+        + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        + "print('imported:', bad)\n"
+        + "sys.exit(3 if bad else rc)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-c", code], env=env, cwd=cwd,
+                          capture_output=True, text=True, timeout=600)
+
+
+@pytest.mark.parametrize("target, args", [
+    ("repro_torch.analysis", ["--device", "cpu"]),
+    (QUICKSTART, ["--device", "cpu", "--corpus", "2000", "--queries", "16"]),
+])
+def test_audit_and_quickstart_run_with_jax_absent(tmp_path, target, args):
+    """The audit's CLI and the quickstart pass on the CPU, their own checks
+    included, in a process where importing jax or ``repro`` fails."""
+    out = _run_blocked(target, args, tmp_path)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
+    assert "imported: []" in out.stdout
+
+
+@pytest.mark.parametrize("target", ["repro_torch.analysis", QUICKSTART])
+def test_audit_and_quickstart_need_a_card_by_default(tmp_path, target):
+    """Without ``--device`` both run on the card, so they raise where there is
+    none."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = _run_blocked(target, [], tmp_path)
+    assert out.returncode not in (0, 3), out.stdout + out.stderr
+    assert "no CUDA device" in out.stderr
