@@ -178,16 +178,50 @@ phase prints its seconds):
 18. Quickstart: ``examples/torch_quickstart.py --device cuda`` at its own
    size (10,000 x 64, 100 queries) in a subprocess, which must exit 0.
 19. The threshold check: those ``calibrate_threshold`` values must equal
-   the thresholds the range paths used, bit for bit.
-20. One JSON line with every kernel's numbers (``launches`` from the range
+   the thresholds the range paths used, bit for bit (which joins their
+   threads before phase 20 times anything).
+20. Two tower: the recsys family's serving path at the full two-tower
+   config (``registry()["two-tower-retrieval"]``: vocab 10^6, bf16, tower
+   MLP 1024-512-256, 256 dims, 8 user and 4 item fields), its weights
+   drawn by ``init_params`` from a CUDA generator seeded 0; parameter bytes
+   and peak device memory.  The bf16 towers on 256 user and 256 item rows
+   against the float32 CPU forward over the same weights: every row's
+   cosine at least 0.999, nearest its own of the CPU rows, and its
+   distance to it at most their median pairwise distance (the untrained
+   rows lie in a narrow cone); a float32 copy of the towers on the card within 1e-5 of
+   the CPU, each row nearest its own CPU row.  1,000,000 items embedded in chunks of 262,144
+   and 512 users (ms a chunk by CUDA events), the corpus's geometry (mean
+   row norm, median pairwise and nearest-neighbour distance of a 4,096-row
+   sample, rows equal to another in bf16).  ``RetrievalServer`` (cosine;
+   16 pivots, 24 planes, 128-row blocks: 7,813 blocks) built on the card;
+   with every launch count zeroed just before and read just after: kNN
+   (k = 10) in fp32 and bf16, ``range_query`` at the min-score whose
+   distance is the 1e-5 quantile of the float64 distances of 64 users, and
+   range in fp32 and bf16.  Then the plain ``"torch"`` backend on all 512
+   users and the float64 brute force on 64, held by the rules of phases 4
+   and 5 (ties within 1e-5 counted, not failed), and bf16 equal to fp32 in
+   every field.  ``forward`` with the index's candidates and
+   ``forward_retrieval_pruned`` (budget 3,136 blocks) on 8 single-user
+   calls: recall of the dense top-10, ms a call.  Rows 1, 3b, 2 (at the
+   path's live share and at 30%) and 2b at these shapes (K = 256) against
+   their plain versions.  Wide&Deep, DIN and DLRM-RM2 at their full
+   configs: one 512-row forward on the card against the float32 CPU
+   forward (relative error within ``CTR_REL``), ``bce_loss``.  The launcher
+   ``python -m repro_torch.launch.serve`` at its defaults and with
+   ``--min-score 0.5``, in subprocesses after the timed calls, each
+   exiting 0.
+21. One JSON line with every kernel's numbers (``launches`` from the range
    path of its metric and precision, ``serving_launches`` from the serving
    phase, ``forest_launches`` from the forest phases, which must have
    launched the masked l2, bf16 l2 and JSD tiles, ``sharded_launches``
    from the sharded phases, nonzero for every kernel a shard launches;
    ``audit_launches`` from the invariants phase, nonzero for every kernel
-   on an engine path; the unmasked bf16 forms and the d1/d2 form of the
-   planar bound are on no engine path and carry ``"on_main_path":
-   false``), then the result line ``{"ok": true, "device": {...}}``.
+   on an engine path; ``two_tower_launches`` from phase 20's serving
+   calls, nonzero for rows 1, 2, 2b and 3b, whose records also carry
+   ``two_tower``: their numbers at that path's shapes; the unmasked bf16
+   forms and the d1/d2 form of the planar bound are on no engine path and
+   carry ``"on_main_path": false``), then the result line ``{"ok": true,
+   "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -360,6 +394,89 @@ def simplex(np, rng, n, k):
     return (x / x.sum(axis=1, keepdims=True)).astype(np.float32)
 
 
+def random_mask(np, rng, shape, share: float, dead_row: bool = True):
+    """A (query tiles, blocks) tile mask, each tile live with probability
+    ``share``; tile row 1 all dead (the dead-tile path) if ``dead_row``."""
+    mask = rng.random(shape) < share
+    if dead_row:
+        mask[1] = False
+    return mask
+
+
+def tile_bound(metric: str, q: int, n: int, k: int, y_bytes: int = 4) -> tuple[float, str]:
+    """bound_ms of an unmasked (Q, N) tile: x, y and the output once; l2
+    does 2 operations an (i, j, k) plus its norms and epilogue at the fp32
+    peak, JSD / Triangular one SFU result an (i, j, k)."""
+    n_bytes = 4 * (q * k + q * n) + y_bytes * n * k
+    if metric == "l2":
+        return bound_ms(n_bytes, 2 * q * n * k + 2 * (q + n) * k + 4 * q * n)
+    return bound_ms(n_bytes, q * n * k, CARD["sfu_rate"])
+
+
+def masked_tile_bound(metric: str, mask_np, q: int, n: int, k: int, bq: int, blk: int,
+                      y_bytes: int = 4) -> tuple[float, str]:
+    """bound_ms of a masked (Q, N) tile: the rows of x and of y that a live
+    tile reads, the output and the mask once; the operations of the live
+    tiles alone (l2: 2 an (i, j, k) at the fp32 peak; JSD / Triangular: one
+    SFU result)."""
+    live = int(mask_np.sum()) * bq * blk
+    rows = int(mask_np.any(axis=1).sum()) * bq
+    cols = int(mask_np.any(axis=0).sum()) * blk
+    n_bytes = 4 * (rows * k + q * n + mask_np.size) + y_bytes * cols * k
+    if metric == "l2":
+        return bound_ms(n_bytes, 2 * live * k)
+    return bound_ms(n_bytes, live * k, CARD["sfu_rate"])
+
+
+def planar_pairs_bound(q: int, p: int, m: int, b: int) -> tuple[float, str]:
+    """bound_ms of the pairs form of the planar bound (row 3b): the (Q, P)
+    query -> pivot matrix, the int64 pairs, the deltas and the boxes."""
+    return planar_bound_ms(q, m, b, 4 * q * p + 8 * 2 * m + 4 * (m + 4 * b * m))
+
+
+def l2_pivot_check(torch, x, piv, plain_iters: int) -> tuple[dict, bool]:
+    """Row 1, the unmasked l2 tile, on (x, piv) against its plain version:
+    (its numbers, within RTOL / ATOL with the same +inf)."""
+    from repro_torch.kernels import pairwise_dist as pdist
+    from repro_torch.kernels import ref
+
+    err, same_inf, close = compare(torch, pdist.pairwise_l2_kernel_call(x, piv),
+                                   ref.pairwise_l2_ref(x, piv))
+    nb, by = tile_bound("l2", x.shape[0], piv.shape[0], x.shape[1])
+    return dict(max_abs_err=err, ms=device_ms(torch, lambda: pdist.pairwise_l2_kernel_call(x, piv)),
+                plain_ms=time_ms(torch, lambda: ref.pairwise_l2_ref(x, piv), plain_iters),
+                bound_ms=nb, bound_by=by,
+                library_ms=device_ms(torch, lambda: torch.cdist(x, piv))), same_inf and close
+
+
+def masked_check(torch, metric: str, x, y, mask_np, bq: int, blk: int, iters: int = 20,
+                 plain_iters: int = 20) -> tuple[dict, bool]:
+    """Rows 2, 5, 7 (and their bf16 ``y`` forms): the masked tile of
+    ``metric`` on (x, y, mask) against its plain version, timed between
+    CUDA events beside ``torch.cdist`` for l2: (its numbers, within RTOL /
+    ATOL with the same +inf)."""
+    from repro_torch.kernels import pairwise_dist as pdist
+    from repro_torch.kernels import ref
+
+    dense = {"l2": ref.pairwise_l2_ref, "jsd": ref.pairwise_jsd_ref,
+             "triangular": ref.pairwise_tri_ref}[metric]
+    mask = torch.as_tensor(mask_np, device=x.device)
+
+    def kernel():
+        return pdist.masked_pairwise_kernel_call(metric, x, y, mask, bm=bq, bn=blk)
+
+    def plain():
+        return ref.masked_pairwise_metric_ref(dense(x, y), mask, bq, blk)
+
+    err, same_inf, close = compare(torch, kernel(), plain())
+    (q, k), n = x.shape, y.shape[0]
+    nb, by = masked_tile_bound(metric, mask_np, q, n, k, bq, blk, y.element_size())
+    return dict(max_abs_err=err, ms=time_ms(torch, kernel, iters),
+                plain_ms=time_ms(torch, plain, plain_iters), bound_ms=nb, bound_by=by,
+                library_ms=(time_ms(torch, lambda: torch.cdist(x, y.float()), iters)
+                            if metric == "l2" else None)), same_inf and close
+
+
 # the main path's shapes: a 512-query batch, 16 pivots, 112 dimensions,
 # 101,504 padded corpus rows in 793 blocks of 128, 24 planes, query tile 128
 MAIN_SHAPES = dict(q=512, p=16, k=112, n=101_504, m=24, b=793, bq=128, blk=128)
@@ -500,29 +617,20 @@ def check_kernels(torch, np, failures: list, dev, shapes=MAIN_SHAPES) -> dict:
 
     # query -> pivot distances (Q x P)
     x, piv = normal(q, k), normal(p, k)
-    got = pdist.pairwise_l2_kernel_call(x, piv)
-    want = ref.pairwise_l2_ref(x, piv)
-    err, same_inf, close = compare(torch, got, want)
-    nb, no = bound_ms(4 * (q * k + p * k + q * p), 2 * q * p * k + 2 * (q + p) * k + 4 * q * p)
-    out["pairwise_l2"] = _row(
-        failures, "pairwise_l2", "pairwise_l2", False, err, same_inf and close,
-        ms=device_ms(torch, lambda: pdist.pairwise_l2_kernel_call(x, piv)),
-        plain_ms=time_ms(torch, lambda: ref.pairwise_l2_ref(x, piv), 200),
-        bound_ms=nb, bound_by=no,
-        library_ms=device_ms(torch, lambda: torch.cdist(x, piv)),
-    )
+    numbers, ok = l2_pivot_check(torch, x, piv, 200)
+    out["pairwise_l2"] = _row(failures, "pairwise_l2", "pairwise_l2", False,
+                              numbers.pop("max_abs_err"), ok, **numbers)
 
     # planar bound (Q x B), both forms on the same inputs
     dqp, pairs, d1, d2, deltas, boxes = planar_inputs(torch, np, dev, shapes)
-    for name, fn, in_bytes in (
+    for name, fn, (nb, no) in (
             ("planar_lower_bound", lambda: planar.planar_lower_bound_kernel_call(
-                d1, d2, deltas, boxes), 4 * 2 * q * m),
+                d1, d2, deltas, boxes), planar_bound_ms(q, m, b, 4 * (2 * q * m + m + 4 * b * m))),
             ("planar_lower_bound_pairs", lambda: planar.planar_lower_bound_pairs_kernel_call(
-                dqp, pairs, deltas, boxes), 4 * q * p + 8 * 2 * m)):
+                dqp, pairs, deltas, boxes), planar_pairs_bound(q, p, m, b))):
         got = fn()
         want = ref.planar_lower_bound_ref(d1, d2, deltas, boxes)
         err, same_inf, _ = compare(torch, got, want)
-        nb, no = planar_bound_ms(q, m, b, in_bytes + 4 * (m + 4 * b * m))
         out[name] = dict(
             name=name, route="cuda", source="src/repro_torch/csrc/planar_exclusion.cu",
             replaces="src/repro/kernels/planar_exclusion.py:105", max_abs_err=err,
@@ -541,23 +649,10 @@ def check_kernels(torch, np, failures: list, dev, shapes=MAIN_SHAPES) -> dict:
 
     # masked exact phase (Q x n_pad), ~30% live tiles, one all-dead tile row
     y = normal(n, k)
-    mask_np = rng.random((-(-q // bq), -(-n // blk))) < 0.3
-    mask_np[1] = False
-    mask = torch.as_tensor(mask_np, device=dev)
-    got = pdist.masked_pairwise_l2_kernel_call(x, y, mask, bm=bq, bn=blk)
-    want = ref.masked_pairwise_l2_ref(x, y, mask, bq, blk)
-    err, same_inf, close = compare(torch, got, want)
-    live = int(mask_np.sum()) * bq * blk
-    rows = int(mask_np.any(axis=1).sum()) * bq
-    cols = int(mask_np.any(axis=0).sum()) * blk
-    nb, no = bound_ms(4 * (rows * k + cols * k + q * n + mask_np.size), 2 * live * k)
-    out["masked_pairwise_l2"] = _row(
-        failures, "masked_pairwise_l2", "pairwise_l2", True, err, same_inf and close,
-        ms=time_ms(torch, lambda: pdist.masked_pairwise_l2_kernel_call(x, y, mask, bm=bq, bn=blk)),
-        plain_ms=time_ms(torch, lambda: ref.masked_pairwise_l2_ref(x, y, mask, bq, blk)),
-        bound_ms=nb, bound_by=no,
-        library_ms=time_ms(torch, lambda: torch.cdist(x, y)),
-    )
+    mask_np = random_mask(np, rng, (-(-q // bq), -(-n // blk)), 0.3)
+    numbers, ok = masked_check(torch, "l2", x, y, mask_np, bq, blk)
+    out["masked_pairwise_l2"] = _row(failures, "masked_pairwise_l2", "pairwise_l2", True,
+                                     numbers.pop("max_abs_err"), ok, **numbers)
 
     # JSD / Triangular query -> pivot tiles (Q x P) on simplex rows
     xs, pivs = (torch.as_tensor(simplex(np, rng, r, k), device=dev) for r in (q, p))
@@ -565,7 +660,7 @@ def check_kernels(torch, np, failures: list, dev, shapes=MAIN_SHAPES) -> dict:
         plain = ref.pairwise_jsd_ref if metric == "jsd" else ref.pairwise_tri_ref
         got = pdist.pairwise_kernel_call(metric, xs, pivs)
         err, same_inf, close = compare(torch, got, plain(xs, pivs), PROB_RTOL, PROB_ATOL)
-        nb, no = bound_ms(4 * (q * k + p * k + q * p), q * p * k, CARD["sfu_rate"])
+        nb, no = tile_bound(metric, q, p, k)
         out[entry] = _row(
             failures, entry, entry, False, err, same_inf and close,
             ms=device_ms(torch, lambda: pdist.pairwise_kernel_call(metric, xs, pivs)),
@@ -578,7 +673,7 @@ def check_kernels(torch, np, failures: list, dev, shapes=MAIN_SHAPES) -> dict:
     ys = torch.as_tensor(simplex(np, rng, n, k), device=dev)
     got = ops.pairwise_jsd(xs, ys)
     err, same_inf, close = compare(torch, got, ref.pairwise_jsd_ref(xs, ys), PROB_RTOL, PROB_ATOL)
-    nb, no = bound_ms(4 * (q * k + n * k + q * n), q * n * k, CARD["sfu_rate"])
+    nb, no = tile_bound("jsd", q, n, k)
     out["ops.pairwise_jsd"] = dict(
         _row(failures, "ops.pairwise_jsd", "pairwise_jsd", False, err, same_inf and close,
              ms=time_ms(torch, lambda: ops.pairwise_jsd(xs, ys), 10),
@@ -595,39 +690,18 @@ def check_masked_prob(torch, np, failures: list, dev, live_share: dict,
     """Phase 3, second half: the masked JSD / Triangular tiles at the
     exact phase's shapes and at the live-tile share their range path ran
     with (one all-dead tile row)."""
-    from repro_torch.kernels import pairwise_dist as pdist
-    from repro_torch.kernels import ref
-
     rng = np.random.default_rng(1)
     q, k, n, bq, blk = (shapes[s] for s in ("q", "k", "n", "bq", "blk"))
     x = torch.as_tensor(simplex(np, rng, q, k), device=dev)
     y = torch.as_tensor(simplex(np, rng, n, k), device=dev)
     out = {}
     for metric, entry in PROB.items():
-        mask_np = rng.random((-(-q // bq), -(-n // blk))) < live_share[metric]
-        mask_np[1] = False
+        mask_np = random_mask(np, rng, (-(-q // bq), -(-n // blk)), live_share[metric])
         log(f"masked {metric}: live tile share {float(mask_np.mean()):.5f} (the range "
             f"path's {live_share[metric]:.5f}, one of {mask_np.shape[0]} tile rows dead)")
-        mask = torch.as_tensor(mask_np, device=dev)
-        dense = ref.pairwise_jsd_ref if metric == "jsd" else ref.pairwise_tri_ref
-
-        def plain():
-            return ref.masked_pairwise_metric_ref(dense(x, y), mask, bq, blk)
-
-        got = pdist.masked_pairwise_kernel_call(metric, x, y, mask, bm=bq, bn=blk)
-        err, same_inf, close = compare(torch, got, plain())
-        live = int(mask_np.sum()) * bq * blk
-        rows = int(mask_np.any(axis=1).sum()) * bq
-        cols = int(mask_np.any(axis=0).sum()) * blk
-        nb, no = bound_ms(4 * (rows * k + cols * k + q * n + mask_np.size), live * k,
-                          CARD["sfu_rate"])
-        out["masked_" + entry] = _row(
-            failures, "masked_" + entry, entry, True, err, same_inf and close,
-            ms=time_ms(torch, lambda: pdist.masked_pairwise_kernel_call(
-                metric, x, y, mask, bm=bq, bn=blk), 10),
-            plain_ms=time_ms(torch, plain, 5),
-            bound_ms=nb, bound_by=no, library_ms=None,
-        )
+        numbers, ok = masked_check(torch, metric, x, y, mask_np, bq, blk, 10, 5)
+        out["masked_" + entry] = _row(failures, "masked_" + entry, entry, True,
+                                      numbers.pop("max_abs_err"), ok, **numbers)
         log_kernel(out["masked_" + entry])
     return out
 
@@ -1177,15 +1251,30 @@ def knn_id_diffs(np, pairwise_np, metric, corpus, queries, ids_a, ids_b) -> tupl
     return n_diff, bad
 
 
-def brute_force_knn(np, pairwise_np, metric, corpus, queries, k, chunk=8192):
-    """(Q, k) ids of the float64 brute force, by ascending distance (lowest
-    id first on ties), over corpus chunks (64 x 101,414 x 112 float64 is
-    5.8 GB per intermediate whole), ``HOST_THREADS`` chunks at a time."""
+def oracle_distances(np, pairwise_np, metric, queries, corpus, chunk=8192):
+    """float64 distances (Q, N) over corpus chunks (a JSD intermediate of 64
+    x 101,414 x 112 float64 is 5.8 GB whole), ``HOST_THREADS`` chunks at a
+    time."""
     with ThreadPoolExecutor(HOST_THREADS) as pool:
-        d = np.concatenate(list(pool.map(lambda s: pairwise_np(metric, queries,
-                                                               corpus[s:s + chunk]),
-                                         range(0, len(corpus), chunk))), axis=1)
-    return np.argsort(d, axis=1, kind="stable")[:, :k]
+        return np.concatenate(list(pool.map(
+            lambda s: pairwise_np(metric, queries, corpus[s:s + chunk]),
+            range(0, len(corpus), chunk))), axis=1)
+
+
+def oracle_top_k(np, d, k: int):
+    """(Q, k) ids by ascending float64 distance, lowest id first on ties:
+    ``np.argsort(d, kind="stable")[:, :k]`` without sorting whole rows."""
+    kth = np.partition(d, k - 1, axis=1)[:, k - 1]
+    out = []
+    for row, t in zip(d, kth):
+        ids = np.nonzero(row <= t)[0]
+        out.append(ids[np.argsort(row[ids], kind="stable")][:k])
+    return np.stack(out)
+
+
+def brute_force_knn(np, pairwise_np, metric, corpus, queries, k):
+    """(Q, k) ids of the float64 brute force (``oracle_top_k``)."""
+    return oracle_top_k(np, oracle_distances(np, pairwise_np, metric, queries, corpus), k)
 
 
 def knn_path(torch, np, failures: list, record: dict, index, corpus, queries, metric: str,
@@ -1439,12 +1528,8 @@ def check_bf16_kernels(torch, np, failures: list, dev, live_share: dict,
     out = {}
     plain_of = {"l2": ref.pairwise_l2_ref, "jsd": ref.pairwise_jsd_ref,
                 "triangular": ref.pairwise_tri_ref}
-    # operations per (i, j, k) and their rate
-    ops_of = {"l2": (2, FP32_PEAK), "jsd": (1, CARD["sfu_rate"]),
-              "triangular": (1, CARD["sfu_rate"])}
     for metric, plain in plain_of.items():
         entry = PROB.get(metric, "pairwise_l2")
-        ops_per, rate = ops_of[metric]
 
         def make(r, metric=metric):
             if metric == "l2":
@@ -1457,9 +1542,7 @@ def check_bf16_kernels(torch, np, failures: list, dev, live_share: dict,
         got = pdist.pairwise_kernel_call(metric, x, piv16)
         tol = (RTOL, ATOL) if metric == "l2" else (PROB_RTOL, PROB_ATOL)
         err, same_inf, close = compare(torch, got, plain(x, piv16), *tol)
-        extra_ops = 2 * (q + p) * k + 4 * q * p if metric == "l2" else 0
-        nb_, no_ = bound_ms(4 * (q * k + q * p) + 2 * p * k,
-                            ops_per * q * p * k + extra_ops, rate)
+        nb_, no_ = tile_bound(metric, q, p, k, y_bytes=2)
         out[entry + "_bf16"] = _row(
             failures, entry + "_bf16", entry, False, err, same_inf and close,
             ms=device_ms(torch, lambda: pdist.pairwise_kernel_call(metric, x, piv16)),
@@ -1470,31 +1553,15 @@ def check_bf16_kernels(torch, np, failures: list, dev, live_share: dict,
         )
         # masked: the exact phase's shapes at the path's live-tile share
         y16 = make(n).bfloat16()
-        mask_np = rng.random((-(-q // bq), -(-n // blk))) < live_share[metric]
-        mask_np[1] = False
-        mask = torch.as_tensor(mask_np, device=dev)
+        mask_np = random_mask(np, rng, (-(-q // bq), -(-n // blk)), live_share[metric])
         log(f"masked {metric} bf16: live tile share {float(mask_np.mean()):.5f} (the bf16 range "
             f"path's {live_share[metric]:.5f}, one of {mask_np.shape[0]} tile rows dead)")
-
-        def plain_masked():
-            return ref.masked_pairwise_metric_ref(plain(x, y16), mask, bq, blk)
-
-        got = pdist.masked_pairwise_kernel_call(metric, x, y16, mask, bm=bq, bn=blk)
-        err, same_inf, close = compare(torch, got, plain_masked())
-        live = int(mask_np.sum()) * bq * blk
-        rows = int(mask_np.any(axis=1).sum()) * bq
-        cols = int(mask_np.any(axis=0).sum()) * blk
-        nb_, no_ = bound_ms(4 * (rows * k + q * n + mask_np.size) + 2 * cols * k,
-                            ops_per * live * k, rate)
         heavy = metric != "l2"
+        numbers, ok = masked_check(torch, metric, x, y16, mask_np, bq, blk,
+                                   10 if heavy else 20, 5 if heavy else 20)
         out["masked_" + entry + "_bf16"] = _row(
-            failures, "masked_" + entry + "_bf16", entry, True, err, same_inf and close,
-            ms=time_ms(torch, lambda: pdist.masked_pairwise_kernel_call(
-                metric, x, y16, mask, bm=bq, bn=blk), 10 if heavy else 20),
-            plain_ms=time_ms(torch, plain_masked, 5 if heavy else 20),
-            bound_ms=nb_, bound_by=no_,
-            library_ms=None if heavy else time_ms(torch, lambda: torch.cdist(x, y16.float())),
-        )
+            failures, "masked_" + entry + "_bf16", entry, True, numbers.pop("max_abs_err"), ok,
+            **numbers)
     after = launch_counts()
     for name, rec in out.items():
         rec["check_launches"] = after[name] - before[name]
@@ -3078,6 +3145,455 @@ def plain_l2(torch, np, dev, cfg) -> dict:
     return out
 
 
+# The two-tower path at the full TWO_TOWER config (PERF.md §4): 10^6 items
+# (the retrieval_cand cell), embedded in serve_bulk chunks, and 512 users
+# (serve_p99); the float64 oracles on 64 users; the pruned forward on 8
+# single-user calls (its gather is (Q, budget, 128, 256) float32).
+TT_SIZES = dict(items=1_000_000, users=512, chunk=262_144, oracle=64, sample=4096,
+                tower_rows=256, pruned_users=8, budget=3136, ctr_rows=512, quantile=1e-5)
+# every kernel the two-tower path launches (PERF.md §6 rows 1, 2, 2b, 3b)
+TWO_TOWER_PATH = ("pairwise_l2", "masked_pairwise_l2", "masked_pairwise_l2_bf16",
+                  "planar_lower_bound_pairs")
+TOWER_MIN_COS = 0.999  # a bf16 tower row against the float32 CPU row
+# The untrained full-config rows lie in a narrow cone: two different items
+# are ~0.007 apart (median pairwise distance), so the cosine alone cannot
+# tell a wrong row.  A bf16 row must also lie nearest its own of the CPU
+# rows, and within this share of their median pairwise distance of it: its
+# rounding alone (2**-9 of each output element) may move it ~0.002, up to
+# ~0.6 of that distance, while a wrong row lies at a pairwise distance, over
+# the median for half the rows.  The card's float32 copy of the towers must
+# lie within ATOL of the CPU and nearest its own CPU row.
+TOWER_BF16_SHARE = 1.0
+# a bf16 CTR forward against the float32 one over the same weights: each
+# layer's output rounds to bf16 (relative 2**-9), through up to five layers
+# and a final sum that may cancel; held relative to the largest |logit|
+CTR_REL = 5e-2
+
+
+def event_ms(torch, fn):
+    """(fn(), its ms between CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def start_launchers() -> list:
+    """``python -m repro_torch.launch.serve`` at its defaults and with
+    ``--min-score 0.5`` on the card, in subprocesses started together."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return [(args, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for args in ([], ["--min-score", "0.5"])]
+
+
+def finish_launchers(failures: list, procs: list) -> list:
+    rows = []
+    for args, proc in procs:
+        out, err = proc.communicate(timeout=600)
+        rows.append(dict(args=args, rc=proc.returncode, stdout=out.strip().splitlines()))
+        if proc.returncode != 0:
+            failures.append(f"two tower: launcher {args} exited {proc.returncode}:\n"
+                            f"{err[-4000:]}")
+    return rows
+
+
+def tower_check(torch, np, failures, model, card32, cpu, ids, ids_dev, tower: str) -> dict:
+    """One tower's rows on the card, bf16 (``model``) and float32
+    (``card32``), against the float32 CPU copy over the same weights, held
+    to the scale of the cone (``TOWER_BF16_SHARE``)."""
+    with torch.inference_mode():
+        got = getattr(model, tower)(ids_dev).float().cpu().numpy()
+        got32 = getattr(card32, tower)(ids_dev).cpu().numpy()
+        want = getattr(cpu, tower)(torch.as_tensor(ids)).numpy()
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    apart = pairwise_dist_np(np, want, want)
+    median_pairwise = float(np.median(apart[np.triu_indices(len(want), 1)]))
+    d16, d32 = pairwise_dist_np(np, got, want), pairwise_dist_np(np, got32, want)
+    own = np.arange(len(want))
+    row = dict(rows=len(ids), max_abs_err=float(np.abs(got - want).max()),
+               min_cosine=float(cos.min()), median_pairwise=median_pairwise,
+               bf16_max_row_dist=float(d16[own, own].max()),
+               bf16_max_row_share=float(d16[own, own].max()) / median_pairwise,
+               bf16_nearest_own_share=float((d16.argmin(1) == own).mean()),
+               fp32_max_abs_err=float(np.abs(got32 - want).max()),
+               fp32_nearest_own=bool((d32.argmin(1) == own).all()),
+               finite=bool(np.isfinite(got).all() and np.isfinite(got32).all()))
+    if not (row["finite"] and row["min_cosine"] >= TOWER_MIN_COS
+            and row["bf16_max_row_share"] <= TOWER_BF16_SHARE
+            and row["bf16_nearest_own_share"] == 1.0
+            and row["fp32_max_abs_err"] <= ATOL and row["fp32_nearest_own"]):
+        failures.append(f"two tower: {tower} on the card against the CPU: {row}")
+    return row
+
+
+def pairwise_dist_np(np, a, b):
+    """(len(a), len(b)) l2 distances of float32 rows, by their differences."""
+    return np.linalg.norm(a[:, None, :] - b[None, :, :], axis=2)
+
+
+def corpus_geometry(torch, np, corpus16, rng, sample: int) -> dict:
+    """How collapsed the embedded corpus is: the norm of its mean row, the
+    median pairwise and nearest-neighbour distance (to the whole corpus) of
+    a sample, and the rows equal to another row in bf16."""
+    cf = corpus16.float()
+    idx = torch.as_tensor(np.sort(rng.choice(len(cf), sample, replace=False)),
+                          device=cf.device)
+    xs = cf[idx]
+    nn_d = []
+    for s in range(0, sample, 512):
+        d = torch.cdist(xs[s:s + 512], cf)
+        d[torch.arange(d.shape[0], device=d.device), idx[s:s + 512]] = torch.inf
+        nn_d.append(d.min(dim=1).values)
+    pair = torch.cdist(xs, xs)
+    iu = torch.triu_indices(sample, sample, 1, device=cf.device)
+    _, counts = torch.unique(corpus16.view(torch.int16), dim=0, return_counts=True)
+    cn = cf / torch.linalg.norm(cf, dim=1, keepdim=True)
+    return dict(sample=sample, mean_row_norm=float(torch.linalg.norm(cn.mean(0))),
+                median_pairwise=float(pair[iu[0], iu[1]].median()),
+                median_nearest_neighbour=float(torch.cat(nn_d).median()),
+                rows_equal_to_another_in_bf16=int(counts[counts > 1].sum()),
+                distinct_bf16_rows=int(counts.numel()))
+
+
+def kth_ties(np, d, k: int) -> int:
+    """Items beyond the kth of each row whose float64 distance lies within
+    BAND of the kth: ids any exact engine may return in its place."""
+    kth = np.partition(d, k - 1, axis=1)[:, k - 1:k]
+    return int(((np.abs(d - kth) <= BAND).sum(axis=1) - 1).sum())
+
+
+def two_tower_kernels(torch, np, failures: list, index, q_eng, live: dict) -> dict:
+    """Rows 1, 3b, 2 and 2b of PERF.md §6 at the two-tower path's shapes
+    (512 queries, 16 pivots, K = 256, 7,813 blocks, 24 planes) on the
+    path's own index and queries, against their plain versions: row 2 at
+    the path's live-tile share (a random mask at that share) and at a 30%
+    random mask with one dead tile row, row 2b at the bf16 path's share."""
+    from repro_torch.kernels import pairwise_dist as pdist
+    from repro_torch.kernels import planar_exclusion as planar
+    from repro_torch.kernels import ref
+
+    dev = index.device
+    x = torch.as_tensor(q_eng, device=index.torch_device)
+    q, k = x.shape
+    p, m, b = dev.pivots.shape[0], dev.pairs.shape[0], index.n_blocks
+    n, blk, bq = dev.data.shape[0], index.block, 128
+    numbers, ok = l2_pivot_check(torch, x, dev.pivots, 50)
+    out = {"pairwise_l2": dict(shape=[q, p, k], ok=ok, **numbers)}
+    dqp = pdist.pairwise_l2_kernel_call(x, dev.pivots)
+
+    def bound():
+        return planar.planar_lower_bound_pairs_kernel_call(dqp, dev.pairs, dev.deltas, dev.boxes)
+
+    def plain_bound():
+        return ref.planar_lower_bound_pairs_ref(dqp, dev.pairs, dev.deltas, dev.boxes)
+
+    got, want = bound(), plain_bound()
+    err, same_inf, _ = compare(torch, got, want)
+    nb, by = planar_pairs_bound(q, p, m, b)
+    out["planar_lower_bound_pairs"] = dict(
+        shape=[q, b, m], max_abs_err=err, ok=same_inf and bool(torch.equal(got, want)),
+        ms=device_ms(torch, bound), plain_ms=time_ms(torch, plain_bound, 20),
+        bound_ms=nb, bound_by=by, library_ms=None)
+    rng = np.random.default_rng(5)
+    shape = (-(-q // bq), -(-n // blk))
+    for key, y, share in (("masked_pairwise_l2", dev.data, live["fp32"]),
+                          ("masked_pairwise_l2@0.3", dev.data, 0.3),
+                          ("masked_pairwise_l2_bf16", index.device_bf16, live["bf16"])):
+        # the dead-tile path at K = 256 under the 30% mask
+        mask_np = random_mask(np, rng, shape, share, dead_row=share == 0.3)
+        numbers, ok = masked_check(torch, "l2", x, y, mask_np, bq, blk, 10, 2)
+        out[key] = dict(shape=[q, n, k], live_share=float(mask_np.mean()), ok=ok, **numbers)
+    for key, rec in out.items():
+        log(f"two tower kernel {key}: " + json.dumps(rec))
+        if not rec["ok"]:
+            failures.append(f"two tower: kernel {key} disagrees with its plain version: {rec}")
+    return out
+
+
+def ctr_forwards(torch, np, failures: list, dev, rows: int) -> dict:
+    """The three CTR models at their full configs: one serve_p99 forward on
+    the card (bf16) against the float32 CPU forward over the same weights,
+    and ``bce_loss``; each model's parameters are dropped after."""
+    from repro_torch.configs.common import recsys_batch_spec
+    from repro_torch.configs.registry import registry
+    from repro_torch.models.recsys import bce_loss, cast_model, check_ids
+
+    out = {}
+    for name in ("wide-deep", "din", "dlrm-rm2"):
+        bundle = registry()[name]
+        model, cfg = bundle.model, bundle.cfg
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model.init_params(torch.Generator(dev).manual_seed(0), device=dev)
+        rng = np.random.default_rng(1)
+        batch = {}
+        for key, spec in recsys_batch_spec(cfg, rows, train=True).items():
+            if spec.dtype == torch.int32:
+                batch[key] = rng.integers(0, cfg.vocab, size=spec.shape).astype(np.int32)
+                check_ids(batch[key], cfg.vocab, key)
+            elif spec.dtype == torch.bool:
+                batch[key] = rng.random(spec.shape) < 0.8
+            elif key == "label":
+                batch[key] = (rng.random(spec.shape) < 0.5).astype(np.float32)
+            else:
+                batch[key] = rng.normal(size=spec.shape).astype(np.float32)
+        on_card = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        with torch.inference_mode():
+            got, ms = event_ms(torch, lambda: model.forward(on_card))
+            loss = float(bce_loss(model, on_card))
+            cpu = cast_model(model, torch.float32, "cpu")
+            on_cpu = {k: torch.as_tensor(v) for k, v in batch.items()}
+            want = cpu.forward(on_cpu).numpy()
+            cpu_loss = float(bce_loss(cpu, on_cpu))
+        got = got.cpu().numpy()
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        row = dict(param_bytes=model.param_bytes(),
+                   max_memory_allocated=torch.cuda.max_memory_allocated(), rows=rows,
+                   forward_ms=ms, rel_err=rel, bound=CTR_REL, finite=bool(np.isfinite(got).all()),
+                   bce_loss=loss, cpu_bce_loss=cpu_loss, seconds=time.perf_counter() - t0)
+        out[name] = row
+        log(f"two tower ctr {name} " + json.dumps(row))
+        if not (row["finite"] and rel <= CTR_REL and np.isfinite(loss)):
+            failures.append(f"two tower: {name} forward on the card against the CPU: {row}")
+        del cpu, got, on_card
+        model.to_empty(device="meta")
+        torch.cuda.empty_cache()
+    return out
+
+
+def two_tower(torch, np, failures: list, record: dict, dev, sizes=TT_SIZES) -> dict:
+    """Phase 20: the recsys family's serving path at the full TWO_TOWER
+    config.  Returns the launch counts of its serving calls and the kernel
+    records at its shapes."""
+    from repro_torch.configs.registry import registry
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.core.npdist import pairwise_np
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.tiles import TILE_BQ
+    from repro_torch.models.recsys import cast_model, check_ids
+    from repro_torch.serve.retrieval import (RetrievalServer, distance_to_score,
+                                             score_to_distance)
+
+    row: dict = {}
+    record["two tower"] = row
+    bundle = registry()["two-tower-retrieval"]
+    model, cfg = bundle.model, bundle.cfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.init_params(torch.Generator(dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    row["init"] = dict(config=cfg.name, vocab=cfg.vocab, dtype=str(cfg.dtype),
+                       embed_dim=cfg.embed_dim, tower_mlp=list(cfg.tower_mlp),
+                       param_bytes=model.param_bytes(), seconds=time.perf_counter() - t0,
+                       max_memory_allocated=torch.cuda.max_memory_allocated())
+    log("two tower init " + json.dumps(row["init"]))
+
+    rng = np.random.default_rng(0)
+    n_items, n_users = sizes["items"], sizes["users"]
+    item_ids = rng.integers(0, cfg.vocab, size=(n_items, cfg.n_item_fields))
+    user_ids = rng.integers(0, cfg.vocab, size=(n_users, cfg.n_user_fields))
+    check_ids(item_ids, cfg.vocab, "item ids")
+    check_ids(user_ids, cfg.vocab, "user ids")
+    items_dev = torch.as_tensor(item_ids, device=dev)
+    users_dev = torch.as_tensor(user_ids, device=dev)
+
+    # 1. the towers against the float32 CPU forward over the same weights
+    t0 = time.perf_counter()
+    cpu = cast_model(model, torch.float32, "cpu")
+    card32 = cast_model(model, torch.float32, dev)
+    n = sizes["tower_rows"]
+    row["towers"] = {tower: tower_check(torch, np, failures, model, card32, cpu, ids[:n],
+                                        ids_dev[:n], tower)
+                     for tower, ids, ids_dev in (("user_embed", user_ids, users_dev),
+                                                 ("item_embed", item_ids, items_dev))}
+    del cpu, card32
+    torch.cuda.empty_cache()
+    row["towers"]["seconds"] = time.perf_counter() - t0
+    log("two tower towers " + json.dumps(row["towers"]))
+
+    # 2. embed the corpus in serve_bulk chunks and the users in one batch
+    chunk_ms, parts = [], []
+    with torch.inference_mode():
+        for s in range(0, n_items, sizes["chunk"]):
+            e, ms = event_ms(torch, lambda s=s: model.item_embed(items_dev[s:s + sizes["chunk"]]))
+            parts.append(e)
+            chunk_ms.append(ms)
+        corpus16 = torch.cat(parts)
+        del parts
+        users16, users_ms = event_ms(torch, lambda: model.user_embed(users_dev))
+    corpus = corpus16.float().cpu().numpy()
+    users = users16.float().cpu().numpy()
+    t0 = time.perf_counter()
+    geometry = corpus_geometry(torch, np, corpus16, rng, sizes["sample"])
+    geometry["seconds"] = time.perf_counter() - t0
+    row["embed"] = dict(items=n_items, chunk=sizes["chunk"], ms_per_chunk=chunk_ms,
+                        users=n_users, users_ms=users_ms, geometry=geometry,
+                        max_memory_allocated=torch.cuda.max_memory_allocated())
+    log("two tower embed " + json.dumps(row["embed"]))
+    del corpus16
+
+    # 3. the index and the server (cosine; 16 pivots, 24 planes, 128-row blocks)
+    t0 = time.perf_counter()
+    server = RetrievalServer(corpus, device=dev)
+    _ = server.index.device
+    torch.cuda.synchronize()
+    index = server.index
+    row["build"] = dict(seconds=time.perf_counter() - t0, n_pad=int(index.data.shape[0]),
+                        blocks=int(index.n_blocks), planes=int(index.pairs.shape[0]),
+                        pivots=int(index.pivots.shape[0]), dim=int(index.data.shape[1]))
+    del corpus
+    q_eng = server._prep(users)
+    n_or = sizes["oracle"]
+    pool = ThreadPoolExecutor(1)
+    oracle = pool.submit(lambda: oracle_distances(np, pairwise_np, "l2", q_eng[:n_or],
+                                                  server.corpus, chunk=65_536))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the bf16 mirror and its margin are made on first use (host numpy):
+    # made here, outside the timed calls
+    t0 = time.perf_counter()
+    _ = index.device_bf16
+    row["build"]["bf16_margin"] = index.bf16_margin()
+    torch.cuda.synchronize()
+    row["build"]["bf16_mirror_seconds"] = time.perf_counter() - t0
+    log("two tower build " + json.dumps(row["build"]))
+    # warm-up (the first launches at K = 256), not counted
+    server.search(users[:8], "knn", k=KNN_K)
+    # the oracle ran beside the mirror and the warm-up; nothing runs
+    # beside the timed calls
+    t0 = time.perf_counter()
+    d64 = oracle.result()
+    pool.shutdown()
+    oracle_wait = time.perf_counter() - t0
+    reset_launch_counts()
+    top, knn32_s = timed(lambda: server.top_k(users, KNN_K))
+    knn32 = server.search(users, "knn", k=KNN_K)  # the same call with its stats
+    knn16, knn16_s = timed(lambda: server.search(
+        users, "knn", k=KNN_K, opts=EngineOpts(precision="bf16")))
+    min_score = float(distance_to_score(np.quantile(d64, sizes["quantile"])))
+    t = float(score_to_distance(np.asarray(min_score)))
+    hits, range_s = timed(lambda: server.range_query(users, min_score))
+    rng32 = server.search(users, "range", t=t)
+    rng16 = server.search(users, "range", t=t, opts=EngineOpts(precision="bf16"))
+    counts = launch_counts()
+    log(f"two tower launch counts: {counts}")
+
+    # the plain backend on the same card, the float64 oracle, bf16 == fp32
+    plain_knn, plain_knn_s = timed(lambda: server.search(
+        users, "knn", k=KNN_K, opts=EngineOpts(backend="torch")))
+    plain_rng, plain_rng_s = timed(lambda: server.search(
+        users, "range", t=t, opts=EngineOpts(backend="torch")))
+    n_diff, bad = knn_id_diffs(np, pairwise_np, "l2", server.corpus, q_eng, knn32.indices,
+                               plain_knn.indices)
+    count_diff = np.nonzero(knn32.stats["per_query_dists"]
+                            != plain_knn.stats["per_query_dists"])[0]
+    kth, p_kth = knn32.distances[:, -1], plain_knn.distances[:, -1]
+    bad_counts = [int(i) for i in count_diff
+                  if abs(kth[i] - p_kth[i]) > BAND * max(1.0, float(p_kth[i]))]
+    truth = oracle_top_k(np, d64, KNN_K)
+    n_or_diff, bad_or = knn_id_diffs(np, pairwise_np, "l2", server.corpus, q_eng,
+                                     knn32.indices[:n_or], truth)
+    n_hit_diff, bad_hits = boundary_hit_diffs(np, pairwise_np, "l2", server.corpus, q_eng,
+                                              hits, plain_rng.hits, t)
+    or_hits = [np.nonzero(d64[i] <= t)[0].tolist() for i in range(n_or)]
+    n_hor_diff, bad_hor = boundary_hit_diffs(np, pairwise_np, "l2", server.corpus, q_eng,
+                                             [sorted(h) for h in hits[:n_or]], or_hits, t)
+    equal = dict(
+        top_k_is_search=bool(np.array_equal(np.stack(top), knn32.indices)),
+        knn_indices=bool(np.array_equal(knn16.indices, knn32.indices)),
+        knn_distances=same_bits(np, knn16.distances, knn32.distances),
+        knn_rounds=knn16.stats["rounds"] == knn32.stats["rounds"],
+        knn_per_query_dists=bool(np.array_equal(knn16.stats["per_query_dists"],
+                                                knn32.stats["per_query_dists"])),
+        range_hits=rng16.hits == rng32.hits == hits,
+        **{f"range_{k}": v for k, v in equal_fields(
+            np, range_fields(np, [rng16.stats]), range_fields(np, [rng32.stats])).items()})
+    n_blocks, n_valid = index.n_blocks, index.n_valid
+    qtiles = -(-n_users // TILE_BQ)
+    live = {"fp32": rng32.stats["tiles_computed"] / (qtiles * n_blocks),
+            "bf16": rng16.stats["tiles_computed"] / (qtiles * n_blocks)}
+    serve = dict(
+        users=n_users, k=KNN_K, min_score=min_score, t=t, quantile=sizes["quantile"],
+        knn_queries_per_s=n_users / knn32_s, knn_bf16_queries_per_s=n_users / knn16_s,
+        range_queries_per_s=n_users / range_s,
+        plain_knn_queries_per_s=n_users / plain_knn_s,
+        plain_range_queries_per_s=n_users / plain_rng_s,
+        knn_rounds=knn32.stats["rounds"],
+        knn_dists_per_query=float(knn32.stats["dists_per_query"]),
+        knn_saving=1.0 - float(knn32.stats["dists_per_query"]) / n_valid,
+        range_dists_per_query=float(rng32.stats["dists_per_query"]),
+        range_saving=1.0 - float(rng32.stats["dists_per_query"]) / n_valid,
+        range_block_exclusion_rate=float(rng32.stats["block_exclusion_rate"]),
+        live_tile_share=live, hits=sum(map(len, hits)),
+        server_saving=server.stats.saving,
+        bf16_recheck_points_per_query=float(rng16.stats["recheck_points_per_query"]),
+        id_diff_queries_vs_torch=n_diff, id_diff_queries_vs_oracle=n_or_diff,
+        count_diff_queries=len(count_diff), kth_ties_within_band=kth_ties(np, d64, KNN_K),
+        oracle_users=n_or, oracle_wait_s=oracle_wait,
+        hit_boundary_diffs_vs_torch=n_hit_diff, hit_boundary_diffs_vs_oracle=n_hor_diff,
+        equal_to_fp32=equal, finite=bool(np.isfinite(knn32.distances).all()))
+    row["serve"] = serve
+    log("two tower serve " + json.dumps(serve))
+    if bad or bad_or or bad_counts or bad_hits or bad_hor or not serve["finite"]:
+        failures.append(f"two tower: ids differ away from ties {(bad + bad_or)[:10]}, counts "
+                        f"differ with kth apart {bad_counts[:10]}, hits differ away from t "
+                        f"{(bad_hits + bad_hor)[:10]}, finite {serve['finite']}")
+    if not all(equal.values()):
+        failures.append(f"two tower: bf16 differs from fp32: {equal}")
+    if serve["hits"] == 0:
+        failures.append("two tower: the range query found no hits")
+    del d64
+
+    # 4. forward with candidates (1 user x the corpus) and the pruned forward
+    mirror = index.device
+    pruned = dict(calls=sizes["pruned_users"], budget_blocks=sizes["budget"], blocks=n_blocks,
+                  gather_bytes_per_user=sizes["budget"] * index.block * index.data.shape[1] * 4,
+                  dense_ms=[], pruned_ms=[], recall_at_10=[])
+    with torch.inference_mode():
+        for i in range(sizes["pruned_users"]):
+            batch = dict(user_ids=users_dev[i:i + 1], candidates=mirror.data,
+                         pivots=mirror.pivots, pair_idx=mirror.pairs, deltas=mirror.deltas,
+                         boxes=mirror.boxes)
+            dense, ms = event_ms(torch, lambda: model.forward(
+                dict(user_ids=batch["user_ids"], candidates=batch["candidates"])))
+            pruned["dense_ms"].append(ms)
+            (scores, rows_), ms = event_ms(torch, lambda: model.forward_retrieval_pruned(
+                batch, block=index.block, budget_blocks=sizes["budget"]))
+            pruned["pruned_ms"].append(ms)
+            want = set(torch.topk(dense[0], 10).indices.tolist())
+            got = set(rows_[0][torch.topk(scores[0], 10).indices].tolist())
+            pruned["recall_at_10"].append(len(want & got) / 10)
+            if not (torch.isfinite(dense).all() and torch.isfinite(scores).all()):
+                failures.append("two tower: non-finite retrieval scores")
+    row["pruned"] = pruned
+    log("two tower pruned " + json.dumps(pruned))
+
+    # 5. the kernels at these shapes; 6. the CTR models
+    kernels = two_tower_kernels(torch, np, failures, index, q_eng, live)
+    model.to_empty(device="meta")
+    del server, index, mirror, items_dev
+    torch.cuda.empty_cache()
+    row["ctr"] = ctr_forwards(torch, np, failures, dev, sizes["ctr_rows"])
+    # 7. the launcher, after every timed call: it shares the card and the host
+    row["launcher"] = finish_launchers(failures, start_launchers())
+    for r in row["launcher"]:
+        log(f"two tower launcher {r['args']} rc {r['rc']}: " + " | ".join(r["stdout"]))
+    return dict(counts=counts, kernels=kernels)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3136,7 +3652,7 @@ def main() -> int:
 
     kernels, record, paths, bf16_paths, knns, serving_counts = {}, {}, {}, {}, {}, {}
     forest, forest_counts = {}, {}
-    sharded_s4, sharded_counts, audit_counts = {}, {}, {}
+    sharded_s4, sharded_counts, audit_counts, two_tower_run = {}, {}, {}, {}
     dev = torch.device("cuda")
     data = {}
     if "--plain-l2" in sys.argv[1:]:
@@ -3266,8 +3782,11 @@ def main() -> int:
         ("invariants", lambda: audit_counts.update(invariants(
             torch, np, failures, record, data["colors"][1], paths, SISAP_COLORS))),
         ("quickstart", lambda: quickstart(torch, failures, record)),
+        # joins those threads: nothing of theirs runs beside two tower's timed calls
         ("thresholds check", lambda: log("thresholds check " + json.dumps(
             data["thresholds"].verify(failures)))),
+        ("two tower", lambda: two_tower_run.update(two_tower(
+            torch, np, failures, record, dev))),
     )
     for phase, fn in phases:
         t0 = time.perf_counter()
@@ -3287,6 +3806,13 @@ def main() -> int:
         rec["forest_launches"] = int(forest_counts.get(entry, 0))
         rec["sharded_launches"] = int(sharded_counts.get(entry, 0))
         rec["audit_launches"] = int(audit_counts.get(entry, 0))
+        rec["two_tower_launches"] = int(two_tower_run.get("counts", {}).get(entry, 0))
+        at_k256 = [r for k, r in two_tower_run.get("kernels", {}).items()
+                   if k.split("@")[0] == name]
+        if at_k256:  # the same kernel at the two-tower path's shapes (K = 256)
+            rec["two_tower"] = at_k256
+        if entry in TWO_TOWER_PATH and rec["two_tower_launches"] <= 0:
+            failures.append(f"kernel {name} was not launched by the two-tower path")
         if entry in SHARDED_PATH and rec["sharded_launches"] <= 0:
             failures.append(f"kernel {name} was not launched by the sharded phases")
         if entry in FOREST_PATH and rec["forest_launches"] <= 0:

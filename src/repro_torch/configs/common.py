@@ -1,0 +1,149 @@
+"""Config substrate of the port: architecture bundles and their cells — the
+recsys part of ``repro.configs.common``.
+
+An ArchBundle knows, for every assigned input shape, the batch it takes
+(``TensorSpec`` shapes and torch dtypes; nothing is allocated) and how to
+build a REDUCED version of itself for CPU tests.  One card has no mesh, so
+a cell carries no input partition: asking for one raises, naming the
+ROADMAP item that ports the model-family sharding helpers.  The LM and GNN
+shapes (``LM_SHAPES``, ``GNN_SHAPES`` and their cells) wait for the items
+that port those families.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+__all__ = [
+    "Cell",
+    "ArchBundle",
+    "TensorSpec",
+    "loss_for",
+    "RECSYS_SHAPES",
+    "recsys_batch_spec",
+    "recsys_cells",
+    "SHARDING_ITEM",
+]
+
+# where the model-family sharding (input partitions, row-sharded tables)
+# is queued
+SHARDING_ITEM = (
+    "ROADMAP Queue 1 item 8.4 (the model-family sharding helpers of "
+    "repro.parallel.sharding)"
+)
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of one batch entry: the port's counterpart of a
+    ``jax.ShapeDtypeStruct``."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass
+class Cell:
+    shape_name: str
+    kind: str  # train | prefill | decode | serve
+    # inputs() -> dict of TensorSpec (the *batch*, not the parameters)
+    inputs: Callable[[], Any]
+    # the reference's input PartitionSpecs; None on one card
+    input_partition: Callable[[Any], Any] | None = None
+    skip: str | None = None
+    note: str = ""
+
+    def partition(self, mesh=None):
+        """The cell's input partition over ``mesh``: not ported yet."""
+        raise NotImplementedError(
+            f"cell {self.shape_name!r}: input partitions over a mesh are "
+            f"{SHARDING_ITEM}"
+        )
+
+
+@dataclasses.dataclass
+class ArchBundle:
+    name: str
+    family: str  # lm | gnn | recsys
+    cfg: Any
+    model: Any
+    cells: dict[str, Cell]
+    # reduced-config smoke artifacts:
+    # make_reduced() -> (model, cfg, batch_fn(generator) -> concrete batch)
+    make_reduced: Callable[[], tuple[Any, Any, Callable]]
+
+    def loss_fn(self, model=None):
+        return loss_for(self.family, model if model is not None else self.model)
+
+
+def loss_for(family: str, model) -> Callable:
+    """``loss(batch)`` of a model of ``family`` (the port's models hold their
+    parameters, so the loss takes the batch alone)."""
+    if family == "recsys":
+        from repro_torch.models import recsys as R
+
+        if model.cfg.kind == "two_tower":
+            return model.loss_fn
+        return lambda b: R.bce_loss(model, b)
+    return model.loss_fn
+
+
+# ------------------------------------------------------------------ recsys
+
+RECSYS_SHAPES = {
+    "train_batch": dict(kind="train", batch=65536),
+    "serve_p99": dict(kind="serve", batch=512),
+    "serve_bulk": dict(kind="serve", batch=262144),
+    "retrieval_cand": dict(kind="serve", batch=1, candidates=1_000_000),
+}
+
+
+def recsys_batch_spec(cfg, batch: int, candidates: int | None = None,
+                      train=False) -> dict[str, TensorSpec]:
+    """The batch of each recsys model kind as ``TensorSpec``s."""
+    k = cfg.kind
+    d = {}
+    if k == "wide_deep":
+        b = candidates or batch
+        d["sparse_ids"] = TensorSpec((b, cfg.n_sparse), torch.int32)
+    elif k == "din":
+        b = candidates or batch
+        d["hist_ids"] = TensorSpec((b, cfg.hist_len), torch.int32)
+        d["hist_valid"] = TensorSpec((b, cfg.hist_len), torch.bool)
+        d["target_id"] = TensorSpec((b,), torch.int32)
+    elif k == "two_tower":
+        d["user_ids"] = TensorSpec((batch, cfg.n_user_fields), torch.int32)
+        if candidates:
+            d["candidates"] = TensorSpec((candidates, cfg.embed_dim), torch.float32)
+        else:
+            d["item_ids"] = TensorSpec((batch, cfg.n_item_fields), torch.int32)
+    elif k == "dlrm":
+        b = candidates or batch
+        d["dense"] = TensorSpec((b, cfg.n_dense), torch.float32)
+        d["sparse_ids"] = TensorSpec((b, cfg.n_sparse), torch.int32)
+    else:
+        raise ValueError(k)
+    if train and k != "two_tower":
+        b = candidates or batch
+        d["label"] = TensorSpec((b,), torch.float32)
+    return d
+
+
+def recsys_cells(cfg) -> dict[str, Cell]:
+    cells = {}
+    for name, s in RECSYS_SHAPES.items():
+        cand = s.get("candidates")
+
+        def inputs(s=s, cand=cand):
+            return recsys_batch_spec(cfg, s["batch"], cand, train=s["kind"] == "train")
+
+        note = ""
+        if cand and cfg.kind != "two_tower":
+            note = (
+                "retrieval_cand for a CTR model = bulk-score 1M candidate rows "
+                "for one user (user features broadcast into each row)"
+            )
+        cells[name] = Cell(name, s["kind"], inputs, note=note)
+    return cells

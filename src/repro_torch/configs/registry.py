@@ -1,0 +1,59 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution, the port
+of ``repro.configs.registry``.
+
+Per-arch modules (one file per assigned architecture, exact configs inside):
+    configs/wide_deep.py  configs/din.py  configs/two_tower.py  configs/dlrm_rm2.py
+plus the paper's own workload: configs/supermetric.py (metric-search corpus).
+
+The port holds the recsys family.  The names the reference registers for
+the LM and GNN families raise ``NotImplementedError`` naming the ROADMAP
+item that ports them; any other name raises ``KeyError``, as the
+reference does.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs import recsys_archs
+from repro_torch.configs.common import ArchBundle
+
+_REGISTRY: dict[str, ArchBundle] | None = None
+
+# the reference's names not ported yet, and the ROADMAP item of each
+_LM_ITEM = "ROADMAP Queue 1 item 8.3 (the LM path)"
+_GNN_ITEM = "ROADMAP Queue 1 item 8.4 (models/gnn.py with configs/pna.py)"
+NOT_PORTED = {
+    "phi3.5-moe-42b-a6.6b": _LM_ITEM,
+    "kimi-k2-1t-a32b": _LM_ITEM,
+    "gemma2-9b": _LM_ITEM,
+    "deepseek-coder-33b": _LM_ITEM,
+    "llama3.2-1b": _LM_ITEM,
+    "pna": _GNN_ITEM,
+}
+
+
+def registry() -> dict[str, ArchBundle]:
+    global _REGISTRY
+    if _REGISTRY is None:
+        _REGISTRY = {}
+        _REGISTRY.update(recsys_archs.bundles())
+    return _REGISTRY
+
+
+def get_arch(name: str) -> ArchBundle:
+    reg = registry()
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet: {NOT_PORTED[name]}"
+        )
+    if name not in reg:
+        raise KeyError(f"unknown arch {name!r}; have: {sorted(reg)}")
+    return reg[name]
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every (arch, shape) pair of the ported families."""
+    out = []
+    for name, b in registry().items():
+        for cell in b.cells:
+            out.append((name, cell))
+    return out

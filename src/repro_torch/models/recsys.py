@@ -1,0 +1,488 @@
+"""RecSys architectures of the port — ``repro.models.recsys`` in PyTorch:
+Wide&Deep, DIN, two-tower retrieval, DLRM-RM2.
+
+The hot path is the sparse embedding lookup: stacked tables (T, V, D)
+gathered one id per field (``embedding_lookup``) or as a multi-hot bag
+(``embedding_bag``).  Each model is an ``nn.Module`` whose parameters are
+the reference's tree, under the reference's names: ``tables``, ``wide``,
+``item_table`` and the ``*_tables`` as parameters, the MLPs as
+``ParameterList``s ``*_w`` / ``*_b`` in the reference's ``(in, out)`` layout,
+applied as ``x @ w + b`` (no ``nn.Linear``, which stores ``(out, in)``).
+
+A model is built on the ``meta`` device, so a full configuration costs
+nothing until ``init_params`` (the reference's distribution from a
+``torch.Generator``) or ``load_jax_params`` (the reference's own numbers)
+puts its parameters on a device: the CUDA device unless the caller passes
+``device="cpu"``, raising where there is no card.
+
+The two-tower model is the paper-integration point: its item tower fills
+the corpus that the supermetric BSS index (``repro_torch.core.flat_index``)
+serves exactly (the ``retrieval_cand`` cell scores 1M candidates).  Float32
+products run in IEEE float32 (``check_ieee_fp32``): TF32 would move a score
+by ~1e-3.  Ids index the tables unchecked inside a pass, as in the
+reference: check ids from outside with ``check_ids`` where they are made.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.common import SHARDING_ITEM
+from repro_torch.core.distances import check_ieee_fp32
+from repro_torch.core.flat_index import resolve_device
+
+__all__ = [
+    "RecsysConfig",
+    "WideDeepModel",
+    "DINModel",
+    "TwoTowerModel",
+    "DLRMModel",
+    "bce_loss",
+    "embedding_lookup",
+    "embedding_bag",
+    "check_ids",
+    "load_jax_params",
+    "cast_model",
+    "pruned_block_keys",
+    "lexsort_rows",
+]
+
+
+def embedding_lookup(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """tables (T, V, D), idx (B, T) one id per field -> (B, T, D)."""
+    t = tables.shape[0]
+    return tables[torch.arange(t, device=tables.device)[None, :], idx.long()]
+
+
+def embedding_bag(
+    table: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor | None = None,
+    combine: str = "mean",
+) -> torch.Tensor:
+    """table (V, D), idx (B, L) multi-hot bag -> (B, D): gather + masked
+    reduce (the reference's formulation of nn.EmbeddingBag)."""
+    e = table[idx.long()]  # (B, L, D)
+    if valid is not None:
+        e = e * valid[..., None].to(e.dtype)
+        denom = torch.clamp_min(valid.sum(dim=-1, keepdim=True), 1).to(e.dtype)
+    else:
+        denom = torch.tensor(idx.shape[1], dtype=e.dtype, device=e.device)
+    s = e.sum(dim=1)
+    return s / denom if combine == "mean" else s
+
+
+def check_ids(ids, vocab: int, name: str = "ids") -> None:
+    """Raise unless every id lies in [0, vocab).  The reference's gathers
+    clamp an id out of range; torch raises on the CPU and asserts on the
+    card, so ids are checked on the host where they are made."""
+    a = np.asarray(ids)
+    if a.size and (a.min() < 0 or a.max() >= vocab):
+        raise ValueError(
+            f"{name} must lie in [0, {vocab}); got [{a.min()}, {a.max()}]"
+        )
+
+
+def _mlp_shapes(dims: Sequence[int], dtype) -> list:
+    return [((dims[i], dims[i + 1]), dtype) for i in range(len(dims) - 1)]
+
+
+def _mlp_apply(x, ws, bs, final_act=False):
+    if x.dtype == torch.float32:
+        check_ieee_fp32(x)
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        x = x @ w + b
+        if i < len(ws) - 1 or final_act:
+            x = torch.relu(x)
+    return x
+
+
+def _constrain_rows(x, batch_axes):
+    """The reference pins an embedding lookup's row sharding here; one card
+    has no mesh, so ``batch_axes`` must be None."""
+    if batch_axes is None:
+        return x
+    raise NotImplementedError(
+        f"batch_axes={batch_axes!r}: row-sharded lookups are {SHARDING_ITEM}"
+    )
+
+
+def _fp32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a.float() @ b.float()`` in IEEE float32."""
+    a = a.float()
+    check_ieee_fp32(a)
+    return a @ b.float()
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    kind: str                      # wide_deep | din | two_tower | dlrm
+    n_sparse: int = 26
+    n_dense: int = 0
+    embed_dim: int = 64
+    vocab: int = 1_000_000         # rows per table (the 10^6 regime of the
+                                   # public DLRM / Criteo literature)
+    mlp: tuple = (1024, 512, 256)
+    bot_mlp: tuple = ()
+    attn_mlp: tuple = (80, 40)
+    hist_len: int = 100
+    tower_mlp: tuple = (1024, 512, 256)
+    n_user_fields: int = 8
+    n_item_fields: int = 4
+    dtype: torch.dtype = torch.bfloat16
+    optimizer: str = "adamw"
+    microbatches: int = 1
+    batch_axes: tuple | None = None
+
+
+def _is_leaf(v) -> bool:
+    return isinstance(v, tuple) and len(v) == 2 and isinstance(v[0], tuple)
+
+
+def _meta(spec) -> nn.Parameter:
+    shape, dtype = spec
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"))
+
+
+class _RecsysBase(nn.Module):
+    """Parameters as the reference's tree (``param_shapes``), built on the
+    ``meta`` device and placed by ``init_params`` / ``load_jax_params``."""
+
+    def __init__(self, cfg: RecsysConfig):
+        super().__init__()
+        self.cfg = cfg
+        for name, spec in self.param_shapes().items():
+            if _is_leaf(spec):
+                setattr(self, name, _meta(spec))
+            else:
+                setattr(self, name, nn.ParameterList([_meta(s) for s in spec]))
+
+    def param_shapes(self) -> dict:
+        raise NotImplementedError
+
+    def _leaves(self):
+        """(name, list index or None, (shape, dtype)) of every parameter, in
+        the reference tree's order."""
+        for name, spec in self.param_shapes().items():
+            if _is_leaf(spec):
+                yield name, None, spec
+            else:
+                for i, s in enumerate(spec):
+                    yield name, i, s
+
+    def _set(self, name: str, i: int | None, value: torch.Tensor) -> None:
+        p = nn.Parameter(value)
+        if i is None:
+            setattr(self, name, p)
+        else:
+            getattr(self, name)[i] = p
+
+    def abstract_params(self) -> dict:
+        """The parameter tree as ``meta`` tensors (no allocation)."""
+        out: dict = {}
+        for name, i, (shape, dt) in self._leaves():
+            t = torch.empty(shape, dtype=dt, device="meta")
+            if i is None:
+                out[name] = t
+            else:
+                out.setdefault(name, []).append(t)
+        return out
+
+    def init_params(self, generator: torch.Generator, device=None):
+        """Draw every parameter as the reference does: a float32 standard
+        normal over sqrt(fan), fan = ``shape[-2]`` (``shape[-1]`` for 1-D),
+        cast to its dtype, from ``generator`` (on ``device``'s type).  The
+        distribution is the reference's, not JAX's numbers.  Returns the
+        model."""
+        dev = resolve_device(device)
+        for name, i, (shape, dt) in self._leaves():
+            fan = shape[-2] if len(shape) > 1 else shape[-1]
+            w = torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32)
+            w /= math.sqrt(fan)
+            self._set(name, i, w.to(dt))
+            del w  # a bf16 leaf's float32 draw goes before the next draw
+        return self
+
+    def param_specs(self, mesh=None) -> dict:
+        raise NotImplementedError(f"parameter partitions are {SHARDING_ITEM}")
+
+    def param_bytes(self) -> int:
+        return sum(math.prod(shape) * dt.itemsize for _, _, (shape, dt) in self._leaves())
+
+
+def _from_numpy(a) -> torch.Tensor:
+    """A host array of the reference's tree as a CPU tensor of its own
+    dtype.  A bfloat16 array (numpy dtype name ``bfloat16``) is read
+    through its 16-bit pattern, so ``ml_dtypes`` is never needed here."""
+    a = np.array(a, copy=True)  # contiguous and writable
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def load_jax_params(model: _RecsysBase, params: dict, device=None):
+    """Fill ``model`` with the reference's parameter tree ``params`` (numpy
+    arrays: the dict, its lists of ``*_w`` / ``*_b``), on ``device`` (the
+    CUDA device unless ``"cpu"``).  Layouts stay the reference's, so both
+    packages compute the same thing.  Returns the model."""
+    dev = resolve_device(device)
+    for name, i, (shape, dt) in model._leaves():
+        a = params[name] if i is None else params[name][i]
+        t = _from_numpy(a)
+        if tuple(t.shape) != tuple(shape) or t.dtype != dt:
+            where = name if i is None else f"{name}[{i}]"
+            raise ValueError(
+                f"{where}: the tree holds {tuple(t.shape)} {t.dtype}, the "
+                f"model wants {tuple(shape)} {dt}"
+            )
+        model._set(name, i, t.to(dev))
+    return model
+
+
+def cast_model(model: _RecsysBase, dtype: torch.dtype = torch.float32,
+               device="cpu") -> _RecsysBase:
+    """A copy of ``model`` in ``dtype`` on ``device`` over the same weights
+    (upcast): e.g. the float32 CPU forward that a bf16 model on the card is
+    held against."""
+    out = type(model)(dataclasses.replace(model.cfg, dtype=dtype))
+    dev = resolve_device(device)
+    for name, i, _ in model._leaves():
+        p = getattr(model, name) if i is None else getattr(model, name)[i]
+        out._set(name, i, p.detach().to(device=dev, dtype=dtype))
+    return out
+
+
+class WideDeepModel(_RecsysBase):
+    """Wide&Deep (arXiv:1606.07792): wide hashed-linear + deep MLP on field
+    embeddings, summed logits."""
+
+    def param_shapes(self) -> dict:
+        c = self.cfg
+        deep_in = c.n_sparse * c.embed_dim
+        dims = (deep_in,) + tuple(c.mlp) + (1,)
+        return {
+            "tables": ((c.n_sparse, c.vocab, c.embed_dim), c.dtype),
+            "wide": ((c.vocab, 1), c.dtype),
+            "mlp_w": _mlp_shapes(dims, c.dtype),
+            "mlp_b": [((d,), c.dtype) for d in dims[1:]],
+        }
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        c = self.cfg
+        idx = batch["sparse_ids"]  # (B, T)
+        emb = _constrain_rows(embedding_lookup(self.tables, idx), c.batch_axes)
+        deep = _mlp_apply(emb.reshape(emb.shape[0], -1), self.mlp_w, self.mlp_b)
+        wide = self.wide[idx.long() % c.vocab][..., 0].sum(dim=-1, keepdim=True)
+        return (deep + wide).float()[:, 0]
+
+
+class DINModel(_RecsysBase):
+    """Deep Interest Network (arXiv:1706.06978): target attention over the
+    user behaviour sequence."""
+
+    def param_shapes(self) -> dict:
+        c = self.cfg
+        d = c.embed_dim
+        attn_dims = (4 * d,) + tuple(c.attn_mlp) + (1,)
+        mlp_dims = (2 * d,) + tuple(c.mlp) + (1,)
+        return {
+            "item_table": ((c.vocab, d), c.dtype),
+            "attn_w": _mlp_shapes(attn_dims, c.dtype),
+            "attn_b": [((x,), c.dtype) for x in attn_dims[1:]],
+            "mlp_w": _mlp_shapes(mlp_dims, c.dtype),
+            "mlp_b": [((x,), c.dtype) for x in mlp_dims[1:]],
+        }
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        hist = batch["hist_ids"].long()      # (B, L)
+        target = batch["target_id"].long()   # (B,)
+        valid = batch.get("hist_valid")      # (B, L) bool
+        eh = _constrain_rows(self.item_table[hist], self.cfg.batch_axes)
+        et = _constrain_rows(self.item_table[target], self.cfg.batch_axes)[:, None, :]
+        etb = et.expand_as(eh)
+        a_in = torch.cat([eh, etb, eh - etb, eh * etb], dim=-1)
+        w = _mlp_apply(a_in, self.attn_w, self.attn_b)[..., 0]  # (B, L)
+        if valid is not None:
+            w = torch.where(valid, w, -1e9)
+        # softmax in float32, cast back, as the reference
+        w = torch.softmax(w.float(), dim=-1).to(eh.dtype)
+        user = torch.einsum("bl,bld->bd", w, eh)
+        z = torch.cat([user, et[:, 0]], dim=-1)
+        return _mlp_apply(z, self.mlp_w, self.mlp_b).float()[:, 0]
+
+
+class TwoTowerModel(_RecsysBase):
+    """Two-tower retrieval (Yi et al., RecSys'19): user/item towers -> dot;
+    trained with in-batch sampled softmax (logQ-free synthetic variant)."""
+
+    def param_shapes(self) -> dict:
+        c = self.cfg
+        d_emb = 64  # per-field embedding feeding the towers
+        u_in = c.n_user_fields * d_emb
+        i_in = c.n_item_fields * d_emb
+        u_dims = (u_in,) + tuple(c.tower_mlp) + (c.embed_dim,)
+        i_dims = (i_in,) + tuple(c.tower_mlp) + (c.embed_dim,)
+        return {
+            "user_tables": ((c.n_user_fields, c.vocab, d_emb), c.dtype),
+            "item_tables": ((c.n_item_fields, c.vocab, d_emb), c.dtype),
+            "user_w": _mlp_shapes(u_dims, c.dtype),
+            "user_b": [((x,), c.dtype) for x in u_dims[1:]],
+            "item_w": _mlp_shapes(i_dims, c.dtype),
+            "item_b": [((x,), c.dtype) for x in i_dims[1:]],
+        }
+
+    def _tower(self, tables, ws, bs, ids):
+        e = _constrain_rows(embedding_lookup(tables, ids), self.cfg.batch_axes)
+        z = _mlp_apply(e.reshape(e.shape[0], -1), ws, bs)
+        return z / torch.clamp_min(torch.linalg.norm(z, dim=-1, keepdim=True), 1e-6)
+
+    def user_embed(self, user_ids: torch.Tensor) -> torch.Tensor:
+        return self._tower(self.user_tables, self.user_w, self.user_b, user_ids)
+
+    def item_embed(self, item_ids: torch.Tensor) -> torch.Tensor:
+        return self._tower(self.item_tables, self.item_w, self.item_b, item_ids)
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        if "candidates" in batch:  # retrieval scoring: precomputed item matrix
+            u = self.user_embed(batch["user_ids"])  # (B, E)
+            return _fp32_product(u, batch["candidates"].T)
+        u = self.user_embed(batch["user_ids"])
+        i = self.item_embed(batch["item_ids"])
+        return _fp32_product(u, i.T) * 20.0  # temperature
+
+    def loss_fn(self, batch: dict) -> torch.Tensor:
+        logits = self.forward(batch)  # (B, B) in-batch softmax
+        labels = torch.arange(logits.shape[0], device=logits.device)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+        return torch.mean(logz - gold)
+
+    def forward_retrieval_pruned(
+        self, batch: dict, *, block: int = 128, budget_blocks: int = 3136,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Supermetric-pruned candidate scoring (the paper's technique in the
+        serving graph).  batch adds the BSS index arrays:
+            pivots (P, E) fp32, pair_idx (M, 2) int, deltas (M,) fp32,
+            boxes (B_blocks, M, 4) fp32.
+        Only the ``budget_blocks`` blocks with the smallest planar lower
+        bound are gathered and scored.  The bound is the reference's own
+        plain arithmetic, in its order (delta floored at 1e-12, no
+        degenerate-plane branch, query -> pivot distances by the norm
+        expansion), not the planar kernel's.
+
+        Returns (scores (Q, budget*block), candidate row indices)."""
+        u = self.user_embed(batch["user_ids"])  # (Q, E) normalised
+        cand = batch["candidates"]
+        piv = batch["pivots"]
+        pairs = batch["pair_idx"]
+        deltas = batch["deltas"]
+        boxes = batch["boxes"]  # (B_blocks, M, 4)
+        n, e_dim = cand.shape
+        b_blocks = boxes.shape[0]
+        n_pad = b_blocks * block
+
+        uf = u.float()
+        lb, cdist = pruned_block_keys(uf, piv, pairs, deltas, boxes)
+        order = lexsort_rows(cdist, lb)
+        top = order[:, :budget_blocks]  # (Q, budget)
+        cand_pad = nn.functional.pad(cand, (0, 0, 0, n_pad - n))
+        blocks = cand_pad.reshape(b_blocks, block, e_dim)
+        picked = blocks[top]  # (Q, budget, block, E): the pruned gather
+        scores = torch.einsum(
+            "qe,qkbe->qkb", uf, picked.float()
+        ).reshape(u.shape[0], -1)
+        rows = (top[..., None] * block
+                + torch.arange(block, device=top.device)[None, None, :]
+                ).reshape(u.shape[0], -1)
+        return scores, rows
+
+
+def pruned_block_keys(uf: torch.Tensor, piv: torch.Tensor, pairs: torch.Tensor,
+                      deltas: torch.Tensor, boxes: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lb, cdist), each (Q, B_blocks): the planar lower bound of every
+    (query, block) and the mean distance of the query's plane projections
+    to the block's box centres, in the reference's arithmetic and order
+    (``forward_retrieval_pruned`` ranks blocks by them)."""
+    check_ieee_fp32(uf)
+    pairs = pairs.long()
+    dq = torch.sqrt(torch.clamp_min(
+        torch.sum(uf * uf, -1)[:, None]
+        + torch.sum(piv * piv, -1)[None, :]
+        - (2.0 * uf) @ piv.T, 0.0,
+    ))  # (Q, P)
+    d1 = dq[:, pairs[:, 0]]
+    d2 = dq[:, pairs[:, 1]]
+    delta = torch.clamp_min(deltas[None, :], 1e-12)
+    qx = (d1 * d1 - d2 * d2) / (2.0 * delta)
+    s = qx + delta / 2.0
+    qy = torch.sqrt(torch.clamp_min(d1 * d1 - s * s, 0.0))
+    qxb, qyb = qx[:, None, :], qy[:, None, :]
+    dx = torch.clamp_min(torch.maximum(boxes[None, :, :, 0] - qxb,
+                                       qxb - boxes[None, :, :, 1]), 0.0)
+    dy = torch.clamp_min(torch.maximum(boxes[None, :, :, 2] - qyb,
+                                       qyb - boxes[None, :, :, 3]), 0.0)
+    lb = torch.amax(torch.sqrt(dx * dx + dy * dy), dim=-1)
+    cx = 0.5 * (boxes[None, :, :, 0] + boxes[None, :, :, 1])
+    cy = 0.5 * (boxes[None, :, :, 2] + boxes[None, :, :, 3])
+    ex, ey = qxb - cx, qyb - cy
+    cdist = torch.mean(torch.sqrt(ex * ex + ey * ey), dim=-1)
+    return lb, cdist
+
+
+def lexsort_rows(secondary: torch.Tensor, primary: torch.Tensor) -> torch.Tensor:
+    """Per row, the order of ``jnp.lexsort((secondary, primary), axis=1)``:
+    by ``primary``, ties by ``secondary``, then by position."""
+    first = torch.argsort(secondary, dim=1, stable=True)
+    second = torch.argsort(torch.gather(primary, 1, first), dim=1, stable=True)
+    return torch.gather(first, 1, second)
+
+
+class DLRMModel(_RecsysBase):
+    """DLRM-RM2 (arXiv:1906.00091): bottom MLP on dense feats, dot-product
+    feature interaction, top MLP."""
+
+    def param_shapes(self) -> dict:
+        c = self.cfg
+        d = c.embed_dim
+        bot = (c.n_dense,) + tuple(c.bot_mlp)
+        n_f = c.n_sparse + 1
+        n_inter = n_f * (n_f - 1) // 2
+        top = (n_inter + d,) + tuple(c.mlp) + (1,)
+        return {
+            "tables": ((c.n_sparse, c.vocab, d), c.dtype),
+            "bot_w": _mlp_shapes(bot, c.dtype),
+            "bot_b": [((x,), c.dtype) for x in bot[1:]],
+            "top_w": _mlp_shapes(top, c.dtype),
+            "top_b": [((x,), c.dtype) for x in top[1:]],
+        }
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        dense = batch["dense"].to(self.cfg.dtype)  # (B, 13)
+        idx = batch["sparse_ids"]  # (B, 26)
+        z0 = _mlp_apply(dense, self.bot_w, self.bot_b, final_act=True)
+        emb = _constrain_rows(
+            embedding_lookup(self.tables, idx), self.cfg.batch_axes
+        )  # (B, 26, D)
+        z = torch.cat([z0[:, None, :], emb], dim=1)  # (B, 27, D)
+        if z.dtype == torch.float32:
+            check_ieee_fp32(z)
+        inter = torch.einsum("bnd,bmd->bnm", z, z)  # (B, 27, 27)
+        # row-major upper triangle, as jnp.triu_indices
+        iu, ju = torch.triu_indices(z.shape[1], z.shape[1], offset=1, device=z.device)
+        feat = torch.cat([inter[:, iu, ju], z0], dim=-1)
+        return _mlp_apply(feat, self.top_w, self.top_b).float()[:, 0]
+
+
+def bce_loss(model, batch: dict) -> torch.Tensor:
+    logit = model.forward(batch)
+    y = batch["label"].float()
+    return torch.mean(
+        torch.clamp_min(logit, 0) - logit * y + torch.log1p(torch.exp(-torch.abs(logit)))
+    )

@@ -1,6 +1,6 @@
 """The port (``src/repro_torch``), ``examples/torch_quickstart.py`` and
 ``chip_smoke.py`` import neither jax nor any module of the JAX package
-``repro``."""
+``repro``, nor ``ml_dtypes`` (the card's machine has none)."""
 
 import ast
 import os
@@ -15,6 +15,7 @@ PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 QUICKSTART = "examples/torch_quickstart.py"
+LAUNCHER = "repro_torch.launch.serve"
 # a finder that refuses to import jax or the JAX package
 BLOCK = (
     "import sys\n"
@@ -61,7 +62,26 @@ def test_no_jax_or_reference_import(relpath):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, (relpath, name)
+            assert name.split(".")[0] not in FORBIDDEN + ("ml_dtypes",), (relpath, name)
+
+
+def test_recsys_modules_load_no_jax():
+    """The recsys family's model, registry and launcher, imported alone."""
+    code = (
+        "import sys\n"
+        "import repro_torch.models.recsys, repro_torch.configs.registry\n"
+        "import repro_torch.launch.serve\n"
+        "from repro_torch.configs.registry import registry\n"
+        "assert len(registry()) == 4\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('ml_dtypes',)!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def test_sharded_engine_runs_with_jax_absent():
@@ -120,6 +140,7 @@ def _run_blocked(target: str, args: list[str], cwd) -> subprocess.CompletedProce
 @pytest.mark.parametrize("target, args", [
     ("repro_torch.analysis", ["--device", "cpu"]),
     (QUICKSTART, ["--device", "cpu", "--corpus", "2000", "--queries", "16"]),
+    (LAUNCHER, ["--device", "cpu", "--corpus", "2000", "--queries", "16"]),
 ])
 def test_audit_and_quickstart_run_with_jax_absent(tmp_path, target, args):
     """The audit's CLI and the quickstart pass on the CPU, their own checks
@@ -129,7 +150,7 @@ def test_audit_and_quickstart_run_with_jax_absent(tmp_path, target, args):
     assert "imported: []" in out.stdout
 
 
-@pytest.mark.parametrize("target", ["repro_torch.analysis", QUICKSTART])
+@pytest.mark.parametrize("target", ["repro_torch.analysis", QUICKSTART, LAUNCHER])
 def test_audit_and_quickstart_need_a_card_by_default(tmp_path, target):
     """Without ``--device`` both run on the card, so they raise where there is
     none."""

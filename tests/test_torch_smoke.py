@@ -49,3 +49,47 @@ def test_smoke_refuses_to_run_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_oracle_top_k_is_the_stable_argsort():
+    """Ascending distance, lowest id first on ties, also where more rows tie
+    at the kth than the top k holds."""
+    rng = np.random.default_rng(6)
+    d = rng.integers(0, 40, size=(16, 3000)).astype(np.float64) / 8  # lint: disable=R3
+    d[0, :500] = 0.5
+    for k in (1, 10, 100):
+        np.testing.assert_array_equal(chip_smoke.oracle_top_k(np, d, k),
+                                      np.argsort(d, axis=1, kind="stable")[:, :k])
+
+
+class _Rolled:
+    """A tower that answers each row with the next row's embedding."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def user_embed(self, ids):
+        return self.model.user_embed(ids.roll(1, dims=0))
+
+
+@pytest.mark.parametrize("wrong", ["none", "bf16", "fp32"])
+def test_tower_check_fails_a_tower_that_returns_another_row(wrong):
+    """The two-tower phase's tower check on the CPU at the reduced config:
+    a bf16 copy and a float32 copy pass against the float32 model; either
+    one answering with another item's row fails."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.recsys import cast_model
+
+    model, cfg, _ = get_arch("two-tower-retrieval").make_reduced()
+    model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    ids = np.random.default_rng(7).integers(0, cfg.vocab, size=(64, cfg.n_user_fields))
+    bf16 = cast_model(model, torch.bfloat16, "cpu")
+    fp32 = cast_model(model, torch.float32, "cpu")
+    if wrong == "bf16":
+        bf16 = _Rolled(bf16)
+    elif wrong == "fp32":
+        fp32 = _Rolled(fp32)
+    failures = []
+    row = chip_smoke.tower_check(torch, np, failures, bf16, fp32, model, ids,
+                                 torch.as_tensor(ids), "user_embed")
+    assert (failures == []) == (wrong == "none"), (row, failures)
