@@ -58,6 +58,7 @@ import hashlib
 import importlib
 import sys
 import threading
+import warnings
 from collections import Counter
 from typing import Callable
 
@@ -76,6 +77,7 @@ __all__ = [
     "run_audit",
     "audit_rebuilds",
     "audit_index",
+    "watch_call",
 ]
 
 AUDIT_METRICS = ("l2", "cosine", "jsd", "triangular")
@@ -379,6 +381,49 @@ class _Auditor:
         cell.bf16_seen = True
         if not cell.bf16:
             cell.problem(fn, "bf16-present", f"bfloat16 in an fp32 cell ({where})")
+
+
+class _CallWatch(TorchDispatchMode):
+    """``_Watch`` for one call outside the pass matrix (``watch_call``): every
+    operator it dispatches, in any thread (the backward's too), is seen as
+    the call's own."""
+
+    def __init__(self, auditor: "_Auditor", fn: str):
+        super().__init__()
+        self.auditor, self.fn = auditor, fn
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.auditor.see(self.fn, func, args, kwargs, out)
+        return out
+
+
+def watch_call(name: str, fn: Callable, *args, **kwargs) -> tuple[object, list[AuditProblem]]:
+    """(``fn(*args, **kwargs)``, its problems): every operator the call
+    dispatches is watched as a pass's are, for a host sync (the audit's
+    operator list; on a card also ``set_sync_debug_mode("warn")``) and a
+    float64 tensor.  bfloat16 is allowed.  The train step is audited so."""
+    auditor = _Auditor()
+    cell = _Cell(name, bf16=True)
+    auditor.cell = cell
+    cuda = any(t.is_cuda for t in _tensors((args, kwargs)))
+    mode = torch.cuda.get_sync_debug_mode() if cuda else None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("warn")
+            with _CallWatch(auditor, name):
+                out = fn(*args, **kwargs)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(mode)
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            cell.problem(name, "sync", str(w.message).strip().splitlines()[0])
+    return out, list(cell.problems)
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,3 @@
-"""Seeded metric-space corpora of the port (copies of ``repro.data``)."""
+"""Data of the port (``repro.data``): seeded metric-space corpora
+(``metricsets``, a copy) and the checkpointable training streams
+(``pipeline``)."""

@@ -209,6 +209,31 @@ class _RecsysBase(nn.Module):
             del w  # a bf16 leaf's float32 draw goes before the next draw
         return self
 
+    def param_tree(self) -> dict:
+        """The parameters as the reference's tree (the dict, its lists of
+        ``*_w`` / ``*_b``), detached tensors sharing the parameters'
+        storage: what the train step and a checkpoint take."""
+        out: dict = {}
+        for name, i, _ in self._leaves():
+            p = (getattr(self, name) if i is None else getattr(self, name)[i]).detach()
+            if i is None:
+                out[name] = p
+            else:
+                out.setdefault(name, []).append(p)
+        return out
+
+    def load_param_tree(self, params: dict):
+        """Make the tensors of ``params`` (``param_tree``'s structure, e.g. a
+        trained state's ``"params"``) the model's parameters, as they are.
+        Returns the model."""
+        for name, i, (shape, dt) in self._leaves():
+            t = params[name] if i is None else params[name][i]
+            if tuple(t.shape) != tuple(shape) or t.dtype != dt:
+                raise ValueError(f"{name}: got {tuple(t.shape)} {t.dtype}, "
+                                 f"want {tuple(shape)} {dt}")
+            self._set(name, i, t.detach())
+        return self
+
     def param_specs(self, mesh=None) -> dict:
         raise NotImplementedError(f"parameter partitions are {SHARDING_ITEM}")
 

@@ -1,0 +1,11 @@
+"""Optimizers and gradient compression of the port (``repro.optim``)."""
+
+from repro_torch.optim.optimizers import (  # noqa: F401
+    Optimizer,
+    adamw,
+    adafactor,
+    cosine_schedule,
+    clip_by_global_norm,
+    make_optimizer,
+)
+from repro_torch.optim.compression import int8_error_feedback  # noqa: F401

@@ -1,0 +1,175 @@
+"""Two-tower training on the card: the reduced train step on the card
+against the CPU port, two runs of the same steps bit-equal, crash and
+resume bit-exact, and a checkpoint saved from the card restored onto the
+CPU and onto the card bit for bit, bfloat16 leaves included.
+
+The file imports no jax; on the card it runs as
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_train.py
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import common
+from repro_torch.configs.recsys_archs import TWO_TOWER
+from repro_torch.configs.registry import get_arch
+from repro_torch.data.pipeline import ClickStream
+from repro_torch.kernels import _build
+from repro_torch.models import recsys as R
+from repro_torch.optim import adamw
+from repro_torch.pytree import leaves, leaves_with_paths, tree_map
+from repro_torch.train.loop import TrainLoop, TrainLoopConfig
+from repro_torch.train.step import functional_loss, init_state, make_train_step, to_device
+
+STEPS = 5
+LR = 3e-3
+# one step on the card and one on the CPU from the same state: the loss
+# within 1e-5 relative (both IEEE float32, summed in another order); a
+# parameter within 2 * lr (AdamW moves an element about lr a step, and one
+# whose gradient is rounding noise may move the other way), and at most 1%
+# of a leaf's elements more than 1e-5 apart
+LOSS_REL = 1e-5
+
+
+@pytest.fixture
+def card():
+    """The CUDA device, or a skip where no sm_90 card and nvcc are (as the
+    other card test files: the port's card is the H100)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("the port's card is sm_90")
+    try:
+        _build._nvcc()
+    except RuntimeError:
+        pytest.skip("needs nvcc, as the other card test files")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    t = t.detach().cpu()
+    return t.view({2: torch.int16, 4: torch.int32, 1: torch.int8}[t.itemsize])
+
+
+def _equal_trees(a, b) -> bool:
+    la, lb = leaves_with_paths(a), leaves_with_paths(b)
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(_bits(x), _bits(y)) for (_, x), (_, y) in zip(la, lb))
+
+
+def _reduced(dev):
+    model, cfg, _ = get_arch("two-tower-retrieval").make_reduced()
+    model.init_params(torch.Generator("cpu").manual_seed(0), device="cpu")
+    return model, cfg, tree_map(lambda t: t.to(dev), model.param_tree())
+
+
+def _run(dev, steps=STEPS, seed=0):
+    model, cfg, params = _reduced(dev)
+    step = make_train_step(functional_loss(model, common.loss_for("recsys", model)), adamw(lr=LR))
+    state = init_state(params, adamw(lr=LR))
+    stream = ClickStream(cfg, batch=64, seed=seed)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, to_device(stream.next(), dev))
+        losses.append(m["loss"])
+    return state, torch.stack(losses).cpu()
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(card):
+    """Along the CPU's five steps, each step also taken on the card from the
+    same state."""
+    model, cfg, params = _reduced(torch.device("cpu"))
+    step = make_train_step(functional_loss(model, common.loss_for("recsys", model)), adamw(lr=LR))
+    state = init_state(params, adamw(lr=LR))
+    stream = ClickStream(cfg, batch=64, seed=0)
+    for _ in range(STEPS):
+        batch = stream.next()
+        got, got_m = step(tree_map(lambda t: t.to(card), state), to_device(batch, card))
+        state, m = step(state, to_device(batch, "cpu"))
+        want = float(m["loss"])
+        assert abs(float(got_m["loss"]) - want) <= LOSS_REL * abs(want)
+        for a, b in zip(leaves(got["params"]), leaves(state["params"])):
+            d = (a.cpu() - b).abs()
+            assert float(d.max()) <= 2 * LR
+            assert float((d > 1e-5).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+def test_two_runs_on_card_are_bit_equal(card):
+    a, la = _run(card)
+    b, lb = _run(card)
+    assert torch.equal(_bits(la), _bits(lb))
+    assert _equal_trees(a, b)
+
+
+def _loop(tmp_path, dev, total=12):
+    model, cfg, _ = get_arch("two-tower-retrieval").make_reduced()
+    loop = TrainLoop(functional_loss(model, common.loss_for("recsys", model)), adamw(lr=LR),
+                     ClickStream(cfg, batch=64, seed=7),
+                     TrainLoopConfig(total_steps=total, checkpoint_every=4,
+                                     checkpoint_dir=str(tmp_path), log_every=100), device=dev)
+    return model, loop
+
+
+@pytest.mark.cuda
+def test_crash_and_resume_on_card_is_bit_exact(card, tmp_path):
+    def init(model):
+        return lambda: model.init_params(torch.Generator(card).manual_seed(0),
+                                         device=card).param_tree()
+
+    model, a = _loop(tmp_path / "a", card)
+    state_a = a.run(a.init_or_restore(init(model)))
+    model, b = _loop(tmp_path / "b", card)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        b.run(b.init_or_restore(init(model)), crash_at=8)
+    model, b2 = _loop(tmp_path / "b", card)
+    state_b = b2.init_or_restore(init(model))
+    assert int(state_b["step"]) == 8 and leaves(state_b)[0].is_cuda
+    state_b = b2.run(state_b)
+    assert _equal_trees(state_a, state_b)
+    assert a.losses[8:] == b2.losses
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_card_restores_on_cpu_and_card(card, tmp_path):
+    """The full two-tower widths in bfloat16 (vocab 64), AdamW's state after
+    one step on the card: saved, restored onto the CPU and onto the card."""
+    cfg = dataclasses.replace(TWO_TOWER, vocab=64)
+    model = R.TwoTowerModel(cfg).init_params(torch.Generator(card).manual_seed(0), device=card)
+    step = make_train_step(functional_loss(model, model.loss_fn), adamw(lr=LR))
+    state = init_state(model.param_tree(), adamw(lr=LR))
+    state, _ = step(state, to_device(ClickStream(cfg, batch=32, seed=0).next(), card))
+    assert state["params"]["user_w"][0].dtype == torch.bfloat16
+    mgr = CheckpointManager(tmp_path / "c")
+    mgr.save(1, state, extra={"note": "card"})
+    on_cpu, extra = mgr.restore(state, device="cpu")
+    on_card, _ = mgr.restore(state)
+    assert extra == {"note": "card"}
+    assert all(t.device.type == "cpu" for t in leaves(on_cpu))
+    assert all(t.is_cuda for t in leaves(on_card))
+    assert _equal_trees(on_cpu, state) and _equal_trees(on_card, state)
+
+
+@pytest.mark.cuda
+def test_async_save_is_not_reached_by_later_updates(card, tmp_path):
+    """``save(blocking=False)`` copies every leaf to the host first: an
+    in-place write on the card after ``save`` returns is not in the file."""
+    mgr = CheckpointManager(tmp_path / "c")
+    state = {"w": torch.arange(1 << 20, dtype=torch.float32, device=card)}
+    want = state["w"].cpu().clone()
+    mgr.save(1, state, blocking=False)
+    state["w"].add_(1.0)
+    mgr.wait()
+    got, _ = mgr.restore({"w": torch.empty(1 << 20, device="meta")}, device="cpu")
+    assert torch.equal(got["w"], want)
+    assert np.isfinite(want.numpy()).all()

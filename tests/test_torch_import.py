@@ -1,6 +1,6 @@
-"""The port (``src/repro_torch``), ``examples/torch_quickstart.py`` and
-``chip_smoke.py`` import neither jax nor any module of the JAX package
-``repro``, nor ``ml_dtypes`` (the card's machine has none)."""
+"""The port (``src/repro_torch``), its examples and ``chip_smoke.py``
+import neither jax nor any module of the JAX package ``repro``, nor
+``ml_dtypes`` (the card's machine has none)."""
 
 import ast
 import os
@@ -15,7 +15,9 @@ PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 QUICKSTART = "examples/torch_quickstart.py"
+EXAMPLE = "examples/torch_retrieval_serving.py"
 LAUNCHER = "repro_torch.launch.serve"
+TRAIN_LAUNCHER = "repro_torch.launch.train"
 # a finder that refuses to import jax or the JAX package
 BLOCK = (
     "import sys\n"
@@ -51,7 +53,7 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("relpath", PORT_FILES + ["chip_smoke.py", QUICKSTART])
+@pytest.mark.parametrize("relpath", PORT_FILES + ["chip_smoke.py", QUICKSTART, EXAMPLE])
 def test_no_jax_or_reference_import(relpath):
     tree = ast.parse((ROOT / relpath).read_text())
     for node in ast.walk(tree):
@@ -75,6 +77,43 @@ def test_recsys_modules_load_no_jax():
         "assert len(registry()) == 4\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + ('ml_dtypes',)!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_training_modules_and_a_step_load_no_jax():
+    """The train loop, the checkpoint manager, the optimizers and the
+    training launcher import, and one train step of the reduced two-tower
+    runs and checkpoints, in a process where importing jax, ``repro`` or
+    ``ml_dtypes`` fails."""
+    blocked = FORBIDDEN + ("ml_dtypes",)
+    code = (
+        BLOCK.replace(repr(FORBIDDEN), repr(blocked))
+        + "import tempfile\n"
+        "import torch\n"
+        "import repro_torch.train.loop, repro_torch.checkpoint.manager\n"
+        "import repro_torch.optim, repro_torch.launch.train\n"
+        "from repro_torch.checkpoint.manager import CheckpointManager\n"
+        "from repro_torch.configs.registry import get_arch\n"
+        "from repro_torch.data.pipeline import ClickStream\n"
+        "from repro_torch.optim import adamw\n"
+        "from repro_torch.train.step import functional_loss, init_state, make_train_step, "
+        "to_device\n"
+        "model, cfg, _ = get_arch('two-tower-retrieval').make_reduced()\n"
+        "model.init_params(torch.Generator().manual_seed(0), device='cpu')\n"
+        "step = make_train_step(functional_loss(model, model.loss_fn), adamw())\n"
+        "state, m = step(init_state(model.param_tree(), adamw()),\n"
+        "                to_device(ClickStream(cfg, 16).next(), 'cpu'))\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    CheckpointManager(d).save(1, state)\n"
+        "    CheckpointManager(d).restore(state, device='cpu')\n"
+        "assert torch.isfinite(m['loss'])\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {blocked!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -141,6 +180,9 @@ def _run_blocked(target: str, args: list[str], cwd) -> subprocess.CompletedProce
     ("repro_torch.analysis", ["--device", "cpu"]),
     (QUICKSTART, ["--device", "cpu", "--corpus", "2000", "--queries", "16"]),
     (LAUNCHER, ["--device", "cpu", "--corpus", "2000", "--queries", "16"]),
+    (TRAIN_LAUNCHER, ["--arch", "two-tower-retrieval", "--reduced", "--steps", "3",
+                      "--device", "cpu"]),
+    (EXAMPLE, ["--device", "cpu", "--steps", "3", "--corpus", "500", "--queries", "16"]),
 ])
 def test_audit_and_quickstart_run_with_jax_absent(tmp_path, target, args):
     """The audit's CLI and the quickstart pass on the CPU, their own checks
@@ -159,5 +201,20 @@ def test_audit_and_quickstart_need_a_card_by_default(tmp_path, target):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     out = _run_blocked(target, [], tmp_path)
+    assert out.returncode not in (0, 3), out.stdout + out.stderr
+    assert "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("target, args", [
+    (TRAIN_LAUNCHER, ["--arch", "two-tower-retrieval", "--reduced"]), (EXAMPLE, []),
+])
+def test_training_entry_points_need_a_card_by_default(tmp_path, target, args):
+    """Without ``--device`` the training launcher and the training-and-serving
+    example run on the card, so they raise where there is none."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = _run_blocked(target, args, tmp_path)
     assert out.returncode not in (0, 3), out.stdout + out.stderr
     assert "no CUDA device" in out.stderr
