@@ -183,7 +183,8 @@ phase prints its seconds):
    0.5``, ``python -m repro_torch.launch.train --arch two-tower-retrieval
    --reduced --steps 20`` and ``examples/torch_retrieval_serving.py
    --steps 20 --corpus 5000 --queries 32`` (these two printing finite
-   losses).
+   losses), and ``examples/torch_lm_embedding_retrieval.py`` at its
+   defaults (printing ``exact=True``).
 19. The threshold check: those ``calibrate_threshold`` values must equal
    the thresholds the range paths used, bit for bit (which joins their
    threads before phase 20 times anything).
@@ -230,7 +231,33 @@ phase prints its seconds):
    forward (relative error within ``CTR_REL``), ``bce_loss``.  The
    untrained corpus's figures (PERF.md §6) are printed beside the
    trained one's.
-22. One JSON line with every kernel's numbers (``launches`` from the range
+22. LM: the LM family's serving path (``repro_torch.models.transformer``)
+   at full width, weights drawn by ``init_params`` from a CUDA generator
+   seeded 0, prompts from ``TokenStream`` (seed 0).  The full Llama-3.2-1B
+   (bf16): ``prefill`` of 4 x 2,048 tokens and 32 greedy ``decode_step``s
+   into a 2,080-slot bf16 cache; prefill's logits, and the first two
+   decode steps', within 2e-2 of max|logit| of ``forward`` over the same
+   (grown) sequence; a float32 copy on the card within 1e-4 of the float32
+   CPU forward on 1 x 64 tokens; the bf16 last-position logits within
+   0.05 of the float32 copy's (argmax agreement printed).  Then 32,768 +
+   512 windows of 32 tokens embedded by the example's ``embed_windows``
+   (256 a batch) and searched as the example does (``calibrate_threshold``
+   at 2e-3, ``build_bss("l2", n_pivots=12, n_pairs=16, block=128)``), the
+   512 queries through ``bss_query_batched`` on ``"cuda"`` in fp32 and bf16
+   with every launch count zeroed just before and read just after; held
+   to ``"torch"`` (all queries), the numpy oracle and the float64
+   exhaustive search (64), a differing hit only where its float64 distance
+   lies within the identity's rounding of t (``identity_hit_diffs``), bf16
+   equal to fp32 in every field; rows 1, 3b, 2 and 2b at these shapes (K =
+   2,048), the l2 rows held by ``identity_compare``.  The full Gemma 2 9B:
+   ``prefill`` of 1 x 8,192 tokens (past the 4,096 window) against
+   ``forward``; 16 greedy decode steps with a bf16 cache and the same
+   tokens through the config's int8 cache (last logits within 5%).
+   Phi-3.5-MoE at full width cut to 2 layers: prefill 2,048 and 8 decode
+   steps, the pairs past capacity and the load per expert of each MoE
+   call, a float32 copy on the card against the CPU.  Prints ms, tokens/s,
+   peak memory and the card's name and power limit.
+23. One JSON line with every kernel's numbers (``launches`` from the range
    path of its metric and precision, ``serving_launches`` from the serving
    phase, ``forest_launches`` from the forest phases, which must have
    launched the masked l2, bf16 l2 and JSD tiles, ``sharded_launches``
@@ -238,7 +265,9 @@ phase prints its seconds):
    ``audit_launches`` from the invariants phase, nonzero for every kernel
    on an engine path; ``two_tower_launches`` from phase 21's serving
    calls, nonzero for rows 1, 2, 2b and 3b, whose records also carry
-   ``two_tower``: their numbers at that path's shapes; the unmasked bf16
+   ``two_tower``: their numbers at that path's shapes; ``lm_launches``
+   from phase 22's search, nonzero for the same rows, whose records also
+   carry ``lm`` at K = 2,048; the unmasked bf16
    forms and the d1/d2 form of the planar bound are on no engine path and
    carry ``"on_main_path": false``), then the result line ``{"ok": true,
    "device": {...}}``.
@@ -401,6 +430,22 @@ def compare(torch, got, want, rtol=RTOL, atol=ATOL) -> tuple[float, bool, bool]:
     return err, same_inf, close
 
 
+def identity_compare(torch, got, want, x, y, rtol=RTOL) -> tuple[float, bool, bool]:
+    """``compare`` for two fp32 evaluations of l2 by the identity |x|^2 +
+    |y|^2 - 2 x.y over rows far from the origin (the LM corpus, PERF.md
+    §2): the identity cancels terms of size |x|^2 + |y|^2, and its rounding
+    (sigma ~ 2^-24 sqrt(K/3) sqrt(6) |x|^2, 3.8e-6 |x|^2 at K = 2,048) is a
+    share of those, not of d.  So d^2 is held within rtol of |x|^2 + |y|^2,
+    about five sigma.  Returns (max abs error of d, same +inf, within)."""
+    same_inf = bool(torch.equal(torch.isinf(got), torch.isinf(want)))
+    fin = torch.isfinite(want)
+    scale = (x.float() ** 2).sum(1)[:, None] + (y.float() ** 2).sum(1)[None, :]
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    diff2 = (got.float() ** 2 - want.float() ** 2).abs()
+    close = bool((diff2[fin] <= rtol * scale.expand_as(got)[fin]).all())
+    return err, same_inf, close
+
+
 def simplex(np, rng, n, k):
     """(n, k) float32 probability rows like colour histograms: sparse gamma
     draws with a third of the bins exactly zero and some at 1e-13 and 1e-9,
@@ -454,14 +499,17 @@ def planar_pairs_bound(q: int, p: int, m: int, b: int) -> tuple[float, str]:
     return planar_bound_ms(q, m, b, 4 * q * p + 8 * 2 * m + 4 * (m + 4 * b * m))
 
 
-def l2_pivot_check(torch, x, piv, plain_iters: int) -> tuple[dict, bool]:
+def l2_pivot_check(torch, x, piv, plain_iters: int, identity: bool = False
+                   ) -> tuple[dict, bool]:
     """Row 1, the unmasked l2 tile, on (x, piv) against its plain version:
-    (its numbers, within RTOL / ATOL with the same +inf)."""
+    (its numbers, within RTOL / ATOL with the same +inf; ``identity``:
+    ``identity_compare``)."""
     from repro_torch.kernels import pairwise_dist as pdist
     from repro_torch.kernels import ref
 
-    err, same_inf, close = compare(torch, pdist.pairwise_l2_kernel_call(x, piv),
-                                   ref.pairwise_l2_ref(x, piv))
+    got, want = pdist.pairwise_l2_kernel_call(x, piv), ref.pairwise_l2_ref(x, piv)
+    err, same_inf, close = (identity_compare(torch, got, want, x, piv) if identity
+                            else compare(torch, got, want))
     nb, by = tile_bound("l2", x.shape[0], piv.shape[0], x.shape[1])
     return dict(max_abs_err=err, ms=device_ms(torch, lambda: pdist.pairwise_l2_kernel_call(x, piv)),
                 plain_ms=time_ms(torch, lambda: ref.pairwise_l2_ref(x, piv), plain_iters),
@@ -470,11 +518,11 @@ def l2_pivot_check(torch, x, piv, plain_iters: int) -> tuple[dict, bool]:
 
 
 def masked_check(torch, metric: str, x, y, mask_np, bq: int, blk: int, iters: int = 20,
-                 plain_iters: int = 20) -> tuple[dict, bool]:
+                 plain_iters: int = 20, identity: bool = False) -> tuple[dict, bool]:
     """Rows 2, 5, 7 (and their bf16 ``y`` forms): the masked tile of
     ``metric`` on (x, y, mask) against its plain version, timed between
     CUDA events beside ``torch.cdist`` for l2: (its numbers, within RTOL /
-    ATOL with the same +inf)."""
+    ATOL with the same +inf; ``identity``: ``identity_compare``)."""
     from repro_torch.kernels import pairwise_dist as pdist
     from repro_torch.kernels import ref
 
@@ -488,7 +536,10 @@ def masked_check(torch, metric: str, x, y, mask_np, bq: int, blk: int, iters: in
     def plain():
         return ref.masked_pairwise_metric_ref(dense(x, y), mask, bq, blk)
 
-    err, same_inf, close = compare(torch, kernel(), plain())
+    got, want = kernel(), plain()
+    err, same_inf, close = (identity_compare(torch, got, want, x, y) if identity
+                            else compare(torch, got, want))
+    del got, want
     (q, k), n = x.shape, y.shape[0]
     nb, by = masked_tile_bound(metric, mask_np, q, n, k, bq, blk, y.element_size())
     return dict(max_abs_err=err, ms=time_ms(torch, kernel, iters),
@@ -748,6 +799,28 @@ def boundary_hit_diffs(np, pairwise_np, metric, corpus, queries, a, b, t) -> tup
         far = np.abs(d - t) > BAND * max(1.0, t)
         bad += [(qi, i) for i, f in zip(diff, far) if f]
     return n_diff, bad
+
+
+def identity_hit_diffs(np, pairwise_np, corpus, queries, a, b, t) -> tuple[int, list, float]:
+    """``boundary_hit_diffs`` of l2 hits over rows far from the origin: a
+    hit may differ where its float64 distance lies within the larger of
+    BAND * max(1, t) and the identity's rounding near t, RTOL * (|q|^2 +
+    |y|^2) / (2 t) (``identity_compare``).  Also returns the largest
+    |d - t| over that band among the differing hits."""
+    n_diff, bad, worst = 0, [], 0.0
+    for qi, (ha, hb) in enumerate(zip(a, b)):
+        diff = sorted(set(ha) ^ set(hb))
+        if not diff:
+            continue
+        n_diff += len(diff)
+        q = queries[qi].astype(np.float64)
+        ys = corpus[diff].astype(np.float64)
+        d = pairwise_np("l2", queries[qi], corpus[diff])[0]
+        band = np.maximum(BAND * max(1.0, t), RTOL * ((q * q).sum() + (ys * ys).sum(1)) / (2 * t))
+        ratio = np.abs(d - t) / band
+        worst = max(worst, float(ratio.max()))
+        bad += [(qi, i) for i, r in zip(diff, ratio) if r > 1.0]
+    return n_diff, bad, worst
 
 
 def run_queries(flat_index, EngineOpts, index, queries, t, backend, precision="fp32"):
@@ -3231,6 +3304,12 @@ def launcher_commands(ckpt: Path) -> list:
     ]
 
 
+# the LM-embedding example at its defaults (reduced Llama, 4,096 windows),
+# beside the quickstart
+LM_EXAMPLE_COMMANDS = [("lm embedding retrieval example",
+                        [str(ROOT / "examples" / "torch_lm_embedding_retrieval.py")])]
+
+
 def start_launchers(commands: list, device_args: tuple = ()) -> list:
     """Each command in a subprocess, all started together."""
     import os
@@ -3266,6 +3345,8 @@ def finish_launchers(failures: list, procs: list) -> list:
         elif name.startswith(("train", "retrieval")) and not (
                 losses and all(math.isfinite(v) for v in losses)):
             failures.append(f"launcher {name} printed no finite losses: {lines}")
+        elif name.startswith("lm") and not any("exact=True" in line for line in lines):
+            failures.append(f"launcher {name} printed no exact search: {lines}")
     return rows
 
 
@@ -3583,12 +3664,15 @@ def kth_ties(np, d, k: int) -> int:
     return int(((np.abs(d - kth) <= BAND).sum(axis=1) - 1).sum())
 
 
-def two_tower_kernels(torch, np, failures: list, index, q_eng, live: dict) -> dict:
-    """Rows 1, 3b, 2 and 2b of PERF.md §6 at the two-tower path's shapes
-    (512 queries, 16 pivots, K = 256, 7,813 blocks, 24 planes) on the
-    path's own index and queries, against their plain versions: row 2 at
-    the path's live-tile share (a random mask at that share) and at a 30%
-    random mask with one dead tile row, row 2b at the bf16 path's share."""
+def path_kernels(torch, np, failures: list, index, q_eng, live: dict, tag: str,
+                 identity: bool = False) -> dict:
+    """Rows 1, 3b, 2 and 2b of PERF.md §6 at a path's shapes (the two-tower
+    path: 512 queries, 16 pivots, K = 256, 7,813 blocks, 24 planes; the LM
+    search: 512 queries, 12 pivots, K = 2,048, 256 blocks, 16 planes) on
+    the path's own index and queries, against their plain versions: row 2
+    at the path's live-tile share (a random mask at that share) and at a
+    30% random mask with one dead tile row, row 2b at the bf16 path's
+    share.  ``identity``: the l2 rows are held by ``identity_compare``."""
     from repro_torch.kernels import pairwise_dist as pdist
     from repro_torch.kernels import planar_exclusion as planar
     from repro_torch.kernels import ref
@@ -3598,7 +3682,7 @@ def two_tower_kernels(torch, np, failures: list, index, q_eng, live: dict) -> di
     q, k = x.shape
     p, m, b = dev.pivots.shape[0], dev.pairs.shape[0], index.n_blocks
     n, blk, bq = dev.data.shape[0], index.block, 128
-    numbers, ok = l2_pivot_check(torch, x, dev.pivots, 50)
+    numbers, ok = l2_pivot_check(torch, x, dev.pivots, 50, identity)
     out = {"pairwise_l2": dict(shape=[q, p, k], ok=ok, **numbers)}
     dqp = pdist.pairwise_l2_kernel_call(x, dev.pivots)
 
@@ -3620,14 +3704,14 @@ def two_tower_kernels(torch, np, failures: list, index, q_eng, live: dict) -> di
     for key, y, share in (("masked_pairwise_l2", dev.data, live["fp32"]),
                           ("masked_pairwise_l2@0.3", dev.data, 0.3),
                           ("masked_pairwise_l2_bf16", index.device_bf16, live["bf16"])):
-        # the dead-tile path at K = 256 under the 30% mask
+        # the dead-tile path under the 30% mask
         mask_np = random_mask(np, rng, shape, share, dead_row=share == 0.3)
-        numbers, ok = masked_check(torch, "l2", x, y, mask_np, bq, blk, 10, 2)
+        numbers, ok = masked_check(torch, "l2", x, y, mask_np, bq, blk, 10, 2, identity)
         out[key] = dict(shape=[q, n, k], live_share=float(mask_np.mean()), ok=ok, **numbers)
     for key, rec in out.items():
-        log(f"two tower kernel {key}: " + json.dumps(rec))
+        log(f"{tag} kernel {key}: " + json.dumps(rec))
         if not rec["ok"]:
-            failures.append(f"two tower: kernel {key} disagrees with its plain version: {rec}")
+            failures.append(f"{tag}: kernel {key} disagrees with its plain version: {rec}")
     return out
 
 
@@ -3880,12 +3964,469 @@ def two_tower(torch, np, failures: list, record: dict, dev, model, sizes=TT_SIZE
     log("two tower pruned " + json.dumps(pruned))
 
     # 5. the kernels at these shapes; 6. the CTR models
-    kernels = two_tower_kernels(torch, np, failures, index, q_eng, live)
+    kernels = path_kernels(torch, np, failures, index, q_eng, live, "two tower")
     model.to_empty(device="meta")
     del server, index, mirror, items_dev
     torch.cuda.empty_cache()
     row["ctr"] = ctr_forwards(torch, np, failures, dev, sizes["ctr_rows"])
     return dict(counts=counts, kernels=kernels)
+
+
+# The LM family's serving path (PERF.md §4): the full Llama-3.2-1B config
+# prefilling 4 x 2,048 tokens and decoding 32 greedy steps into a 2,080-slot
+# bf16 cache; the full Gemma 2 9B config over 1 x 8,192 tokens (past its
+# 4,096-token window) decoding 16 steps with its int8 cache and a bf16 one;
+# Phi-3.5-MoE at full width cut to 2 layers; 32,768 + 512 token windows of
+# 32 tokens embedded by the Llama and searched at K = 2,048.
+LM_SIZES = dict(batch=4, prompt=2048, steps=32, cache=2080, check_tokens=64,
+                gemma_prompt=8192, gemma_steps=16, phi_layers=2, phi_prompt=2048,
+                phi_steps=8, windows=32_768, queries=512, window_batch=256,
+                window_len=32, oracle=64)
+# every kernel the LM-embedding search launches (PERF.md §6 rows 1, 2, 2b, 3b)
+LM_PATH = TWO_TOWER_PATH
+# prefill and decode against forward, of the largest |logit|: the reference's
+# own bound (tests/test_arch_smoke.py), bf16 summed in another order
+LM_REL = 2e-2
+# the float32 copy on the card against the float32 CPU forward (PERF.md §2:
+# IEEE float32 in both, summed in another order)
+LM_FP32_REL = 1e-4
+# bf16 against the float32 copy, and the int8 cache against the bf16 one
+# (the reference's bound, tests/test_arch_smoke.py)
+LM_BF16_REL = 5e-2
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| over max |want| (float32)."""
+    got, want = got.float(), want.float().to(got.device)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def lm_tokens(np, vocab: int, batch: int, seq: int):
+    """(batch, seq) prompt tokens from ``TokenStream(vocab, batch, seq, seed=0)``."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models.params import check_ids
+
+    toks = TokenStream(vocab=vocab, batch=batch, seq=seq, seed=0).next()["tokens"][:, :-1]
+    check_ids(toks, vocab, "tokens")
+    return np.ascontiguousarray(toks)
+
+
+def decode_cache(torch, model, prefill_cache: dict, max_seq: int, int8: bool = False) -> dict:
+    """A ``max_seq``-slot decode cache holding ``prefill_cache`` (bf16 K/V
+    of the prompt) in its first slots; ``int8`` quantises it per layer as
+    ``quantize_kv`` does, the int8 cache's own write."""
+    from repro_torch.models import layers
+
+    c = model.cfg
+    dev = prefill_cache["k"].device
+    s = prefill_cache["k"].shape[2]
+    spec = dataclasses.replace(c, kv_cache_dtype="int8" if int8 else "bf16")
+    shapes = type(model)(spec).init_cache_shapes(prefill_cache["k"].shape[1], max_seq)
+    cache = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev) for k, v in shapes.items()}
+    for key in ("k", "v"):
+        for i in range(c.n_layers):
+            if int8:
+                q, scale = layers.quantize_kv(prefill_cache[key][i])
+                cache[key][i, :, :s] = q
+                cache[key + "_scale"][i, :, :s] = scale
+            else:
+                cache[key][i, :, :s] = prefill_cache[key][i]
+    return cache
+
+
+def greedy(torch, model, cache: dict, first, start: int, steps: int, feed=None):
+    """``steps`` decode steps from position ``start``, each feeding the
+    argmax of the last logits (or ``feed[:, i]``); returns (the tokens fed
+    (B, steps), each step's logits, ms by CUDA events, s by host clock)."""
+    toks, outs = [], []
+    tok = first
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    with torch.inference_mode():
+        for i in range(steps):
+            if feed is not None:
+                tok = feed[:, i:i + 1]
+            toks.append(tok)
+            logits, cache = model.decode_step(cache, tok, start + i)
+            outs.append(logits)
+            tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+    ev1.record()
+    torch.cuda.synchronize()
+    return torch.cat(toks, dim=1), outs, ev0.elapsed_time(ev1), time.perf_counter() - t0
+
+
+def fp32_copy_check(torch, np, failures, tag: str, model, dev, tokens_np) -> dict:
+    """A float32 copy of ``model`` on the card against the float32 copy on
+    the CPU, ``forward`` over ``tokens_np``: within LM_FP32_REL of the
+    largest |logit|.  Returns the row and the card's copy."""
+    from repro_torch.models.params import cast_model
+
+    t0 = time.perf_counter()
+    card32 = cast_model(model, torch.float32, dev)
+    # the CPU copy from the card's float32 one: a plain copy of the same
+    # values (bf16 -> float32 is exact), no conversion on the host
+    cpu = cast_model(card32, torch.float32, "cpu")
+    t_copy = time.perf_counter() - t0
+    with torch.inference_mode():
+        got = card32.forward(torch.as_tensor(tokens_np, device=dev)).cpu()
+        want = cpu.forward(torch.as_tensor(tokens_np))
+    del cpu
+    row = dict(tokens=list(tokens_np.shape), rel_err=rel_err(torch, got, want),
+               max_abs_logit=float(want.abs().max()),
+               finite=bool(torch.isfinite(got).all()), copy_seconds=t_copy,
+               seconds=time.perf_counter() - t0)
+    if not (row["finite"] and row["rel_err"] <= LM_FP32_REL):
+        failures.append(f"lm {tag}: the float32 copy on the card against the CPU: {row}")
+    return row, card32
+
+
+class MoELoads:
+    """Counts, per ``moe_block`` call of the port, the pairs each expert
+    was given and those past capacity, from the call's own inputs and the
+    same router arithmetic (the model's ``layers.moe_block`` wrapped)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import layers
+
+        self.torch, self.layers, self.calls = torch, layers, []
+        self._orig = layers.moe_block
+
+    def __enter__(self):
+        torch, layers = self.torch, self.layers
+
+        def wrapped(x, router_w, w_gate, w_up, w_down, dims):
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ router_w.float(), dim=-1)
+            top_e = layers._top_k_largest(probs, dims.top_k)[1]
+            load = torch.bincount(top_e.reshape(-1), minlength=dims.n_experts)
+            self.calls.append((load, dims.capacity))
+            return self._orig(x, router_w, w_gate, w_up, w_down, dims)
+
+        layers.moe_block = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_block = self._orig
+
+    def rows(self) -> list:
+        return [dict(pairs=int(load.sum()), capacity=cap, load=load.tolist(),
+                     dropped=int((load - cap).clamp_min(0).sum()))
+                for load, cap in self.calls]
+
+
+def lm_llama(torch, np, failures: list, record: dict, dev, sizes=LM_SIZES):
+    """Step 1: the full Llama-3.2-1B config (bf16, weights from seed 0 on
+    the card): prefill, greedy decode, held to ``forward``; a float32 copy
+    on the card held to the CPU and the bf16 logits to it.  Returns the
+    bf16 model for the embedding search."""
+    from repro_torch.configs.lm_archs import LLAMA32_1B
+    from repro_torch.models.transformer import LMModel
+
+    cfg = LLAMA32_1B
+    row: dict = {}
+    record["lm llama"] = row
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LMModel(cfg).init_params(torch.Generator(dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    row["init"] = dict(seconds=time.perf_counter() - t0, n_params=cfg.n_params(),
+                       param_bytes=model.param_bytes())
+    b, s, steps = sizes["batch"], sizes["prompt"], sizes["steps"]
+    prompt = torch.as_tensor(lm_tokens(np, cfg.vocab, b, s), device=dev)
+    with torch.inference_mode():
+        model.prefill(prompt[:, :128])  # warm-up, not timed
+        (logits, pcache), pre_ms = event_ms(torch, lambda: model.prefill(prompt))
+        full, fwd_ms = event_ms(torch, lambda: model.forward(prompt))
+        prefill_rel = rel_err(torch, logits, full[:, -1])
+        del full
+    cache = decode_cache(torch, model, pcache, sizes["cache"])
+    del pcache
+    first = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+    greedy(torch, model, decode_cache(torch, model, {k: v[:, :, :8] for k, v in cache.items()},
+                                      16), first, 8, 1)  # warm-up
+    fed, outs, dec_ms, dec_s = greedy(torch, model, cache, first, s, steps)
+    decode_rel = []
+    with torch.inference_mode():
+        for i in range(2):  # forward over the grown sequence
+            grown = torch.cat([prompt, fed[:, :i + 1]], dim=1)
+            decode_rel.append(rel_err(torch, outs[i], model.forward(grown)[:, -1]))
+    finite = bool(torch.isfinite(logits).all()) and all(bool(torch.isfinite(o).all())
+                                                        for o in outs)
+    row["serve"] = dict(
+        prompt=[b, s], prefill_ms=pre_ms, prefill_tokens_per_s=b * s / (pre_ms / 1e3),
+        forward_ms=fwd_ms, decode_steps=steps, cache_slots=sizes["cache"],
+        decode_ms_per_step=dec_ms / steps, decode_tokens_per_s=b * steps / (dec_ms / 1e3),
+        decode_host_ms_per_step=dec_s * 1e3 / steps,
+        decode_host_tokens_per_s=b * steps / dec_s,
+        prefill_vs_forward=prefill_rel, decode_vs_forward=decode_rel, finite=finite,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    log("lm llama serve " + json.dumps(row["serve"]))
+    if not (finite and prefill_rel <= LM_REL and all(r <= LM_REL for r in decode_rel)):
+        failures.append(f"lm llama: prefill / decode against forward: {row['serve']}")
+    del cache, outs
+
+    # the float32 copy: on the card against the CPU, and the bf16 logits to it
+    row["fp32"], card32 = fp32_copy_check(torch, np, failures, "llama", model, dev,
+                                          lm_tokens(np, cfg.vocab, 1, sizes["check_tokens"]))
+    with torch.inference_mode():
+        logits32, _ = card32.prefill(prompt)
+    del card32
+    torch.cuda.empty_cache()
+    agree = (logits.argmax(-1) == logits32.argmax(-1)).float().mean()
+    row["bf16_vs_fp32"] = dict(rel_err=rel_err(torch, logits, logits32),
+                               argmax_agreement=float(agree), positions=b)
+    log("lm llama fp32 " + json.dumps(row["fp32"]) + " bf16 vs fp32 "
+        + json.dumps(row["bf16_vs_fp32"]))
+    if row["bf16_vs_fp32"]["rel_err"] > LM_BF16_REL:
+        failures.append(f"lm llama: bf16 against the float32 copy: {row['bf16_vs_fp32']}")
+    return model
+
+
+def lm_retrieval(torch, np, failures: list, record: dict, dev, model, sizes=LM_SIZES) -> dict:
+    """Step 5: 32,768 + 512 windows embedded by the full Llama (the
+    example's ``embed_windows``), indexed and searched at K = 2,048 as the
+    example does, held by phase 4's rules; rows 1, 3b, 2, 2b at these
+    shapes.  Returns the launch counts and the kernel records."""
+    import importlib.util
+
+    from repro_torch.core import flat_index, tree
+    from repro_torch.core.backends import EngineOpts
+    from repro_torch.core.npdist import pairwise_np
+    from repro_torch.data.metricsets import calibrate_threshold
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.tiles import TILE_BQ
+    from repro_torch.models.params import check_ids
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_lm_embedding_retrieval", ROOT / "examples" / "torch_lm_embedding_retrieval.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    row: dict = {}
+    record["lm retrieval"] = row
+    nb, seq = sizes["window_batch"], sizes["window_len"]
+    n_windows = sizes["windows"] + sizes["queries"]
+    stream = TokenStream(vocab=model.cfg.vocab, batch=nb, seq=seq, seed=0)
+    batch_ms, embs = [], []
+    t0 = time.perf_counter()
+    for _ in range(n_windows // nb):
+        toks = stream.next()["tokens"][:, :-1]
+        check_ids(toks, model.cfg.vocab, "tokens")
+        toks_dev = torch.as_tensor(toks, device=dev)
+        e, ms = event_ms(torch, lambda: example.embed_windows(model, toks_dev))
+        embs.append(e)
+        batch_ms.append(ms)
+    embed_s = time.perf_counter() - t0
+    emb = np.concatenate(embs)
+    queries, corpus = emb[:sizes["queries"]], emb[sizes["queries"]:]
+    row["embed"] = dict(windows=n_windows, window_tokens=seq, batch=nb,
+                        ms_per_batch_median=float(np.median(batch_ms)),
+                        ms_per_batch_max=float(np.max(batch_ms)),
+                        tokens_per_s=n_windows * seq / (sum(batch_ms) / 1e3),
+                        host_seconds=embed_s, finite=bool(np.isfinite(emb).all()),
+                        corpus=list(corpus.shape))
+    log("lm retrieval embed " + json.dumps(row["embed"]))
+    model.to_empty(device="meta")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    t = calibrate_threshold("l2", corpus, 2e-3)
+    t_cal = time.perf_counter() - t0
+    # the float64 oracles run beside the build and the warm-up; nothing runs
+    # beside the timed calls
+    n_or = sizes["oracle"]
+    pool = ThreadPoolExecutor(2)
+    truth = pool.submit(lambda: tree.exhaustive_search("l2", corpus, queries[:n_or], t))
+    index = flat_index.build_bss("l2", corpus, n_pivots=12, n_pairs=16, block=128, device=dev)
+    _ = index.device, index.device_bf16
+    torch.cuda.synchronize()
+    row["build"] = dict(seconds=time.perf_counter() - t0, calibrate_seconds=t_cal, t=t,
+                        blocks=int(index.n_blocks), n_pad=int(index.data.shape[0]),
+                        dim=int(index.data.shape[1]))
+    oracle = pool.submit(lambda: flat_index.bss_query(index, queries[:n_or], t)[0])
+    for precision in ("fp32", "bf16"):  # warm-up at K = 2,048, not timed
+        flat_index.bss_query_batched(index, queries, t, opts=EngineOpts(precision=precision))
+    t0 = time.perf_counter()
+    oracle_hits, truth_hits = oracle.result(), truth.result()
+    pool.shutdown()
+    row["build"]["oracle_wait_seconds"] = time.perf_counter() - t0
+    log("lm retrieval build " + json.dumps(row["build"]))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    reset_launch_counts()
+    (hits, st32), s32 = timed(lambda: flat_index.bss_query_batched(
+        index, queries, t, opts=EngineOpts(backend="cuda")))
+    (hits16, st16), s16 = timed(lambda: flat_index.bss_query_batched(
+        index, queries, t, opts=EngineOpts(backend="cuda", precision="bf16")))
+    counts = launch_counts()
+    log(f"lm retrieval launch counts: {counts}")
+    (plain, stp), sp = timed(lambda: flat_index.bss_query_batched(
+        index, queries, t, opts=EngineOpts(backend="torch")))
+    hits = [sorted(h) for h in hits]
+    n_p, bad_p, w_p = identity_hit_diffs(np, pairwise_np, corpus, queries, hits,
+                                         [sorted(h) for h in plain], t)
+    n_o, bad_o, w_o = identity_hit_diffs(np, pairwise_np, corpus, queries, hits[:n_or],
+                                         [sorted(h) for h in oracle_hits], t)
+    n_x, bad_x, w_x = identity_hit_diffs(np, pairwise_np, corpus, queries, hits[:n_or],
+                                         [sorted(h) for h in truth_hits], t)
+    sq = (corpus.astype(np.float64) ** 2).sum(1)
+    equal = dict(hits=[sorted(h) for h in hits16] == hits,
+                 **equal_fields(np, range_fields(np, [st16]), range_fields(np, [st32])))
+    qtiles = -(-len(queries) // TILE_BQ)
+    live = {"fp32": st32["tiles_computed"] / (qtiles * index.n_blocks),
+            "bf16": st16["tiles_computed"] / (qtiles * index.n_blocks)}
+    row["search"] = dict(
+        queries=len(queries), t=t, hits=sum(map(len, hits)),
+        dists_per_query=float(st32["dists_per_query"]),
+        block_exclusion_rate=float(st32["block_exclusion_rate"]),
+        queries_per_s=len(queries) / s32, bf16_queries_per_s=len(queries) / s16,
+        plain_queries_per_s=len(queries) / sp, live_tile_share=live,
+        bf16_recheck_points_per_query=float(st16["recheck_points_per_query"]),
+        count_diff_queries_vs_torch=int(np.count_nonzero(
+            np.asarray(st32["per_query_dists"]) != np.asarray(stp["per_query_dists"]))),
+        hit_boundary_diffs_vs_torch=n_p, hit_boundary_diffs_vs_oracle=n_o,
+        hit_boundary_diffs_vs_float64=n_x, oracle_queries=n_or,
+        largest_diff_share_of_band=max(w_p, w_o, w_x),
+        median_row_norm_sq=float(np.median(sq)), identity_band_at_t=float(
+            RTOL * 2 * np.median(sq) / (2 * t)), equal_to_fp32=equal)
+    log("lm retrieval search " + json.dumps(row["search"]))
+    if bad_p or bad_o or bad_x:
+        failures.append(f"lm retrieval: hits differ away from t {(bad_p + bad_o + bad_x)[:10]}")
+    if not all(equal.values()):
+        failures.append(f"lm retrieval: bf16 differs from fp32: {equal}")
+    if row["search"]["hits"] == 0 or not row["embed"]["finite"]:
+        failures.append(f"lm retrieval: no hits or non-finite embeddings: {row}")
+    t0 = time.perf_counter()
+    kernels = path_kernels(torch, np, failures, index, queries, live, "lm", identity=True)
+    log(f"lm retrieval kernels {time.perf_counter() - t0:.2f} s")
+    return dict(counts=counts, kernels=kernels)
+
+
+def lm_gemma(torch, np, failures: list, record: dict, dev, sizes=LM_SIZES) -> None:
+    """Step 2: the full Gemma 2 9B config: prefill over 8,192 tokens (past
+    the window) against ``forward``; 16 greedy decode steps with a bf16
+    cache and the same tokens through the config's int8 cache."""
+    from repro_torch.configs.lm_archs import GEMMA2_9B
+    from repro_torch.models.transformer import LMModel
+
+    cfg = GEMMA2_9B
+    row: dict = {}
+    record["lm gemma"] = row
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LMModel(cfg).init_params(torch.Generator(dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    row["init_seconds"] = time.perf_counter() - t0
+    s, steps = sizes["gemma_prompt"], sizes["gemma_steps"]
+    prompt = torch.as_tensor(lm_tokens(np, cfg.vocab, 1, s), device=dev)
+    with torch.inference_mode():
+        model.prefill(prompt[:, :128])  # warm-up, not timed
+        (logits, pcache), pre_ms = event_ms(torch, lambda: model.prefill(prompt))
+        full, fwd_ms = event_ms(torch, lambda: model.forward(prompt))
+        prefill_rel = rel_err(torch, logits, full[:, -1])
+        del full
+    first = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+    cache = decode_cache(torch, model, pcache, s + steps)
+    fed, outs16, ms16, _ = greedy(torch, model, cache, first, s, steps)
+    del cache
+    cache8 = decode_cache(torch, model, pcache, s + steps, int8=True)
+    del pcache
+    _, outs8, ms8, _ = greedy(torch, model, cache8, first, s, steps, feed=fed)
+    del cache8
+    int8_rel = [rel_err(torch, a, b) for a, b in zip(outs8, outs16)]
+    finite = all(bool(torch.isfinite(o).all()) for o in [logits, *outs16, *outs8])
+    row.update(prompt=[1, s], window=cfg.sliding_window, prefill_ms=pre_ms,
+               prefill_tokens_per_s=s / (pre_ms / 1e3), forward_ms=fwd_ms,
+               prefill_vs_forward=prefill_rel, decode_steps=steps,
+               decode_ms_per_step_bf16=ms16 / steps, decode_ms_per_step_int8=ms8 / steps,
+               int8_vs_bf16_last=int8_rel[-1], int8_vs_bf16_max=max(int8_rel), finite=finite,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    log("lm gemma " + json.dumps(row))
+    if not (finite and prefill_rel <= LM_REL and int8_rel[-1] <= LM_BF16_REL):
+        failures.append(f"lm gemma: {row}")
+    model.to_empty(device="meta")
+    del outs16, outs8, logits
+    torch.cuda.empty_cache()
+
+
+def lm_phi(torch, np, failures: list, record: dict, dev, sizes=LM_SIZES) -> None:
+    """Step 3: Phi-3.5-MoE at full width cut to 2 layers: prefill 2,048
+    tokens and 8 greedy decode steps, the tokens past capacity and the load
+    per expert of each MoE call; a float32 copy on the card against the
+    CPU."""
+    from repro_torch.configs.lm_archs import PHI35_MOE
+    from repro_torch.models.transformer import LMModel
+
+    row: dict = {}
+    record["lm phi"] = row
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(PHI35_MOE, n_layers=sizes["phi_layers"])
+    model = LMModel(cfg).init_params(torch.Generator(dev).manual_seed(0), device=dev)
+    s, steps = sizes["phi_prompt"], sizes["phi_steps"]
+    prompt = torch.as_tensor(lm_tokens(np, cfg.vocab, 1, s), device=dev)
+    with torch.inference_mode():
+        model.prefill(prompt[:, :128])  # warm-up, not timed
+        with MoELoads(torch) as loads:
+            (logits, pcache), pre_ms = event_ms(torch, lambda: model.prefill(prompt))
+    first = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+    cache = decode_cache(torch, model, pcache, s + steps)
+    del pcache
+    with MoELoads(torch) as dloads:
+        _, outs, dec_ms, _ = greedy(torch, model, cache, first, s, steps)
+    del cache
+    finite = all(bool(torch.isfinite(o).all()) for o in [logits, *outs])
+    row["serve"] = dict(layers=cfg.n_layers, prompt=[1, s], prefill_ms=pre_ms,
+                        prefill_tokens_per_s=s / (pre_ms / 1e3), decode_steps=steps,
+                        decode_ms_per_step=dec_ms / steps, prefill_moe=loads.rows(),
+                        decode_dropped=sum(r["dropped"] for r in dloads.rows()),
+                        finite=finite, max_memory_allocated=torch.cuda.max_memory_allocated())
+    log("lm phi " + json.dumps(row["serve"]))
+    if not finite:
+        failures.append(f"lm phi: non-finite logits: {row['serve']}")
+    row["fp32"], card32 = fp32_copy_check(torch, np, failures, "phi", model, dev,
+                                          lm_tokens(np, cfg.vocab, 1, sizes["check_tokens"]))
+    log("lm phi fp32 " + json.dumps(row["fp32"]))
+    del card32
+    model.to_empty(device="meta")
+    torch.cuda.empty_cache()
+
+
+def lm(torch, np, failures: list, record: dict, dev, sizes=LM_SIZES) -> dict:
+    """Phase 22: the LM family's serving path on the card: the Llama, its
+    embedding search (before the card is given to Gemma), Gemma 2, Phi.
+    Returns the search's launch counts and kernel records."""
+    torch.cuda.empty_cache()
+    log(f"lm phase on {card_line()}")
+    seconds = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    model = step("llama", lambda: lm_llama(torch, np, failures, record, dev, sizes))
+    out = step("retrieval", lambda: lm_retrieval(torch, np, failures, record, dev, model,
+                                                 sizes))
+    step("gemma", lambda: lm_gemma(torch, np, failures, record, dev, sizes))
+    step("phi", lambda: lm_phi(torch, np, failures, record, dev, sizes))
+    log("lm seconds " + json.dumps(seconds))
+    return out
 
 
 def main() -> int:
@@ -3946,7 +4487,7 @@ def main() -> int:
 
     kernels, record, paths, bf16_paths, knns, serving_counts = {}, {}, {}, {}, {}, {}
     forest, forest_counts = {}, {}
-    sharded_s4, sharded_counts, audit_counts, two_tower_run = {}, {}, {}, {}
+    sharded_s4, sharded_counts, audit_counts, two_tower_run, lm_run = {}, {}, {}, {}, {}
     dev = torch.device("cuda")
     data = {}
     if "--plain-l2" in sys.argv[1:]:
@@ -4078,7 +4619,7 @@ def main() -> int:
         # the launchers in subprocesses beside the quickstart's: no timed
         # call runs beside them
         ("launchers start", lambda: data.update(launchers=start_launchers(
-            launcher_commands(LAUNCH_CKPT)))),
+            launcher_commands(LAUNCH_CKPT) + LM_EXAMPLE_COMMANDS))),
         ("quickstart", lambda: quickstart(torch, failures, record)),
         ("launchers", lambda: launchers(failures, record, data.pop("launchers"))),
         # joins those threads: nothing of theirs runs beside two tower's timed calls
@@ -4088,6 +4629,7 @@ def main() -> int:
             torch, np, failures, record, dev))),
         ("two tower", lambda: two_tower_run.update(two_tower(
             torch, np, failures, record, dev, data["trained"]))),
+        ("lm", lambda: lm_run.update(lm(torch, np, failures, record, dev))),
     )
     for phase, fn in phases:
         t0 = time.perf_counter()
@@ -4112,6 +4654,12 @@ def main() -> int:
                    if k.split("@")[0] == name]
         if at_k256:  # the same kernel at the two-tower path's shapes (K = 256)
             rec["two_tower"] = at_k256
+        rec["lm_launches"] = int(lm_run.get("counts", {}).get(entry, 0))
+        at_k2048 = [r for k, r in lm_run.get("kernels", {}).items() if k.split("@")[0] == name]
+        if at_k2048:  # the same kernel at the LM search's shapes (K = 2,048)
+            rec["lm"] = at_k2048
+        if entry in LM_PATH and rec["lm_launches"] <= 0:
+            failures.append(f"kernel {name} was not launched by the LM search")
         if entry in TWO_TOWER_PATH and rec["two_tower_launches"] <= 0:
             failures.append(f"kernel {name} was not launched by the two-tower path")
         if entry in SHARDED_PATH and rec["sharded_launches"] <= 0:

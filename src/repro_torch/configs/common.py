@@ -1,13 +1,12 @@
 """Config substrate of the port: architecture bundles and their cells — the
-recsys part of ``repro.configs.common``.
+LM and recsys parts of ``repro.configs.common``.
 
 An ArchBundle knows, for every assigned input shape, the batch it takes
 (``TensorSpec`` shapes and torch dtypes; nothing is allocated) and how to
 build a REDUCED version of itself for CPU tests.  One card has no mesh, so
 a cell carries no input partition: asking for one raises, naming the
-ROADMAP item that ports the model-family sharding helpers.  The LM and GNN
-shapes (``LM_SHAPES``, ``GNN_SHAPES`` and their cells) wait for the items
-that port those families.
+ROADMAP item that ports the model-family sharding helpers.  The GNN shapes
+(``GNN_SHAPES`` and their cells) wait for the item that ports that family.
 """
 
 from __future__ import annotations
@@ -22,6 +21,10 @@ __all__ = [
     "ArchBundle",
     "TensorSpec",
     "loss_for",
+    "SKIP_PURE_FULL_ATTENTION",
+    "LM_SHAPES",
+    "lm_cells",
+    "lm_reduced",
     "RECSYS_SHAPES",
     "recsys_batch_spec",
     "recsys_cells",
@@ -88,6 +91,70 @@ def loss_for(family: str, model) -> Callable:
             return model.loss_fn
         return lambda b: R.bce_loss(model, b)
     return model.loss_fn
+
+
+# --------------------------------------------------------------------- LM
+
+SKIP_PURE_FULL_ATTENTION = (
+    "long_500k requires sub-quadratic attention; this arch is pure full "
+    "attention (assignment rule: skip + note in DESIGN.md)"
+)
+
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+
+def lm_cells(cfg, model, *, pure_full_attention: bool) -> dict[str, Cell]:
+    cells = {}
+    for shape_name, s in LM_SHAPES.items():
+        kind, seq, batch = s["kind"], s["seq"], s["batch"]
+        skip = None
+        if shape_name == "long_500k" and pure_full_attention:
+            skip = SKIP_PURE_FULL_ATTENTION
+
+        if kind == "train":
+
+            def inputs(seq=seq, batch=batch):
+                return {"tokens": TensorSpec((batch, seq + 1), torch.int32)}
+
+        elif kind == "prefill":
+
+            def inputs(seq=seq, batch=batch):
+                return {"tokens": TensorSpec((batch, seq), torch.int32)}
+
+        else:  # decode: batch + cache handled by the launcher
+
+            def inputs(seq=seq, batch=batch):
+                return {
+                    "token": TensorSpec((batch, 1), torch.int32),
+                    "pos": TensorSpec((), torch.int32),
+                }
+
+        cells[shape_name] = Cell(shape_name, kind, inputs, skip=skip)
+    return cells
+
+
+def lm_reduced(cfg_cls, model_cls, **overrides):
+    """Tiny same-family config + synthetic batch for CPU tests."""
+
+    def make():
+        cfg = cfg_cls(**overrides)
+        model = model_cls(cfg)
+
+        def batch_fn(generator: torch.Generator) -> dict:
+            """A reduced batch drawn on ``generator``'s device."""
+            return {
+                "tokens": torch.randint(0, cfg.vocab, (2, 33), generator=generator,
+                                        device=generator.device, dtype=torch.int32)
+            }
+
+        return model, cfg, batch_fn
+
+    return make
 
 
 # ------------------------------------------------------------------ recsys

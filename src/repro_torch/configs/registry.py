@@ -2,39 +2,34 @@
 of ``repro.configs.registry``.
 
 Per-arch modules (one file per assigned architecture, exact configs inside):
+    configs/phi3_5_moe.py  configs/kimi_k2.py  configs/gemma2_9b.py
+    configs/deepseek_coder_33b.py  configs/llama3_2_1b.py
     configs/wide_deep.py  configs/din.py  configs/two_tower.py  configs/dlrm_rm2.py
 plus the paper's own workload: configs/supermetric.py (metric-search corpus).
 
-The port holds the recsys family.  The names the reference registers for
-the LM and GNN families raise ``NotImplementedError`` naming the ROADMAP
-item that ports them; any other name raises ``KeyError``, as the
+The port holds the LM and recsys families.  The name the reference
+registers for the GNN family raises ``NotImplementedError`` naming the
+ROADMAP item that ports it; any other name raises ``KeyError``, as the
 reference does.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import recsys_archs
+from repro_torch.configs import lm_archs, recsys_archs
 from repro_torch.configs.common import ArchBundle
 
 _REGISTRY: dict[str, ArchBundle] | None = None
 
 # the reference's names not ported yet, and the ROADMAP item of each
-_LM_ITEM = "ROADMAP Queue 1 item 8.3 (the LM path)"
-_GNN_ITEM = "ROADMAP Queue 1 item 8.4 (models/gnn.py with configs/pna.py)"
-NOT_PORTED = {
-    "phi3.5-moe-42b-a6.6b": _LM_ITEM,
-    "kimi-k2-1t-a32b": _LM_ITEM,
-    "gemma2-9b": _LM_ITEM,
-    "deepseek-coder-33b": _LM_ITEM,
-    "llama3.2-1b": _LM_ITEM,
-    "pna": _GNN_ITEM,
-}
+GNN_ITEM = "ROADMAP Queue 1 item 8.4 (models/gnn.py with configs/pna.py)"
+NOT_PORTED = {"pna": GNN_ITEM}
 
 
 def registry() -> dict[str, ArchBundle]:
     global _REGISTRY
     if _REGISTRY is None:
         _REGISTRY = {}
+        _REGISTRY.update(lm_archs.bundles())
         _REGISTRY.update(recsys_archs.bundles())
     return _REGISTRY
 

@@ -1,6 +1,6 @@
 """Training launcher of the port, the port of ``repro.launch.train`` for
-the recsys family (the LM and GNN names raise ``NotImplementedError`` in
-``get_arch``):
+the recsys family (an LM or GNN name raises ``NotImplementedError`` naming
+the ROADMAP item that ports its training):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch two-tower-retrieval \\
         --steps 20 --reduced --device cpu      # the reduced config on the CPU
@@ -30,6 +30,12 @@ from repro_torch.train.loop import TrainLoop, TrainLoopConfig
 from repro_torch.train.step import functional_loss
 
 REDUCED_BATCH = 16
+# the families whose training is not ported yet, and the ROADMAP item of each
+NOT_TRAINED = {
+    "lm": "ROADMAP Queue 1 item 8.3b (the LM branch of launch/train.py, an LM "
+          "train step on the card)",
+    "gnn": "ROADMAP Queue 1 item 8.4 (models/gnn.py with configs/pna.py)",
+}
 
 
 def main(argv=None) -> None:
@@ -42,12 +48,16 @@ def main(argv=None) -> None:
     ap.add_argument("--compression", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    bundle = get_arch(args.arch)
+    if bundle.family in NOT_TRAINED:
+        raise NotImplementedError(
+            f"training the {bundle.family} family ({args.arch!r}) is not ported "
+            f"yet: {NOT_TRAINED[bundle.family]}")
     dev = resolve_device(None if args.device == "cuda" else args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    bundle = get_arch(args.arch)
     if args.reduced:
         model, cfg, _ = bundle.make_reduced()
     else:

@@ -13,7 +13,8 @@ A model is built on the ``meta`` device, so a full configuration costs
 nothing until ``init_params`` (the reference's distribution from a
 ``torch.Generator``) or ``load_jax_params`` (the reference's own numbers)
 puts its parameters on a device: the CUDA device unless the caller passes
-``device="cpu"``, raising where there is no card.
+``device="cpu"``, raising where there is no card (``models.params``, shared
+with the LM family).
 
 The two-tower model is the paper-integration point: its item tower fills
 the corpus that the supermetric BSS index (``repro_torch.core.flat_index``)
@@ -26,16 +27,14 @@ reference: check ids from outside with ``check_ids`` where they are made.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Sequence
 
-import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.common import SHARDING_ITEM
 from repro_torch.core.distances import check_ieee_fp32
-from repro_torch.core.flat_index import resolve_device
+from repro_torch.models.params import ParamModule, cast_model, check_ids, load_jax_params
 
 __all__ = [
     "RecsysConfig",
@@ -74,17 +73,6 @@ def embedding_bag(
         denom = torch.tensor(idx.shape[1], dtype=e.dtype, device=e.device)
     s = e.sum(dim=1)
     return s / denom if combine == "mean" else s
-
-
-def check_ids(ids, vocab: int, name: str = "ids") -> None:
-    """Raise unless every id lies in [0, vocab).  The reference's gathers
-    clamp an id out of range; torch raises on the CPU and asserts on the
-    card, so ids are checked on the host where they are made."""
-    a = np.asarray(ids)
-    if a.size and (a.min() < 0 or a.max() >= vocab):
-        raise ValueError(
-            f"{name} must lie in [0, {vocab}); got [{a.min()}, {a.max()}]"
-        )
 
 
 def _mlp_shapes(dims: Sequence[int], dtype) -> list:
@@ -140,150 +128,7 @@ class RecsysConfig:
     batch_axes: tuple | None = None
 
 
-def _is_leaf(v) -> bool:
-    return isinstance(v, tuple) and len(v) == 2 and isinstance(v[0], tuple)
-
-
-def _meta(spec) -> nn.Parameter:
-    shape, dtype = spec
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"))
-
-
-class _RecsysBase(nn.Module):
-    """Parameters as the reference's tree (``param_shapes``), built on the
-    ``meta`` device and placed by ``init_params`` / ``load_jax_params``."""
-
-    def __init__(self, cfg: RecsysConfig):
-        super().__init__()
-        self.cfg = cfg
-        for name, spec in self.param_shapes().items():
-            if _is_leaf(spec):
-                setattr(self, name, _meta(spec))
-            else:
-                setattr(self, name, nn.ParameterList([_meta(s) for s in spec]))
-
-    def param_shapes(self) -> dict:
-        raise NotImplementedError
-
-    def _leaves(self):
-        """(name, list index or None, (shape, dtype)) of every parameter, in
-        the reference tree's order."""
-        for name, spec in self.param_shapes().items():
-            if _is_leaf(spec):
-                yield name, None, spec
-            else:
-                for i, s in enumerate(spec):
-                    yield name, i, s
-
-    def _set(self, name: str, i: int | None, value: torch.Tensor) -> None:
-        p = nn.Parameter(value)
-        if i is None:
-            setattr(self, name, p)
-        else:
-            getattr(self, name)[i] = p
-
-    def abstract_params(self) -> dict:
-        """The parameter tree as ``meta`` tensors (no allocation)."""
-        out: dict = {}
-        for name, i, (shape, dt) in self._leaves():
-            t = torch.empty(shape, dtype=dt, device="meta")
-            if i is None:
-                out[name] = t
-            else:
-                out.setdefault(name, []).append(t)
-        return out
-
-    def init_params(self, generator: torch.Generator, device=None):
-        """Draw every parameter as the reference does: a float32 standard
-        normal over sqrt(fan), fan = ``shape[-2]`` (``shape[-1]`` for 1-D),
-        cast to its dtype, from ``generator`` (on ``device``'s type).  The
-        distribution is the reference's, not JAX's numbers.  Returns the
-        model."""
-        dev = resolve_device(device)
-        for name, i, (shape, dt) in self._leaves():
-            fan = shape[-2] if len(shape) > 1 else shape[-1]
-            w = torch.randn(shape, generator=generator, device=dev,
-                            dtype=torch.float32)
-            w /= math.sqrt(fan)
-            self._set(name, i, w.to(dt))
-            del w  # a bf16 leaf's float32 draw goes before the next draw
-        return self
-
-    def param_tree(self) -> dict:
-        """The parameters as the reference's tree (the dict, its lists of
-        ``*_w`` / ``*_b``), detached tensors sharing the parameters'
-        storage: what the train step and a checkpoint take."""
-        out: dict = {}
-        for name, i, _ in self._leaves():
-            p = (getattr(self, name) if i is None else getattr(self, name)[i]).detach()
-            if i is None:
-                out[name] = p
-            else:
-                out.setdefault(name, []).append(p)
-        return out
-
-    def load_param_tree(self, params: dict):
-        """Make the tensors of ``params`` (``param_tree``'s structure, e.g. a
-        trained state's ``"params"``) the model's parameters, as they are.
-        Returns the model."""
-        for name, i, (shape, dt) in self._leaves():
-            t = params[name] if i is None else params[name][i]
-            if tuple(t.shape) != tuple(shape) or t.dtype != dt:
-                raise ValueError(f"{name}: got {tuple(t.shape)} {t.dtype}, "
-                                 f"want {tuple(shape)} {dt}")
-            self._set(name, i, t.detach())
-        return self
-
-    def param_specs(self, mesh=None) -> dict:
-        raise NotImplementedError(f"parameter partitions are {SHARDING_ITEM}")
-
-    def param_bytes(self) -> int:
-        return sum(math.prod(shape) * dt.itemsize for _, _, (shape, dt) in self._leaves())
-
-
-def _from_numpy(a) -> torch.Tensor:
-    """A host array of the reference's tree as a CPU tensor of its own
-    dtype.  A bfloat16 array (numpy dtype name ``bfloat16``) is read
-    through its 16-bit pattern, so ``ml_dtypes`` is never needed here."""
-    a = np.array(a, copy=True)  # contiguous and writable
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
-
-
-def load_jax_params(model: _RecsysBase, params: dict, device=None):
-    """Fill ``model`` with the reference's parameter tree ``params`` (numpy
-    arrays: the dict, its lists of ``*_w`` / ``*_b``), on ``device`` (the
-    CUDA device unless ``"cpu"``).  Layouts stay the reference's, so both
-    packages compute the same thing.  Returns the model."""
-    dev = resolve_device(device)
-    for name, i, (shape, dt) in model._leaves():
-        a = params[name] if i is None else params[name][i]
-        t = _from_numpy(a)
-        if tuple(t.shape) != tuple(shape) or t.dtype != dt:
-            where = name if i is None else f"{name}[{i}]"
-            raise ValueError(
-                f"{where}: the tree holds {tuple(t.shape)} {t.dtype}, the "
-                f"model wants {tuple(shape)} {dt}"
-            )
-        model._set(name, i, t.to(dev))
-    return model
-
-
-def cast_model(model: _RecsysBase, dtype: torch.dtype = torch.float32,
-               device="cpu") -> _RecsysBase:
-    """A copy of ``model`` in ``dtype`` on ``device`` over the same weights
-    (upcast): e.g. the float32 CPU forward that a bf16 model on the card is
-    held against."""
-    out = type(model)(dataclasses.replace(model.cfg, dtype=dtype))
-    dev = resolve_device(device)
-    for name, i, _ in model._leaves():
-        p = getattr(model, name) if i is None else getattr(model, name)[i]
-        out._set(name, i, p.detach().to(device=dev, dtype=dtype))
-    return out
-
-
-class WideDeepModel(_RecsysBase):
+class WideDeepModel(ParamModule):
     """Wide&Deep (arXiv:1606.07792): wide hashed-linear + deep MLP on field
     embeddings, summed logits."""
 
@@ -307,7 +152,7 @@ class WideDeepModel(_RecsysBase):
         return (deep + wide).float()[:, 0]
 
 
-class DINModel(_RecsysBase):
+class DINModel(ParamModule):
     """Deep Interest Network (arXiv:1706.06978): target attention over the
     user behaviour sequence."""
 
@@ -342,7 +187,7 @@ class DINModel(_RecsysBase):
         return _mlp_apply(z, self.mlp_w, self.mlp_b).float()[:, 0]
 
 
-class TwoTowerModel(_RecsysBase):
+class TwoTowerModel(ParamModule):
     """Two-tower retrieval (Yi et al., RecSys'19): user/item towers -> dot;
     trained with in-batch sampled softmax (logQ-free synthetic variant)."""
 
@@ -469,7 +314,7 @@ def lexsort_rows(secondary: torch.Tensor, primary: torch.Tensor) -> torch.Tensor
     return torch.gather(first, 1, second)
 
 
-class DLRMModel(_RecsysBase):
+class DLRMModel(ParamModule):
     """DLRM-RM2 (arXiv:1906.00091): bottom MLP on dense feats, dot-product
     feature interaction, top MLP."""
 

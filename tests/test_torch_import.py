@@ -16,6 +16,7 @@ PORT_FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 QUICKSTART = "examples/torch_quickstart.py"
 EXAMPLE = "examples/torch_retrieval_serving.py"
+LM_EXAMPLE = "examples/torch_lm_embedding_retrieval.py"
 LAUNCHER = "repro_torch.launch.serve"
 TRAIN_LAUNCHER = "repro_torch.launch.train"
 # a finder that refuses to import jax or the JAX package
@@ -53,7 +54,8 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("relpath", PORT_FILES + ["chip_smoke.py", QUICKSTART, EXAMPLE])
+@pytest.mark.parametrize("relpath", PORT_FILES + ["chip_smoke.py", QUICKSTART, EXAMPLE,
+                                                  LM_EXAMPLE])
 def test_no_jax_or_reference_import(relpath):
     tree = ast.parse((ROOT / relpath).read_text())
     for node in ast.walk(tree):
@@ -74,7 +76,7 @@ def test_recsys_modules_load_no_jax():
         "import repro_torch.models.recsys, repro_torch.configs.registry\n"
         "import repro_torch.launch.serve\n"
         "from repro_torch.configs.registry import registry\n"
-        "assert len(registry()) == 4\n"
+        "assert len(registry()) == 9\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + ('ml_dtypes',)!r})\n"
         "print(bad)\n"
@@ -84,6 +86,35 @@ def test_recsys_modules_load_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_lm_modules_and_the_lm_example_load_no_jax():
+    """The LM family's model, layers, configs and registry, and the LM
+    example run at a reduced size, in a process where importing jax,
+    ``repro`` or ``ml_dtypes`` fails."""
+    blocked = FORBIDDEN + ("ml_dtypes",)
+    code = (
+        BLOCK.replace(repr(FORBIDDEN), repr(blocked))
+        + "import runpy\n"
+        "import torch\n"
+        "import repro_torch.models.transformer, repro_torch.models.layers\n"
+        "import repro_torch.configs.lm_archs, repro_torch.configs.registry\n"
+        "from repro_torch.configs.registry import get_arch\n"
+        "model, cfg, batch_fn = get_arch('gemma2-9b').make_reduced()\n"
+        "model.init_params(torch.Generator().manual_seed(0), device='cpu')\n"
+        "logits, cache = model.prefill(batch_fn(torch.Generator().manual_seed(1))['tokens'])\n"
+        "assert torch.isfinite(logits).all() and cache['k'].shape[0] == 2\n"
+        f"sys.argv = ['x', '--device', 'cpu', '--windows', '512']\n"
+        f"runpy.run_path({str(ROOT / LM_EXAMPLE)!r}, run_name='__main__')\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {blocked!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "exact=True" in out.stdout
 
 
 def test_training_modules_and_a_step_load_no_jax():

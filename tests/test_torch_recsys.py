@@ -224,15 +224,18 @@ def test_embedding_bag_matches_jax():
 # ----------------------------------------------------------------- registry
 
 def test_registry_is_the_recsys_part_of_jax():
+    """The port registers the recsys and the LM families, as JAX does (the
+    LM bundles' own checks: ``tests/test_torch_lm_configs.py``)."""
     jreg, treg = jax_registry(), registry()
     assert set(treg) <= set(jreg)
-    assert set(treg) == {n for n, b in jreg.items() if b.family == "recsys"}
-    assert set(NOT_PORTED) == set(jreg) - set(treg)
+    assert set(treg) == {n for n, b in jreg.items() if b.family in ("lm", "recsys")}
+    assert set(NOT_PORTED) == set(jreg) - set(treg) == {"pna"}
     assert all_cells() == [(a, c) for a, c in
                            ((n, c) for n, b in jreg.items() for c in b.cells) if a in treg]
+    assert {a for a, _ in all_cells()} == set(treg)
     for name, b in treg.items():
         jb = jreg[name]
-        assert b.family == jb.family == "recsys"
+        assert b.family == jb.family in ("lm", "recsys")
         assert dataclasses.asdict(b.cfg) | {"dtype": None} == \
             dataclasses.asdict(jb.cfg) | {"dtype": None}
         assert b.cfg.dtype == torch.bfloat16 and jb.cfg.dtype == jnp.bfloat16
@@ -267,10 +270,13 @@ def test_unported_and_unknown_names_raise():
     for name, item in NOT_PORTED.items():
         with pytest.raises(NotImplementedError, match=item.split(" (")[0]):
             get_arch(name)
-    assert "item 8.3" in NOT_PORTED["llama3.2-1b"] and "item 8.4" in NOT_PORTED["pna"]
+    assert list(NOT_PORTED) == ["pna"] and "item 8.4" in NOT_PORTED["pna"]
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
     assert get_arch("two-tower-retrieval") is registry()["two-tower-retrieval"]
+    for name in ("phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "gemma2-9b",
+                 "deepseek-coder-33b", "llama3.2-1b"):
+        assert get_arch(name) is registry()[name] and get_arch(name).family == "lm"
 
 
 def test_arch_files_expose_their_bundle():
