@@ -183,8 +183,10 @@ phase prints its seconds):
    0.5``, ``python -m repro_torch.launch.train --arch two-tower-retrieval
    --reduced --steps 20`` and ``examples/torch_retrieval_serving.py
    --steps 20 --corpus 5000 --queries 32`` (these two printing finite
-   losses), and ``examples/torch_lm_embedding_retrieval.py`` at its
-   defaults (printing ``exact=True``).
+   losses), the same training launcher on the reduced Llama-3.2-1B and
+   PNA (``--arch llama3.2-1b`` / ``--arch pna``, finite losses), and
+   ``examples/torch_lm_embedding_retrieval.py`` at its defaults
+   (printing ``exact=True``).
 19. The threshold check: those ``calibrate_threshold`` values must equal
    the thresholds the range paths used, bit for bit (which joins their
    threads before phase 20 times anything).
@@ -257,7 +259,36 @@ phase prints its seconds):
    steps, the pairs past capacity and the load per expert of each MoE
    call, a float32 copy on the card against the CPU.  Prints ms, tokens/s,
    peak memory and the card's name and power limit.
-23. One JSON line with every kernel's numbers (``launches`` from the range
+23. LM train: the full Llama-3.2-1B (drawn afresh from seed 0, as phase
+   22 drew it; bf16, remat on) trained on one ``TokenStream`` batch of
+   2 x 4,096 tokens (``train_4k`` cut in batch: PERF.md §4) with AdamW at
+   lr 3e-4 for 4 steps after an untimed step over 256 tokens: each step's
+   ms by CUDA events and host clock, loss and peak memory; the losses
+   finite and falling; a step run twice from one state equal in the loss,
+   every gradient, parameter and moment, bit for bit; a float32 copy cut
+   to 2 layers, 256 tokens, against the CPU (loss within 1e-5 relative,
+   each gradient leaf within 1e-4 of its largest).  Then Phi-3.5-MoE at
+   full width, 2 layers: one bf16 step over its 4 microbatches of 512
+   tokens (float32 accumulation) with Adafactor, run twice bit-equal, the
+   pairs past capacity counted; a float32 copy cut to 1 layer, 64 tokens,
+   against the CPU.
+24. GNN train: PNA on ``full_graph_sm``, ``minibatch_lg`` (a
+   ``NeighborSampler`` draw, 1,024 seeds at fanout 15-10, over a synthetic
+   graph of 232,965 nodes and 602 features) and ``molecule`` at their
+   padded shapes, the nodes relabelled so each of 512 blocks fits the
+   cell's E_loc: flat and dst-partitioned logits within 1e-5; 4 AdamW
+   steps (lr 3e-4) in each layout, finite and falling; a step run twice
+   and a checkpoint restored and stepped, bit-equal; one step of each
+   layout under torch.profiler (device busy ms, idle share, kernel
+   events, the host's top operators); the float32 segment ops, forward
+   and backward, at the cell's shapes equal to the CPU's bits.  Then, with
+   every timed step done, the CPU references: the float32 loss on the card
+   within 1e-5 of the CPU's; the float64 gradients within 1e-5 of each
+   leaf's largest; each float32 gradient leaf within 5e-2 of the CPU's
+   float64 one (a bound for a wrong term: PNA's float32 gradient is
+   ill-conditioned), printed beside the CPU's own float32 leaf's distance.
+   ``ogb_products`` is reckoned, not run.
+25. One JSON line with every kernel's numbers (``launches`` from the range
    path of its metric and precision, ``serving_launches`` from the serving
    phase, ``forest_launches`` from the forest phases, which must have
    launched the masked l2, bf16 l2 and JSD tiles, ``sharded_launches``
@@ -3291,13 +3322,16 @@ LAUNCH_CKPT = ROOT / "build" / "launch_train_ckpt"  # the training launcher's ch
 def launcher_commands(ckpt: Path) -> list:
     """(name, argv) of the launchers run beside the quickstart: the serving
     launcher at its defaults and with ``--min-score 0.5``, the training
-    launcher on the reduced two-tower (its checkpoints in ``ckpt``), and
-    the training-and-serving example."""
+    launcher on the reduced two-tower, Llama-3.2-1B and PNA (checkpoints
+    under ``ckpt``), and the training-and-serving example."""
     return [
         ("serve", ["-m", "repro_torch.launch.serve"]),
         ("serve --min-score 0.5", ["-m", "repro_torch.launch.serve", "--min-score", "0.5"]),
         ("train", ["-m", "repro_torch.launch.train", "--arch", "two-tower-retrieval",
                    "--reduced", "--steps", "20", "--checkpoint-dir", str(ckpt)]),
+        *((f"train {arch}", ["-m", "repro_torch.launch.train", "--arch", arch, "--reduced",
+                             "--steps", "20", "--checkpoint-dir", str(ckpt / arch)])
+          for arch in ("llama3.2-1b", "pna")),
         ("retrieval serving example", [str(ROOT / "examples" / "torch_retrieval_serving.py"),
                                        "--steps", "20", "--corpus", "5000",
                                        "--queries", "32"]),
@@ -4429,6 +4463,637 @@ def lm(torch, np, failures: list, record: dict, dev, sizes=LM_SIZES) -> dict:
     return out
 
 
+# LM training on the card (PERF.md §4): the full Llama-3.2-1B config (bf16,
+# remat on) at train_4k's 4,096 tokens a row, its batch cut from 256 rows to
+# the 2 that fit about 70 GB, AdamW at the config's settings (lr held at its
+# schedule's peak: the 200-step warm-up's first rates move no bf16 weight),
+# one TokenStream batch repeated; Phi-3.5-MoE at full width, 2 of 32 layers,
+# one step over its config's 4 microbatches of 512 tokens, with Adafactor
+# (AdamW's float32 m and v for its 2.86 B parameters, held twice by the
+# functional apply beside the float32 gradients, pass 80 GB); float32 copies
+# at cut depth against the CPU (Phi's at 1 layer: its 2-layer copy held the
+# CPU 28 s).
+LM_TRAIN = dict(batch=2, seq=4096, steps=4, lr=3e-4, seed=0, warmup_seq=256,
+                check_layers=2, check_tokens=256, phi_layers=2, phi_batch=4,
+                phi_seq=512, phi_check_layers=1, phi_check_tokens=64)
+# the float32 copy's loss on the card against the CPU's, relative: a mean of
+# cross-entropies over logits held at 1e-4 of max|logit| (LM_FP32_REL), whose
+# errors average out (read in the tests: within 1e-7 of JAX's)
+LM_TRAIN_LOSS_REL = 1e-5
+# each gradient leaf of the float32 copy against the CPU's, of the leaf's
+# largest |gradient|: the logits' bound, LM_FP32_REL (IEEE float32 on both,
+# summed in another order; K-term products off by ~sqrt(K)·2^-24 ≈ 5e-6 at
+# K ≤ 8,192, the backward's products as the forward's)
+LM_TRAIN_GRAD_REL = LM_FP32_REL
+
+# GNN training on the card (PERF.md §4): the PNA trunk with each cell's head
+# at the cell's padded shape, flat and dst-partitioned (512 blocks) layouts,
+# AdamW at the config's peak lr of 3e-4 on one batch repeated (3e-3
+# overshoots at the second step on the Cora and molecule heads); minibatch_lg from NeighborSampler
+# (1,024 seeds, fanout 15-10) over a synthetic graph of Reddit's 232,965
+# nodes, 602 features and 41 classes, 15 neighbours a node (Reddit's 114.6 M
+# edges cut: the fanout is all the sample reads).
+GNN_TRAIN = dict(seed=0, steps=4, lr=3e-4, lg_nodes=232_965, lg_degree=15,
+                 lg_fanout=(15, 10), lg_seeds=1024)
+GNN_CELLS = ("full_graph_sm", "minibatch_lg", "molecule")
+# the two layouts' logits (tests/test_arch_smoke.py:95's bound); the float32
+# loss on the card against the CPU's, relative; each gradient leaf of a
+# float64 copy on the card against the CPU's, of the leaf's largest.  PNA's
+# float32 gradient is ill-conditioned: where a (node, channel)'s variance
+# lies within a rounding of 0, the std's d/dvar = 0.5 / sqrt(var + 1e-6)
+# (up to 500) moves with the variance's rounding, and maximum(var, 0)
+# passes all, half or none of it.  So a float32 gradient lies far more than
+# a rounding from the float64 one on either device, by an amount that
+# changes from one rounding to the next: in the smoke's runs the CPU's own
+# float32 w_in lies 1.3e-3 of its largest from float64 on full_graph_sm
+# where the card's lies 2.6e-4, and on minibatch_lg the card's b_msg lies
+# 2.1 times as far as the CPU's.  A float32 leaf on the card is held to
+# the CPU's float64 one within GNN_F32_GRAD_REL, a bound for a wrong or
+# missing term (which moves a leaf by a share of its own size), not for
+# rounding; the segment ops, the card's own float32 code, are held to the
+# CPU's bit for bit, forward and backward, at each cell's shapes
+GNN_LAYOUT_TOL = 1e-5
+GNN_REL = 1e-5
+GNN_F32_GRAD_REL = 5e-2
+
+
+def cut_layers(model, n: int):
+    """A model of ``model``'s config cut to its first ``n`` layers, over views
+    of the same weights."""
+    _, keys = model._layer_params()
+    tree = {k: (v[:n] if k in keys else v) for k, v in model.param_tree().items()}
+    return type(model)(dataclasses.replace(model.cfg, n_layers=n)).load_param_tree(tree)
+
+
+def grads_of(model, batch: dict, microbatches: int = 1):
+    """(loss, gradient tree) of ``model.loss_fn`` over ``batch``, as the
+    train step computes them."""
+    from repro_torch.train.step import functional_loss, make_train_step
+
+    step = make_train_step(functional_loss(model, model.loss_fn), None, microbatches)
+    return step.grads(model.param_tree(), batch)
+
+
+def leaf_rel(torch, got, want) -> dict:
+    """Each leaf's max |got - want| over its largest |want| (on ``got``'s
+    device)."""
+    from repro_torch.pytree import leaves_with_paths, path_key
+
+    out = {}
+    for (p, g), (_, w) in zip(leaves_with_paths(got), leaves_with_paths(want)):
+        w = w.to(g.device)
+        out[path_key(p)] = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+    return out
+
+
+def against(torch, loss, grads, ref) -> dict:
+    """(loss, gradients) of a card against ``ref``, the CPU's: the loss's
+    relative error and each leaf's error over its largest |gradient|."""
+    from repro_torch.pytree import leaves
+
+    want_l, want = ref
+    errs = leaf_rel(torch, grads, want)
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                                for g in leaves(grads))
+    return dict(loss=float(loss), cpu_loss=float(want_l),
+                loss_rel=abs(float(loss) - float(want_l)) / abs(float(want_l)),
+                grad_rel_max=max(errs.values()), grad_rel=errs, finite=finite)
+
+
+def grads_against_cpu(torch, model32, cpu32, batch: dict) -> dict:
+    """The loss and gradients of ``model32`` (on a card) against ``cpu32``
+    (the same weights on the CPU) over ``batch`` (``against``)."""
+    dev = next(model32.parameters()).device
+    loss, grads = grads_of(model32, {k: v.to(dev) for k, v in batch.items()})
+    return against(torch, loss, grads, grads_of(cpu32, {k: v.cpu() for k, v in batch.items()}))
+
+
+def repeat_step(torch, step, state, batch) -> dict:
+    """One train step run twice from ``state`` on ``batch``: the leaves of
+    the loss, the gradients and the new state that differ in any bit.
+    Returns the row and the first run's new state."""
+    l1, g1 = step.grads(state["params"], batch)
+    l2, g2 = step.grads(state["params"], batch)
+    row = dict(loss_equal=bool(torch.equal(int_bits(torch, l1), int_bits(torch, l2))),
+               differing_grads=differing_leaves(torch, g1, g2))
+    del g2
+    s1 = step.apply(state, g1)
+    s2 = step.apply(state, g1)
+    row["differing_state"] = differing_leaves(torch, s1, s2)
+    row["bit_equal"] = row["loss_equal"] and not row["differing_grads"] \
+        and not row["differing_state"]
+    return row, s1
+
+
+def timed_steps(torch, np, step, state, batch, n: int, dev) -> tuple[dict, dict]:
+    """``n`` train steps on ``batch``: each step's ms by CUDA events (host
+    clock on the CPU) and by host clock around its loss read, its loss and
+    the peak memory.  Returns (the row, the last state)."""
+    import math
+
+    cuda = dev.type == "cuda"
+    rows = []
+    for _ in range(n):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        stamps = Stamps(torch, dev)
+        t0 = time.perf_counter()
+        stamps.mark()
+        state, met = step(state, batch)
+        stamps.mark()
+        loss = float(met["loss"])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        rows.append(dict(ms=stamps.ms()[0], host_ms=host_ms, loss=loss,
+                         max_memory_allocated=torch.cuda.max_memory_allocated()
+                         if cuda else None))
+    losses = [r["loss"] for r in rows]
+    out = dict(steps=rows, losses=losses, finite=all(math.isfinite(v) for v in losses),
+               falls=len(losses) > 1 and losses[-1] < losses[0],
+               ms_median_after_first=float(np.median([r["ms"] for r in rows[1:]] or
+                                                     [rows[0]["ms"]])))
+    return out, state
+
+
+def lm_train_llama(torch, np, failures: list, record: dict, dev, model,
+                   sizes=LM_TRAIN) -> None:
+    """Step 1 of ``lm train``: ``model`` (the full Llama-3.2-1B, its weights
+    drawn here from seed 0) trained on one TokenStream batch of ``batch`` ×
+    ``seq`` tokens: timed steps, a step run twice, the float32 copy at cut
+    depth against the CPU."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models.params import cast_model, check_ids
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import functional_loss, init_state, make_train_step, to_device
+
+    cfg = model.cfg
+    # the generator and seed of the lm phase's draw
+    t0 = time.perf_counter()
+    model.init_params(torch.Generator(dev).manual_seed(0), device=dev)
+    row: dict = dict(config=cfg.name, remat=cfg.remat, dtype=str(cfg.dtype),
+                     init_seconds=time.perf_counter() - t0,
+                     n_params=cfg.n_params(), batch=[sizes["batch"], sizes["seq"]],
+                     microbatches=cfg.microbatches, lr=sizes["lr"])
+    record["lm train llama"] = row
+    if not cfg.remat:
+        failures.append("lm train llama: the config's remat is off")
+    raw = TokenStream(vocab=cfg.vocab, batch=sizes["batch"], seq=sizes["seq"],
+                      seed=sizes["seed"]).next()
+    check_ids(raw["tokens"], cfg.vocab, "tokens")
+    batch = to_device(raw, dev)
+    opt = adamw(lr=sizes["lr"])
+    step = make_train_step(functional_loss(model, model.loss_fn), opt, cfg.microbatches)
+    # a step over the first warmup_seq tokens, not timed, from a state not kept
+    t0 = time.perf_counter()
+    step.grads(model.param_tree(), {"tokens": batch["tokens"][:, :sizes["warmup_seq"] + 1]})
+    row["warmup_seconds"] = time.perf_counter() - t0
+    state = init_state(model.param_tree(), opt)
+    row["train"], state = timed_steps(torch, np, step, state, batch, sizes["steps"], dev)
+    log("lm train llama " + json.dumps(row))
+    if not (row["train"]["finite"] and row["train"]["falls"]):
+        failures.append(f"lm train llama: losses {row['train']['losses']}")
+    row["repeat"], _ = repeat_step(torch, step, state, batch)
+    del state
+    log("lm train llama repeat " + json.dumps(row["repeat"]))
+    if not row["repeat"]["bit_equal"]:
+        failures.append(f"lm train llama: a step run twice differs: {row['repeat']}")
+    torch.cuda.empty_cache()
+
+    # the float32 copy at full width, cut depth, against the CPU
+    t0 = time.perf_counter()
+    cut = cut_layers(model, sizes["check_layers"])
+    card32 = cast_model(cut, torch.float32, dev)
+    cpu32 = cast_model(card32, torch.float32, "cpu")
+    toks = TokenStream(vocab=cfg.vocab, batch=1, seq=sizes["check_tokens"], seed=1).next()
+    row["fp32"] = grads_against_cpu(torch, card32, cpu32, to_device(toks, "cpu"))
+    row["fp32"].update(layers=sizes["check_layers"], tokens=sizes["check_tokens"],
+                       seconds=time.perf_counter() - t0, loss_bound=LM_TRAIN_LOSS_REL,
+                       grad_bound=LM_TRAIN_GRAD_REL)
+    del card32, cpu32, cut
+    torch.cuda.empty_cache()
+    log("lm train llama fp32 " + json.dumps(row["fp32"]))
+    if not (row["fp32"]["finite"] and row["fp32"]["loss_rel"] <= LM_TRAIN_LOSS_REL
+            and row["fp32"]["grad_rel_max"] <= LM_TRAIN_GRAD_REL):
+        failures.append(f"lm train llama: the float32 copy against the CPU: {row['fp32']}")
+
+
+def lm_train_phi(torch, np, failures: list, record: dict, dev, sizes=LM_TRAIN,
+                 cfg=None) -> None:
+    """Step 2 of ``lm train``: Phi-3.5-MoE at full width, 2 layers, one bf16
+    step (its config's microbatches, float32 accumulation, Adafactor) run
+    twice from the same state, the pairs past capacity counted; a float32
+    copy against the CPU.  ``cfg`` / ``dev`` shrink it for the CPU tests."""
+    from repro_torch.configs.lm_archs import PHI35_MOE
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models.params import cast_model
+    from repro_torch.models.transformer import LMModel
+    from repro_torch.optim import adafactor
+    from repro_torch.pytree import leaves
+    from repro_torch.train.step import functional_loss, init_state, make_train_step, to_device
+
+    cfg = cfg or dataclasses.replace(PHI35_MOE, n_layers=sizes["phi_layers"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = LMModel(cfg).init_params(torch.Generator(dev).manual_seed(0), device=dev)
+    opt = adafactor(lr=1e-2)
+    step = make_train_step(functional_loss(model, model.loss_fn), opt, cfg.microbatches,
+                           accum_dtype=getattr(torch, cfg.grad_accum_dtype))
+    batch = to_device(TokenStream(vocab=cfg.vocab, batch=sizes["phi_batch"],
+                                  seq=sizes["phi_seq"], seed=0).next(), dev)
+    state = init_state(model.param_tree(), opt)
+    stamps = Stamps(torch, dev)
+    stamps.mark()
+    l0, g0 = step.grads(state["params"], batch)
+    stamps.mark()
+    stamps.mark()
+    new = step.apply(state, g0)
+    stamps.mark()
+    fwd_bwd_ms, _, apply_ms = stamps.ms()
+    finite = bool(torch.isfinite(l0)) and all(bool(torch.isfinite(p).all())
+                                             for p in leaves(new["params"]))
+    del g0, new
+    # the pairs each expert is sent, from a forward over the same
+    # microbatches (remat runs each MoE call again in the backward)
+    with torch.no_grad(), MoELoads(torch) as loads:
+        for mb in step._split(batch):
+            model.loss_fn(mb)
+    rows = loads.rows()
+    row = dict(layers=cfg.n_layers, batch=[sizes["phi_batch"], sizes["phi_seq"]],
+               microbatches=cfg.microbatches, optimizer="adafactor", loss=float(l0),
+               finite=finite, event_ms_forward_backward=fwd_bwd_ms,
+               event_ms_optimizer=apply_ms, moe_calls=len(rows),
+               pairs=sum(r["pairs"] for r in rows), dropped=sum(r["dropped"] for r in rows),
+               capacity=rows[0]["capacity"] if rows else None,
+               max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None)
+    record["lm train phi"] = row
+    row["repeat"], _ = repeat_step(torch, step, state, batch)
+    del state
+    log("lm train phi " + json.dumps(row))
+    if not (finite and row["repeat"]["bit_equal"] and rows):
+        failures.append(f"lm train phi: {row}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    card32 = cast_model(cut_layers(model, sizes["phi_check_layers"]), torch.float32, dev)
+    model.to_empty(device="meta")
+    cpu32 = cast_model(card32, torch.float32, "cpu")
+    toks = TokenStream(vocab=cfg.vocab, batch=1, seq=sizes["phi_check_tokens"], seed=1).next()
+    row["fp32"] = grads_against_cpu(torch, card32, cpu32, to_device(toks, "cpu"))
+    row["fp32"].update(layers=sizes["phi_check_layers"], tokens=sizes["phi_check_tokens"],
+                       seconds=time.perf_counter() - t0)
+    del card32, cpu32
+    torch.cuda.empty_cache()
+    log("lm train phi fp32 " + json.dumps({k: v for k, v in row["fp32"].items()
+                                           if k != "grad_rel"}))
+    if not (row["fp32"]["finite"] and row["fp32"]["loss_rel"] <= LM_TRAIN_LOSS_REL
+            and row["fp32"]["grad_rel_max"] <= LM_TRAIN_GRAD_REL):
+        failures.append(f"lm train phi: the float32 copy against the CPU: {row['fp32']}")
+
+
+def lm_train(torch, np, failures: list, record: dict, dev) -> None:
+    """Phase 23: LM training on the card (the full Llama, then Phi)."""
+    from repro_torch.configs.lm_archs import LLAMA32_1B
+    from repro_torch.models.transformer import LMModel
+
+    torch.cuda.empty_cache()
+    log(f"lm train phase on {card_line()}")
+    seconds = {}
+    t0 = time.perf_counter()
+    model = LMModel(LLAMA32_1B)
+    lm_train_llama(torch, np, failures, record, dev, model)
+    seconds["llama"] = time.perf_counter() - t0
+    model.to_empty(device="meta")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm_train_phi(torch, np, failures, record, dev)
+    seconds["phi"] = time.perf_counter() - t0
+    log("lm train seconds " + json.dumps(seconds))
+
+
+def block_balanced_ids(np, dst, n_pad: int, s_blocks: int):
+    """New node ids placing the ``n_pad`` nodes ``s_blocks`` blocks of
+    ``n_pad // s_blocks`` so that each block's in-edges are even (greedy:
+    the nodes by in-degree, largest first, each into the least-loaded block
+    with room), as a partitioner balancing edges lays out a graph's nodes.
+    Returns ``new_id`` (``new_id[old] = new``)."""
+    import heapq
+
+    n_loc = n_pad // s_blocks
+    deg = np.bincount(dst, minlength=n_pad)
+    order = np.argsort(-deg, kind="stable")
+    heap = [(0, b) for b in range(s_blocks)]
+    fill = np.zeros(s_blocks, np.int64)
+    new_id = np.empty(n_pad, np.int64)
+    for node in order:
+        load, b = heapq.heappop(heap)
+        new_id[node] = b * n_loc + fill[b]
+        fill[b] += 1
+        if fill[b] < n_loc:
+            heapq.heappush(heap, (load + int(deg[node]), b))
+    return new_id
+
+
+def relabel(np, batch: dict, new_id) -> dict:
+    """``batch`` with node ``i`` moved to ``new_id[i]``."""
+    inv = np.empty_like(new_id)
+    inv[new_id] = np.arange(new_id.size)
+    out = dict(batch)
+    for k in ("x", "labels", "label_mask", "graph_id"):
+        if k in out and out[k].shape[0] == new_id.size:
+            out[k] = out[k][inv]
+    out["edge_src"] = new_id[batch["edge_src"]].astype(np.int32)
+    out["edge_dst"] = new_id[batch["edge_dst"]].astype(np.int32)
+    return out
+
+
+def gnn_cell_batch(np, cell: str, spec: dict, seed: int, sizes=GNN_TRAIN) -> dict:
+    """A flat batch of ``cell`` at the shape of its spec (``gnn_cells``):
+    full_graph_sm a random graph of Cora's counts, molecule 128
+    ``batched_molecules``, minibatch_lg a ``NeighborSampler`` draw over a
+    synthetic graph of Reddit's nodes; padding nodes have degree 0 and no
+    label weight (a graph id past the last, for molecules)."""
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.data.pipeline import NeighborSampler, batched_molecules
+
+    s = GNN_SHAPES[cell]
+    n_pad, f = spec["x"].shape
+    rng = np.random.default_rng(seed)
+    if cell == "molecule":
+        g = s["graphs"]
+        b = batched_molecules(rng, g, s["n"] // g, s["e"] // g, f, s["classes"])
+        pad = n_pad - s["n"]
+        b["x"] = np.concatenate([b["x"], np.zeros((pad, f), np.float32)])
+        b["graph_id"] = np.concatenate([b["graph_id"], np.full(pad, g, np.int32)])
+        return b
+    if cell == "minibatch_lg":
+        n, d = sizes["lg_nodes"], sizes["lg_degree"]
+        indptr = np.arange(n + 1, dtype=np.int64) * d
+        indices = rng.integers(0, n, n * d)
+        feats = rng.standard_normal((n, f), dtype=np.float32)
+        labels = rng.integers(0, s["classes"], n).astype(np.int32)
+        b = NeighborSampler(indptr, indices, feats, labels, sizes["lg_seeds"],
+                            sizes["lg_fanout"], seed=seed).next()
+        if b["x"].shape[0] != n_pad or b["edge_src"].size != s["e"]:
+            raise ValueError(f"{cell}: the sample has {b['x'].shape[0]} nodes and "
+                             f"{b['edge_src'].size} edges")
+        return b
+    n, e = s["n"], s["e"]
+    x = np.zeros((n_pad, f), np.float32)
+    x[:n] = rng.standard_normal((n, f), dtype=np.float32)
+    mask = np.zeros(n_pad, np.float32)
+    mask[:n] = 1.0
+    return {"x": x, "edge_src": rng.integers(0, n, e).astype(np.int32),
+            "edge_dst": rng.integers(0, n, e).astype(np.int32),
+            "labels": rng.integers(0, s["classes"], n_pad).astype(np.int32),
+            "label_mask": mask}
+
+
+def gnn_layouts(np, cell: str, spec: dict, seed: int, sizes=GNN_TRAIN):
+    """(flat batch, dst-partitioned batch) of ``cell``: the nodes relabelled
+    so each of the spec's blocks fits its ``E_loc`` edges, then packed by
+    ``partition_edges``.  Raises if a block would overflow."""
+    from repro_torch.models.gnn import PNAModel
+
+    s_blocks, e_loc = spec["edge_src"].shape
+    flat = gnn_cell_batch(np, cell, spec, seed, sizes)
+    n_pad = flat["x"].shape[0]
+    flat = relabel(np, flat, block_balanced_ids(np, flat["edge_dst"], n_pad, s_blocks))
+    counts = np.bincount(flat["edge_dst"] // (n_pad // s_blocks), minlength=s_blocks)
+    if counts.max() > e_loc:
+        raise ValueError(f"{cell}: a block holds {counts.max()} edges, E_loc is {e_loc}")
+    ps, pd, pv = PNAModel.partition_edges(flat["edge_src"], flat["edge_dst"], n_pad, s_blocks,
+                                          e_loc)
+    part = {k: v for k, v in flat.items() if k not in ("edge_src", "edge_dst")}
+    part.update(edge_src=ps, edge_dst_local=pd, edge_valid=pv)
+    for key, (shape, dtype) in spec.items():
+        got = part[key]
+        if tuple(got.shape) != tuple(shape) or str(got.dtype) != str(dtype).split(".")[-1]:
+            raise ValueError(f"{cell}: {key} is {got.shape} {got.dtype}, the cell's {shape} "
+                             f"{dtype}")
+    return flat, part, int(counts.max())
+
+
+def timed(fn, *args):
+    """(fn(*args), its seconds)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def gnn_grad_checks(torch, card32, card64, r32, r64) -> tuple[dict, bool]:
+    """The card's (loss, gradients) in float32 and float64 (``card32``,
+    ``card64``) against the CPU's (``r32``, ``r64``): the float32 loss
+    within GNN_REL of the CPU's, the float64 loss and each float64 leaf
+    within GNN_REL (of the leaf's largest), and each float32 leaf's
+    distance from the CPU's float64 one (``card_f32_vs_f64``) within
+    GNN_F32_GRAD_REL; the CPU's own float32 leaf's distance
+    (``cpu_f32_vs_f64``) is printed beside it.  Returns (the row, whether
+    every check held)."""
+    fp32, fp64 = against(torch, *card32, r32), against(torch, *card64, r64)
+    card_gap, cpu_gap = leaf_rel(torch, card32[1], r64[1]), leaf_rel(torch, r32[1], r64[1])
+    over = {k: v for k, v in card_gap.items() if not v <= GNN_F32_GRAD_REL}
+    row = dict(fp32=fp32, fp64=fp64, card_f32_vs_f64=card_gap, cpu_f32_vs_f64=cpu_gap,
+               f32_beyond_bound=over)
+    ok = (fp32["finite"] and fp32["loss_rel"] <= GNN_REL and fp64["finite"]
+          and fp64["loss_rel"] <= GNN_REL and fp64["grad_rel_max"] <= GNN_REL and not over)
+    return row, ok
+
+
+def segment_ops_against_cpu(torch, np, flat_np: dict, d: int, dev, seed: int = 0) -> list:
+    """``models/gnn.py``'s segment ops in float32 at a cell's shapes (its
+    flat edges; (E, d) messages with ReLU's zeros, so ties in the max and
+    min) on ``dev`` against the CPU: the outputs and the gradients of
+    ``segment_sum``, ``segment_max``, ``segment_min`` (through the
+    ``isfinite`` fill) and ``take_rows``.  Returns the names whose bits
+    differ."""
+    from repro_torch.models import gnn
+
+    rng = np.random.default_rng(seed)
+    n = flat_np["x"].shape[0]
+    src, dst = flat_np["edge_src"], flat_np["edge_dst"]
+    vals = np.maximum(rng.standard_normal((dst.size, d), dtype=np.float32), 0)
+    weights = rng.standard_normal((n, d), dtype=np.float32)
+    rows = rng.standard_normal((n, d), dtype=np.float32)
+
+    def run(device):
+        v = torch.as_tensor(vals, device=device).requires_grad_(True)
+        ids, w = torch.as_tensor(dst, device=device), torch.as_tensor(weights, device=device)
+        out = {}
+        for fn in (gnn.segment_sum, gnn.segment_max, gnn.segment_min):
+            o = fn(v, ids, n)
+            out[fn.__name__] = o.detach()
+            out[fn.__name__ + " grad"], = torch.autograd.grad(
+                (gnn._finite_or_zero(o) * w).sum(), v)
+        h = torch.as_tensor(rows, device=device).requires_grad_(True)
+        t = gnn.take_rows(h, torch.as_tensor(src, device=device).long())
+        out["take_rows"] = t.detach()
+        out["take_rows grad"], = torch.autograd.grad((t * v.detach()).sum(), h)
+        return out
+
+    got, want = run(dev), run(torch.device("cpu"))
+    return [k for k in want
+            if not torch.equal(int_bits(torch, got[k].cpu()), int_bits(torch, want[k]))]
+
+
+def profile_step(torch, step, state, batch) -> dict:
+    """One train step under ``torch.profiler`` (after one traced and thrown
+    away): its ms, the device's busy ms and idle share, the kernel events
+    the trace holds, and the five kernels with the most device time and
+    the five host operators with the most self time (ms, calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    device, launches = trace_device(prof)
+    busy = sum(device.values())
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type != DeviceType.CUDA and not e.key.startswith("ProfilerStep")),
+                  key=lambda r: -r[1])[:5]
+    return dict(traced_ms=ms, device_busy_ms=busy, device_idle_share=1.0 - busy / ms,
+                kernel_events=sum(launches.values()),
+                device_top={k: [round(t, 3), launches[k]] for k, t in
+                            sorted(device.items(), key=lambda kv: -kv[1])[:5]},
+                host_top={k: [round(t, 3), c] for k, t, c in host})
+
+
+def gnn_cell(torch, np, failures: list, cell: str, model, data: tuple, dev,
+             ckpt_dir: Path, sizes=GNN_TRAIN) -> tuple:
+    """One GNN cell on ``dev`` over ``data`` (``gnn_layouts``): the two
+    layouts' logits, AdamW steps in each layout, a step run twice, a
+    checkpoint restored and stepped; then, on a card, a step of each layout
+    profiled, the segment ops against the CPU's bits, and the card's
+    float32 and float64 loss and gradients.  Returns the row and a function that
+    computes the CPU references and checks the card against them (None on
+    the CPU), for the caller to run once no step is timed."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.params import cast_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import functional_loss, init_state, make_train_step, to_device
+
+    t0 = time.perf_counter()
+    flat_np, part_np, max_block = data
+    flat, part = to_device(flat_np, dev), to_device(part_np, dev)
+    row = dict(nodes=int(flat_np["x"].shape[0]), edges=int(flat_np["edge_src"].size),
+               features=int(flat_np["x"].shape[1]), blocks=list(part_np["edge_src"].shape),
+               max_block_edges=max_block)
+    with torch.no_grad():
+        a, b = model.forward(flat), model.forward(part)
+    row["layouts_max_abs"] = float((a - b).abs().max())
+    row["layouts_agree"] = bool(torch.allclose(a, b, rtol=GNN_LAYOUT_TOL, atol=GNN_LAYOUT_TOL))
+    if not (row["layouts_agree"] and bool(torch.isfinite(a).all())):
+        failures.append(f"gnn {cell}: flat and partitioned logits differ: {row}")
+    del a, b
+    for name, batch in (("flat", flat), ("partitioned", part)):
+        opt = adamw(lr=sizes["lr"])
+        step = make_train_step(functional_loss(model, model.loss_fn), opt)
+        state = init_state(model.param_tree(), opt)
+        run, state = timed_steps(torch, np, step, state, batch, sizes["steps"], dev)
+        run["repeat"], live = repeat_step(torch, step, state, batch)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        mgr = CheckpointManager(ckpt_dir, keep_last=1)
+        mgr.save(sizes["steps"], state)
+        restored, _ = mgr.restore(state, device=dev)
+        again, _ = step(restored, batch)
+        run["checkpoint_differing"] = differing_leaves(torch, live, again)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        row[name] = run
+        if not (run["finite"] and run["falls"] and run["repeat"]["bit_equal"]
+                and not run["checkpoint_differing"]):
+            failures.append(f"gnn {cell} {name}: {run}")
+    if dev.type == "cpu":
+        row["card_seconds"] = time.perf_counter() - t0
+        return row, None
+    for name, batch in (("flat", flat), ("partitioned", part)):
+        opt = adamw(lr=sizes["lr"])
+        row[name]["profile"] = profile_step(
+            torch, make_train_step(functional_loss(model, model.loss_fn), opt),
+            init_state(model.param_tree(), opt), batch)
+    row["segment_ops_differing"] = segment_ops_against_cpu(torch, np, flat_np,
+                                                           model.cfg.d_hidden, dev)
+    if row["segment_ops_differing"]:
+        failures.append(f"gnn {cell}: segment ops differ from the CPU's bits: "
+                        f"{row['segment_ops_differing']}")
+    card32 = grads_of(model, part)
+    card64 = grads_of(cast_model(model, torch.float64, dev), part)
+    cpu32 = cast_model(model, torch.float32, "cpu")
+    row["card_seconds"] = time.perf_counter() - t0
+
+    def references():
+        t1 = time.perf_counter()
+        batch = to_device(part_np, "cpu")
+        with ThreadPoolExecutor(2) as pool:
+            r32 = pool.submit(grads_of, cpu32, batch)
+            r64 = pool.submit(grads_of, cast_model(cpu32, torch.float64, "cpu"), batch)
+            r32, r64 = r32.result(), r64.result()
+        row["cpu_reference_seconds"] = time.perf_counter() - t1
+        checks, ok = gnn_grad_checks(torch, card32, card64, r32, r64)
+        row.update(checks)
+        if not ok:
+            failures.append(f"gnn {cell}: the card against the CPU: {checks}")
+
+    return row, references
+
+
+def gnn_train(torch, np, failures: list, record: dict, dev, sizes=GNN_TRAIN,
+              cells=GNN_CELLS, ckpt_dir: Path = ROOT / "build" / "gnn_ckpt") -> None:
+    """Phase 24: GNN training on the card, each cell of ``cells`` at its
+    padded shape (every cell's batch made on the host before the first
+    step; the CPU references after the last, so nothing runs beside a
+    timed step); ogb_products reckoned, not run."""
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.configs.registry import get_arch
+
+    bundle = get_arch("pna")
+    cuda = dev.type == "cuda"
+    if cuda:
+        log(f"gnn train phase on {card_line()}")
+        torch.cuda.reset_peak_memory_stats()
+    with ThreadPoolExecutor(len(cells)) as pool:
+        data = {cell: pool.submit(timed, gnn_layouts, np, cell, bundle.cells[cell].inputs(),
+                                  sizes["seed"], sizes) for cell in cells}
+        data = {cell: f.result() for cell, f in data.items()}
+    done = []
+    for cell in cells:
+        model = bundle.model_for(cell).init_params(
+            torch.Generator(dev).manual_seed(sizes["seed"]), device=dev)
+        row, references = gnn_cell(torch, np, failures, cell, model, data[cell][0], dev,
+                                   ckpt_dir, sizes)
+        row["data_seconds"] = data[cell][1]
+        done.append((cell, row, references))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(cells)) as pool:
+        for f in [pool.submit(fn) for _, _, fn in done if fn is not None]:
+            f.result()
+    if cuda:
+        log(f"gnn train cpu references {time.perf_counter() - t0:.2f} s")
+    for cell, row, _ in done:
+        record[f"gnn train {cell}"] = row
+        log(f"gnn train {cell} " + json.dumps(row))
+    if cuda:
+        log(f"gnn train max_memory_allocated {torch.cuda.max_memory_allocated()}")
+
+    # ogb_products does not fit one card: its partitioned edges, gathered
+    s = GNN_SHAPES["ogb_products"]
+    spec = bundle.cells["ogb_products"].inputs()
+    e_pad = spec["edge_src"].shape[0] * spec["edge_src"].shape[1]
+    d = bundle.model_for("ogb_products").cfg.d_hidden
+    reckon = dict(nodes=s["n"], edges=s["e"], padded_edges=e_pad,
+                  gather_bytes_each=e_pad * d * 4, concat_bytes=2 * e_pad * d * 4)
+    record["gnn train ogb_products"] = reckon
+    log("gnn train ogb_products not run (row sharding: ROADMAP item 8.4) "
+        + json.dumps(reckon))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4630,6 +5295,8 @@ def main() -> int:
         ("two tower", lambda: two_tower_run.update(two_tower(
             torch, np, failures, record, dev, data["trained"]))),
         ("lm", lambda: lm_run.update(lm(torch, np, failures, record, dev))),
+        ("lm train", lambda: lm_train(torch, np, failures, record, dev)),
+        ("gnn train", lambda: gnn_train(torch, np, failures, record, dev)),
     )
     for phase, fn in phases:
         t0 = time.perf_counter()

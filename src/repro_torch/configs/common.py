@@ -1,12 +1,11 @@
 """Config substrate of the port: architecture bundles and their cells — the
-LM and recsys parts of ``repro.configs.common``.
+port of ``repro.configs.common`` (the LM, GNN and recsys families).
 
 An ArchBundle knows, for every assigned input shape, the batch it takes
 (``TensorSpec`` shapes and torch dtypes; nothing is allocated) and how to
 build a REDUCED version of itself for CPU tests.  One card has no mesh, so
 a cell carries no input partition: asking for one raises, naming the
-ROADMAP item that ports the model-family sharding helpers.  The GNN shapes
-(``GNN_SHAPES`` and their cells) wait for the item that ports that family.
+ROADMAP item that ports the model-family sharding helpers.
 """
 
 from __future__ import annotations
@@ -25,6 +24,9 @@ __all__ = [
     "LM_SHAPES",
     "lm_cells",
     "lm_reduced",
+    "GNN_SHAPES",
+    "GNN_EDGE_BLOCKS",
+    "gnn_cells",
     "RECSYS_SHAPES",
     "recsys_batch_spec",
     "recsys_cells",
@@ -76,6 +78,13 @@ class ArchBundle:
     # reduced-config smoke artifacts:
     # make_reduced() -> (model, cfg, batch_fn(generator) -> concrete batch)
     make_reduced: Callable[[], tuple[Any, Any, Callable]]
+    # per-cell model override (GNN heads differ per dataset shape)
+    cell_model: Callable[[str], Any] | None = None
+
+    def model_for(self, cell_name: str):
+        if self.cell_model is not None:
+            return self.cell_model(cell_name)
+        return self.model
 
     def loss_fn(self, model=None):
         return loss_for(self.family, model if model is not None else self.model)
@@ -155,6 +164,64 @@ def lm_reduced(cfg_cls, model_cls, **overrides):
         return model, cfg, batch_fn
 
     return make
+
+
+# --------------------------------------------------------------------- GNN
+
+def _pad512(x: int) -> int:
+    return -(-x // 512) * 512
+
+
+GNN_SHAPES = {
+    # exact assignment numbers, padded to a multiple of 512 so node/edge
+    # arrays shard evenly on both production meshes (padding is masked out
+    # via label_mask / degree-0 nodes — standard pipeline practice).
+    "full_graph_sm": dict(n=2708, e=10556, f=1433, classes=7),
+    "minibatch_lg": dict(
+        n=1024 + 1024 * 15 + 1024 * 15 * 10, e=1024 * 15 + 1024 * 15 * 10,
+        f=602, classes=41,
+        note="reddit-scale sampled subgraph: 1,024 seeds, fanout 15-10 "
+             "(232,965 nodes / 114,615,892 edges in the full graph)",
+    ),
+    "ogb_products": dict(n=2_449_029, e=61_859_140, f=100, classes=47),
+    "molecule": dict(
+        n=30 * 128, e=64 * 128, f=16, classes=2,
+        graphs=128, note="128 small graphs batched block-diagonally",
+    ),
+}
+
+
+GNN_EDGE_BLOCKS = 512  # dst-partitioned edge layout: one row per node block
+
+
+def gnn_cells(cfg) -> dict[str, Cell]:
+    """PNA shape set (see configs/pna.py for the exact numbers).
+
+    Edges use the dst-partitioned layout (S=512 blocks x E_loc, 5% skew
+    slack) — see PNAModel._forward_partitioned."""
+    cells = {}
+    for name, s in GNN_SHAPES.items():
+        e_loc = -(-int(s["e"] * 1.05 // GNN_EDGE_BLOCKS) // 8) * 8 + 8
+
+        def inputs(s=s, e_loc=e_loc):
+            n = _pad512(s["n"])
+            eshape = (GNN_EDGE_BLOCKS, e_loc)
+            d = {
+                "x": TensorSpec((n, s["f"]), torch.float32),
+                "edge_src": TensorSpec(eshape, torch.int32),
+                "edge_dst_local": TensorSpec(eshape, torch.int32),
+                "edge_valid": TensorSpec(eshape, torch.bool),
+            }
+            if "graphs" in s:
+                d["graph_id"] = TensorSpec((n,), torch.int32)
+                d["labels"] = TensorSpec((s["graphs"],), torch.int32)
+            else:
+                d["labels"] = TensorSpec((n,), torch.int32)
+                d["label_mask"] = TensorSpec((n,), torch.float32)
+            return d
+
+        cells[name] = Cell(name, "train", inputs, note=s.get("note", ""))
+    return cells
 
 
 # ------------------------------------------------------------------ recsys

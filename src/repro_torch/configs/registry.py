@@ -4,25 +4,25 @@ of ``repro.configs.registry``.
 Per-arch modules (one file per assigned architecture, exact configs inside):
     configs/phi3_5_moe.py  configs/kimi_k2.py  configs/gemma2_9b.py
     configs/deepseek_coder_33b.py  configs/llama3_2_1b.py
+    configs/pna.py
     configs/wide_deep.py  configs/din.py  configs/two_tower.py  configs/dlrm_rm2.py
 plus the paper's own workload: configs/supermetric.py (metric-search corpus).
 
-The port holds the LM and recsys families.  The name the reference
-registers for the GNN family raises ``NotImplementedError`` naming the
-ROADMAP item that ports it; any other name raises ``KeyError``, as the
-reference does.
+The port holds every family the reference registers (LM, GNN, recsys), in
+the reference's order; an unknown name raises ``KeyError``, as the
+reference does.  ``NOT_PORTED`` (a name the reference registers that the
+port does not hold yet, with the ROADMAP item that ports it) is empty.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import lm_archs, recsys_archs
+from repro_torch.configs import lm_archs, pna, recsys_archs
 from repro_torch.configs.common import ArchBundle
 
 _REGISTRY: dict[str, ArchBundle] | None = None
 
 # the reference's names not ported yet, and the ROADMAP item of each
-GNN_ITEM = "ROADMAP Queue 1 item 8.4 (models/gnn.py with configs/pna.py)"
-NOT_PORTED = {"pna": GNN_ITEM}
+NOT_PORTED: dict[str, str] = {}
 
 
 def registry() -> dict[str, ArchBundle]:
@@ -30,6 +30,7 @@ def registry() -> dict[str, ArchBundle]:
     if _REGISTRY is None:
         _REGISTRY = {}
         _REGISTRY.update(lm_archs.bundles())
+        _REGISTRY.update(pna.bundles())
         _REGISTRY.update(recsys_archs.bundles())
     return _REGISTRY
 
@@ -46,7 +47,7 @@ def get_arch(name: str) -> ArchBundle:
 
 
 def all_cells() -> list[tuple[str, str]]:
-    """Every (arch, shape) pair of the ported families."""
+    """Every (arch, shape) pair — the reference's 40-cell matrix."""
     out = []
     for name, b in registry().items():
         for cell in b.cells:

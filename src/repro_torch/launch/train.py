@@ -1,41 +1,97 @@
 """Training launcher of the port, the port of ``repro.launch.train`` for
-the recsys family (an LM or GNN name raises ``NotImplementedError`` naming
-the ROADMAP item that ports its training):
+every family (LM, GNN, recsys):
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch two-tower-retrieval \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --steps 20 --reduced --device cpu      # the reduced config on the CPU
-    PYTHONPATH=src python -m repro_torch.launch.train --arch two-tower-retrieval \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch pna \\
         --steps 20 --reduced                   # on the card
 
 Runs on the CUDA device (``--device cuda``, the default, raising where
 there is none, float32 matmuls in IEEE float32) unless ``--device cpu``.
-Without ``--reduced`` the full config trains on the ``train_batch`` cell's
-65,536 rows a step, as the reference does (the full two-tower config's
-in-batch softmax does not fit one 80 GB card there: PERF.md §4).  A run
-resumes from the latest checkpoint in ``--checkpoint-dir``.
+The streams are the reference's: ``TokenStream`` batches for an LM (8 × 32
+reduced, the ``train_4k`` cell's 256 × 4,096 at full size), ``ClickStream``
+for a recsys model (16 rows reduced, the ``train_batch`` cell's 65,536 at
+full size), repeated ``batched_molecules`` batches (8 graphs of 10 nodes
+and 20 edges) for the GNN.  The full sizes do not fit one 80 GB card: an
+LM batch of 256 × 4,096 tokens (the full Llama-3.2-1B fits 2 rows with
+remat) and the full two-tower config's in-batch softmax (PERF.md §4).
+
+The molecule stream holds graph labels, so the GNN trains the graph-level
+head (``graph_level=True``: the ``molecule`` cell's model, or the reduced
+config with it).  The reference feeds the stream to the node-level base
+model, whose loss cannot pair its node logits with graph labels and raises.
+
+A run resumes from the latest checkpoint in ``--checkpoint-dir``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.configs import common
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.flat_index import resolve_device
-from repro_torch.data.pipeline import ClickStream
+from repro_torch.data.pipeline import ClickStream, TokenStream, batched_molecules
 from repro_torch.optim import make_optimizer
 from repro_torch.train.loop import TrainLoop, TrainLoopConfig
 from repro_torch.train.step import functional_loss
 
-REDUCED_BATCH = 16
+__all__ = ["make_stream", "train_model", "main"]
+
 # the families whose training is not ported yet, and the ROADMAP item of each
-NOT_TRAINED = {
-    "lm": "ROADMAP Queue 1 item 8.3b (the LM branch of launch/train.py, an LM "
-          "train step on the card)",
-    "gnn": "ROADMAP Queue 1 item 8.4 (models/gnn.py with configs/pna.py)",
-}
+NOT_TRAINED: dict[str, str] = {}
+
+
+class MoleculeStream:
+    """Repeated ``batched_molecules`` batches (8 graphs of 10 nodes and 20
+    edges), batch ``i`` drawn from ``default_rng(i)``, as the reference's
+    GNN stream."""
+
+    def __init__(self, d_feat: int, n_classes: int):
+        self.d_feat, self.n_classes = d_feat, n_classes
+        self.step = 0
+
+    def next(self) -> dict:
+        rng = np.random.default_rng(self.step)
+        self.step += 1
+        return batched_molecules(rng, 8, 10, 20, self.d_feat, self.n_classes)
+
+    def state(self) -> dict:
+        return {"step": self.step}
+
+    def restore(self, s: dict) -> None:
+        self.step = s["step"]
+
+
+def train_model(bundle: common.ArchBundle, reduced: bool):
+    """(model, cfg) a run of ``bundle`` trains: the reduced or the full
+    config; for the GNN its graph-level head (the molecule stream's)."""
+    if bundle.family == "gnn":
+        if reduced:
+            model, cfg, _ = bundle.make_reduced()
+            model = type(model)(dataclasses.replace(cfg, graph_level=True))
+        else:
+            model = bundle.model_for("molecule")
+        return model, model.cfg
+    if reduced:
+        model, cfg, _ = bundle.make_reduced()
+        return model, cfg
+    return bundle.model, bundle.cfg
+
+
+def make_stream(family: str, model, cfg, reduced: bool):
+    if family == "lm":
+        if reduced:
+            return TokenStream(vocab=model.cfg.vocab, batch=8, seq=32)
+        return TokenStream(vocab=cfg.vocab, batch=256, seq=4096)
+    if family == "recsys":
+        batch = 16 if reduced else common.RECSYS_SHAPES["train_batch"]["batch"]
+        return ClickStream(model.cfg, batch=batch)
+    return MoleculeStream(model.cfg.d_feat, model.cfg.n_classes)
 
 
 def main(argv=None) -> None:
@@ -58,15 +114,11 @@ def main(argv=None) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    if args.reduced:
-        model, cfg, _ = bundle.make_reduced()
-    else:
-        model, cfg = bundle.model, bundle.cfg
-    batch = REDUCED_BATCH if args.reduced else common.RECSYS_SHAPES["train_batch"]["batch"]
+    model, cfg = train_model(bundle, args.reduced)
     loss_fn = functional_loss(model, common.loss_for(bundle.family, model))
     opt = make_optimizer(getattr(cfg, "optimizer", "adamw"), total_steps=args.steps)
     loop = TrainLoop(
-        loss_fn, opt, ClickStream(model.cfg, batch=batch),
+        loss_fn, opt, make_stream(bundle.family, model, cfg, args.reduced),
         TrainLoopConfig(
             total_steps=args.steps,
             checkpoint_every=args.checkpoint_every,

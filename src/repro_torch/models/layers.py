@@ -23,6 +23,18 @@ arithmetic where a bit or an order can move:
   combine sums each token's k rows in one fixed order (the order the
   reference's scatter applies them), rounding after each add.
 
+Every function is differentiable (the LM train step runs through them):
+the in-place ``mul_`` and ``masked_fill_`` on the score tensor act on a
+tensor no backward formula saves (the einsum keeps its inputs, a product
+with a scalar keeps nothing, the softcap's product keeps its operands), so
+autograd accepts them and they save a score tensor's worth of memory.
+The MoE's ``index_put_(accumulate=True)`` dispatch, its gathers and the
+combine's loop carry gradients as the reference's scatter and gathers do:
+a dropped pair's weight is 0, so neither the drop row nor the row its
+clamped gather reads gets a gradient from it, and the top-k's gradient
+goes to the experts it picked.  The reference's ``aux`` loss is returned
+as a value; the decoder drops it, as the reference's does.
+
 The reference's ``_axprod`` (mesh-axis sizes) is 1 on one card and is not
 ported; a non-None ``token_axes`` / ``expert_axis`` changes nothing here, as
 ``maybe_constrain`` changes nothing without a mesh.

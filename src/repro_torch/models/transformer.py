@@ -12,8 +12,18 @@ their arguments alone: ``forward(tokens)``, ``prefill(tokens, chunk)``,
 ``decode_step(cache, token, pos)``, ``loss_fn(batch)``.
 
 The reference's ``lax.scan`` over layers is a Python loop over the stacked
-leaves; ``remat`` and ``unroll_layers`` change nothing at inference and are
-kept as fields only.  Serving follows the reference step for step:
+leaves (``unroll_layers`` is kept as a field only).  ``remat`` is the
+reference's ``jax.checkpoint`` around each layer of ``forward``: while
+autograd records, each layer runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, so the
+backward keeps only the layers' inputs and recomputes one layer's
+activations at a time (the full Llama-3.2-1B at 4,096 tokens a row would
+otherwise keep ~6.5 GB of attention scores a layer).  The recompute runs
+the same operators on the same inputs, so remat on and off give the same
+loss and gradients bit for bit; with autograd off (serving, ``prefill``,
+``decode_step``) nothing changes.  ``loss_fn`` is differentiable, and its
+gradient is held to ``jax.value_and_grad`` of the reference's.  Serving
+follows the reference step for step:
 
 * ``prefill`` returns the last position's logits and the segment's KV cache
   ``(L, B, S, KV, Dh)`` under the keys ``"k"`` / ``"v"``; with ``chunk`` it
@@ -39,6 +49,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.common import SHARDING_ITEM, TensorSpec
 from repro_torch.core.distances import check_ieee_fp32
@@ -316,10 +327,19 @@ class LMModel(ParamModule):
         x = self._embed(tokens)
         pos = self._positions(b, s)
         lp_all, _ = self._layer_params()
+        remat = c.remat and torch.is_grad_enabled()
         for i, loc in enumerate(self._is_local_flags()):
-            x, _, _ = self._block(x, self._layer(lp_all, i), loc, pos, pos)
+            lp = self._layer(lp_all, i)
+            if remat:
+                x = checkpoint(self._train_block, x, lp, loc, pos, use_reentrant=False)
+            else:
+                x = self._train_block(x, lp, loc, pos)
         x = layers.rms_norm(x, self.final_norm)
         return layers.softcap(_unembed(x, self.unembed), c.final_softcap)
+
+    def _train_block(self, x, lp, is_local, pos):
+        """One layer of ``forward`` (the reference's scan body)."""
+        return self._block(x, lp, is_local, pos, pos)[0]
 
     def prefill(self, tokens: torch.Tensor,
                 chunk: int | None = None) -> tuple[torch.Tensor, dict]:

@@ -53,6 +53,12 @@ COPIES = [
     "data/metricsets.py",
 ]
 
+# functions copied out of a reference module that the port otherwise
+# rewrites: (module path, "Class.function" or "function")
+COPIED_FUNCTIONS = [
+    ("models/gnn.py", "PNAModel.partition_edges"),
+]
+
 NP_METRICS = ["l2", "cosine", "jsd", "triangular", "l1", "linf", "l1^0.5",
               "triangular^0.25"]
 
@@ -65,6 +71,23 @@ def test_copy_is_the_original_code(relpath):
     assert ast.dump(ast.parse(orig)) == ast.dump(
         ast.parse(copy.replace("repro_torch.", "repro."))
     )
+
+
+def _function_node(relpath: str, qualname: str, pkg: str) -> ast.AST:
+    tree = ast.parse((SRC / pkg / relpath).read_text())
+    for part in qualname.split("."):
+        tree = next(n for n in ast.iter_child_nodes(tree)
+                    if isinstance(n, (ast.ClassDef, ast.FunctionDef)) and n.name == part)
+    return tree
+
+
+@pytest.mark.parametrize("relpath, qualname", COPIED_FUNCTIONS)
+def test_copied_function_is_the_original_code(relpath, qualname):
+    """A host function the port copies (not the file around it) is the
+    reference's code, decorators and docstring included."""
+    orig = _function_node(relpath, qualname, "repro")
+    copy = _function_node(relpath, qualname, "repro_torch")
+    assert ast.dump(orig) == ast.dump(copy)
 
 
 def _points(seed, n, dim, prob=True):

@@ -70,13 +70,14 @@ def test_no_jax_or_reference_import(relpath):
 
 
 def test_recsys_modules_load_no_jax():
-    """The recsys family's model, registry and launcher, imported alone."""
+    """The recsys family's model, registry and launcher, imported alone (the
+    registry holds every family's names: 5 LM, PNA, 4 recsys)."""
     code = (
         "import sys\n"
         "import repro_torch.models.recsys, repro_torch.configs.registry\n"
         "import repro_torch.launch.serve\n"
         "from repro_torch.configs.registry import registry\n"
-        "assert len(registry()) == 9\n"
+        "assert len(registry()) == 10\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + ('ml_dtypes',)!r})\n"
         "print(bad)\n"
@@ -247,5 +248,29 @@ def test_training_entry_points_need_a_card_by_default(tmp_path, target, args):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     out = _run_blocked(target, args, tmp_path)
+    assert out.returncode not in (0, 3), out.stdout + out.stderr
+    assert "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "pna"])
+def test_lm_and_gnn_training_run_with_jax_absent(tmp_path, arch):
+    """The training launcher trains the reduced Llama and the
+    reduced PNA on the CPU, printing finite losses, in a process where
+    importing jax or ``repro`` fails (``models.gnn``, ``configs.pna`` and
+    the LM's backward included)."""
+    out = _run_blocked(TRAIN_LAUNCHER, ["--arch", arch, "--reduced", "--steps", "3",
+                                        "--device", "cpu", "--checkpoint-dir", "ck"], tmp_path)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
+    assert "imported: []" in out.stdout and "done: final loss" in out.stdout
+    assert "nan" not in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "pna"])
+def test_lm_and_gnn_training_need_a_card_by_default(tmp_path, arch):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = _run_blocked(TRAIN_LAUNCHER, ["--arch", arch, "--reduced"], tmp_path)
     assert out.returncode not in (0, 3), out.stdout + out.stderr
     assert "no CUDA device" in out.stderr

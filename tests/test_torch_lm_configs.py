@@ -91,9 +91,10 @@ def test_full_param_trees_match_jax_unallocated(arch):
 
 
 def test_all_cells_cover_lm_and_recsys():
+    """20 LM cells of JAX's 40 (the GNN's 4 and the recsys' 16 with them)."""
     cells = all_cells()
     lm = [(a, c) for a, c in cells if registry()[a].family == "lm"]
-    assert len(lm) == 20 and len(cells) == 36
+    assert len(lm) == 20 and len(cells) == 40
     assert {a for a, _ in lm} == set(LM_ARCHS)
     skips = sorted(a for a, c in lm if registry()[a].cells[c].skip is not None)
     assert skips == ["deepseek-coder-33b", "kimi-k2-1t-a32b", "llama3.2-1b",
@@ -165,13 +166,18 @@ def test_expert_axis_changes_nothing_on_one_card():
         assert torch.equal(tm.forward(toks), other.forward(toks))
 
 
-def test_train_launcher_raises_for_the_lm_family():
-    from repro_torch.launch.train import main
+def test_train_launcher_raises_for_the_lm_family(tmp_path, capsys):
+    """Both names the launcher refused before now train: one step of each
+    reduced config on the CPU, a finite loss printed, and no family left
+    in ``NOT_TRAINED``."""
+    from repro_torch.launch.train import NOT_TRAINED, main
 
-    with pytest.raises(NotImplementedError, match="item 8.3b"):
-        main(["--arch", "llama3.2-1b", "--reduced", "--steps", "1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        main(["--arch", "pna", "--reduced", "--steps", "1", "--device", "cpu"])
+    assert NOT_TRAINED == {}
+    for arch in ("llama3.2-1b", "pna"):
+        main(["--arch", arch, "--reduced", "--steps", "1", "--device", "cpu",
+              "--checkpoint-dir", str(tmp_path / arch)])
+        out = capsys.readouterr().out
+        assert "done: final loss" in out and "nan" not in out, out
 
 
 def test_lm_config_defaults_match_jax():

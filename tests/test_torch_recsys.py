@@ -224,17 +224,19 @@ def test_embedding_bag_matches_jax():
 # ----------------------------------------------------------------- registry
 
 def test_registry_is_the_recsys_part_of_jax():
-    """The port registers the recsys and the LM families, as JAX does (the
-    LM bundles' own checks: ``tests/test_torch_lm_configs.py``)."""
+    """The port registers every name JAX does, in JAX's order; the recsys
+    and LM bundles' configs and cells equal JAX's here (the LM bundles' own
+    checks: ``tests/test_torch_lm_configs.py``; the GNN's:
+    ``tests/test_torch_gnn.py``)."""
     jreg, treg = jax_registry(), registry()
-    assert set(treg) <= set(jreg)
-    assert set(treg) == {n for n, b in jreg.items() if b.family in ("lm", "recsys")}
-    assert set(NOT_PORTED) == set(jreg) - set(treg) == {"pna"}
-    assert all_cells() == [(a, c) for a, c in
-                           ((n, c) for n, b in jreg.items() for c in b.cells) if a in treg]
+    assert list(treg) == list(jreg)
+    assert NOT_PORTED == {} and set(jreg) - set(treg) == set()
+    assert all_cells() == [(n, c) for n, b in jreg.items() for c in b.cells]
     assert {a for a, _ in all_cells()} == set(treg)
     for name, b in treg.items():
         jb = jreg[name]
+        if jb.family == "gnn":
+            continue
         assert b.family == jb.family in ("lm", "recsys")
         assert dataclasses.asdict(b.cfg) | {"dtype": None} == \
             dataclasses.asdict(jb.cfg) | {"dtype": None}
@@ -267,10 +269,12 @@ def test_reduced_bundles_match_jax(arch):
 
 
 def test_unported_and_unknown_names_raise():
-    for name, item in NOT_PORTED.items():
-        with pytest.raises(NotImplementedError, match=item.split(" (")[0]):
-            get_arch(name)
-    assert list(NOT_PORTED) == ["pna"] and "item 8.4" in NOT_PORTED["pna"]
+    """Every name JAX registers resolves (``pna`` too: nothing is left
+    unported); an unknown name still raises ``KeyError``."""
+    assert NOT_PORTED == {}
+    for name in jax_registry():
+        assert get_arch(name) is registry()[name]
+    assert get_arch("pna").family == "gnn"
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
     assert get_arch("two-tower-retrieval") is registry()["two-tower-retrieval"]

@@ -196,15 +196,16 @@ def test_printed_losses_reads_the_launchers_lines():
 
 
 def test_launchers_run_on_the_cpu_with_finite_losses(tmp_path, one_torch_thread):
-    """The two training launchers of the two-tower phase (the training
-    launcher and the example), with ``--device cpu`` added, exit 0 and
-    print finite losses (the serving launcher's CPU runs are in
-    ``tests/test_torch_import.py``)."""
+    """The training launchers run beside the quickstart (the training
+    launcher on the reduced two-tower, Llama-3.2-1B and PNA, and the
+    example), with ``--device cpu`` added, exit 0 and print finite losses
+    (the serving launcher's CPU runs are in ``tests/test_torch_import.py``)."""
     failures = []
     commands = chip_smoke.launcher_commands(tmp_path / "ckpt")
     assert [name for name, _ in commands][:2] == ["serve", "serve --min-score 0.5"]
     procs = chip_smoke.start_launchers(commands[2:], ("--device", "cpu"))
     rows = chip_smoke.finish_launchers(failures, procs)
     assert failures == []
-    assert [r["name"] for r in rows] == ["train", "retrieval serving example"]
+    assert [r["name"] for r in rows] == ["train", "train llama3.2-1b", "train pna",
+                                         "retrieval serving example"]
     assert all(len(r["losses"]) >= 2 for r in rows)

@@ -1,0 +1,159 @@
+"""The training phases of ``chip_smoke.py`` (``lm train``, ``gnn train``)
+run on the CPU at a reduced size, so a fault in their plumbing shows here
+before a chip run: every check they make passes on a healthy port, and the
+GNN cells' batches take the shapes of their specs.  The file imports no
+jax."""
+
+from __future__ import annotations
+
+import dataclasses
+import pathlib
+import sys
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+from repro_torch.configs.common import GNN_SHAPES  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.data.pipeline import NeighborSampler  # noqa: E402
+from repro_torch.models.params import cast_model  # noqa: E402
+
+CPU = torch.device("cpu")
+SMALL_LM = dict(chip_smoke.LM_TRAIN, batch=2, seq=16, steps=3, check_layers=1,
+                check_tokens=8, phi_batch=4, phi_seq=32, phi_check_tokens=8, warmup_seq=4)
+
+
+def test_lm_train_llama_checks_pass_on_the_cpu():
+    """The Llama step of ``lm train`` on a reduced bf16 Llama with remat:
+    finite, falling losses, a step repeated bit for bit, the float32 copy
+    within its bounds (the CPU against itself)."""
+    model, cfg, _ = get_arch("llama3.2-1b").make_reduced()
+    model = type(model)(dataclasses.replace(cfg, dtype=torch.bfloat16, remat=True))
+    model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    failures, record = [], {}
+    chip_smoke.lm_train_llama(torch, np, failures, record, CPU, model,
+                              dict(SMALL_LM, lr=3e-3))
+    assert failures == []
+    row = record["lm train llama"]
+    assert row["repeat"]["bit_equal"] and row["train"]["falls"]
+    assert row["fp32"]["grad_rel_max"] == 0.0 and row["fp32"]["layers"] == 1
+
+
+def test_lm_train_phi_checks_pass_on_the_cpu():
+    """The Phi step on the reduced Phi with 4 microbatches and a capacity
+    that drops pairs: finite, repeated bit for bit, drops counted."""
+    _, cfg, _ = get_arch("phi3.5-moe-42b-a6.6b").make_reduced()
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16, microbatches=4, remat=True,
+                              moe_capacity_factor=0.5)
+    failures, record = [], {}
+    chip_smoke.lm_train_phi(torch, np, failures, record, CPU, SMALL_LM, cfg=cfg)
+    assert failures == []
+    row = record["lm train phi"]
+    assert row["moe_calls"] == 4 * cfg.n_layers and row["dropped"] > 0
+    assert row["repeat"]["bit_equal"] and row["finite"]
+
+
+def test_cut_layers_shares_the_first_layers():
+    model, _, _ = get_arch("gemma2-9b").make_reduced()
+    model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    cut = chip_smoke.cut_layers(model, 1)
+    assert cut.cfg.n_layers == 1
+    assert cut.wq.data_ptr() == model.wq.data_ptr() and cut.wq.shape[0] == 1
+    assert cut.embed is model.embed or cut.embed.data_ptr() == model.embed.data_ptr()
+
+
+def test_gnn_train_checks_pass_on_the_cpu(tmp_path):
+    """``gnn train`` over full_graph_sm and molecule at their published
+    padded shapes on the CPU: the layouts agree, AdamW steps fall in both,
+    a step repeats bit for bit, and a checkpoint restored steps as the live
+    state does; ogb_products is reckoned."""
+    failures, record = [], {}
+    chip_smoke.gnn_train(torch, np, failures, record, CPU, dict(chip_smoke.GNN_TRAIN, steps=2),
+                         cells=("full_graph_sm", "molecule"), ckpt_dir=tmp_path / "ck")
+    assert failures == []
+    for cell in ("full_graph_sm", "molecule"):
+        row = record[f"gnn train {cell}"]
+        spec = get_arch("pna").cells[cell].inputs()
+        assert row["layouts_agree"] and row["blocks"] == list(spec["edge_src"].shape)
+        assert row["max_block_edges"] <= row["blocks"][1] and row["nodes"] == spec["x"].shape[0]
+        for layout in ("flat", "partitioned"):
+            assert row[layout]["repeat"]["bit_equal"] and not row[layout]["checkpoint_differing"]
+    assert record["gnn train ogb_products"]["padded_edges"] == 512 * 126_872
+
+
+def test_gnn_grads_against_cpu_reads_zero_on_the_cpu():
+    bundle = get_arch("pna")
+    cell = "molecule"
+    model = bundle.model_for(cell).init_params(torch.Generator().manual_seed(0), device="cpu")
+    _, part, _ = chip_smoke.gnn_layouts(np, cell, bundle.cells[cell].inputs(), 0)
+    row = chip_smoke.grads_against_cpu(torch, model, cast_model(model, torch.float32, "cpu"),
+                                       {k: torch.as_tensor(v) for k, v in part.items()})
+    assert row["finite"] and row["loss_rel"] == 0.0 and row["grad_rel_max"] == 0.0
+
+
+def _gnn_grads(dtype):
+    bundle = get_arch("pna")
+    model = bundle.model_for("molecule").init_params(torch.Generator().manual_seed(0),
+                                                     device="cpu")
+    _, part, _ = chip_smoke.gnn_layouts(np, "molecule", bundle.cells["molecule"].inputs(), 0)
+    m = cast_model(model, dtype, "cpu")
+    return chip_smoke.grads_of(m, {k: torch.as_tensor(v) for k, v in part.items()})
+
+
+def test_gnn_grad_checks_refuse_a_wrong_term():
+    """``gnn_grad_checks`` passes the CPU against itself, and refuses a
+    "card" whose float32 leaf is off by a tenth of its largest (past
+    ``GNN_F32_GRAD_REL``) or whose float64 leaf is off by 1e-4."""
+    r32, r64 = _gnn_grads(torch.float32), _gnn_grads(torch.float64)
+    row, ok = chip_smoke.gnn_grad_checks(torch, r32, r64, r32, r64)
+    assert ok and row["f32_beyond_bound"] == {} and row["fp64"]["grad_rel_max"] == 0.0
+    assert row["card_f32_vs_f64"] == row["cpu_f32_vs_f64"]
+
+    def bumped(ref, by):
+        loss, grads = ref
+        grads = {k: v.clone() for k, v in grads.items()}
+        w = grads["w_in"]
+        w.view(-1)[0] += by * float(w.abs().max())
+        return loss, grads
+
+    row, ok = chip_smoke.gnn_grad_checks(torch, bumped(r32, 0.1), r64, r32, r64)
+    assert not ok and list(row["f32_beyond_bound"]) == ["w_in"]
+    row, ok = chip_smoke.gnn_grad_checks(torch, r32, bumped(r64, 1e-4), r32, r64)
+    assert not ok and row["fp64"]["grad_rel_max"] > chip_smoke.GNN_REL
+
+
+def test_segment_ops_against_cpu_runs_at_a_cells_shapes():
+    """The smoke's bit check of the segment ops, forward and backward, at
+    molecule's padded shapes: the CPU against itself differs nowhere."""
+    spec = get_arch("pna").cells["molecule"].inputs()
+    flat, _, _ = chip_smoke.gnn_layouts(np, "molecule", spec, 0)
+    assert chip_smoke.segment_ops_against_cpu(torch, np, flat, 75, CPU) == []
+
+
+def test_block_balanced_ids_fit_the_sampled_subgraph():
+    """A NeighborSampler draw at minibatch_lg's fanout (1,024 seeds, 15-10)
+    over a small graph, relabelled: every one of the 512 blocks holds 330
+    in-edges (2 seeds × 15 + 30 first-hop nodes × 10), within the cell's
+    E_loc of 360."""
+    rng = np.random.default_rng(0)
+    n, d = 5000, 15
+    sampler = NeighborSampler(np.arange(n + 1) * d, rng.integers(0, n, n * d),
+                              rng.standard_normal((n, 4), dtype=np.float32),
+                              rng.integers(0, 41, n).astype(np.int32), 1024, (15, 10))
+    batch = sampler.next()
+    n_pad = batch["x"].shape[0]
+    assert n_pad == GNN_SHAPES["minibatch_lg"]["n"]
+    new_id = chip_smoke.block_balanced_ids(np, batch["edge_dst"], n_pad, 512)
+    assert sorted(new_id.tolist()) == list(range(n_pad))
+    moved = chip_smoke.relabel(np, batch, new_id)
+    counts = np.bincount(moved["edge_dst"] // (n_pad // 512), minlength=512)
+    assert counts.min() == counts.max() == 330
+    assert moved["label_mask"].sum() == 1024
+    assert np.array_equal(moved["x"][new_id], batch["x"])
+    spec = get_arch("pna").cells["minibatch_lg"].inputs()
+    assert spec["edge_src"].shape == (512, 360)
