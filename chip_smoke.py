@@ -269,9 +269,9 @@ phase prints its seconds):
    to 2 layers, 256 tokens, against the CPU (loss within 1e-5 relative,
    each gradient leaf within 1e-4 of its largest).  Then Phi-3.5-MoE at
    full width, 2 layers: one bf16 step over its 4 microbatches of 512
-   tokens (float32 accumulation) with Adafactor, run twice bit-equal, the
-   pairs past capacity counted; a float32 copy cut to 1 layer, 64 tokens,
-   against the CPU.
+   tokens (float32 accumulation) with its config's AdamW applied in place,
+   run twice bit-equal, peak memory, the pairs past capacity counted; a
+   float32 copy cut to 1 layer, 64 tokens, against the CPU.
 24. GNN train: PNA on ``full_graph_sm``, ``minibatch_lg`` (a
    ``NeighborSampler`` draw, 1,024 seeds at fanout 15-10, over a synthetic
    graph of 232,965 nodes and 602 features) and ``molecule`` at their
@@ -288,6 +288,18 @@ phase prints its seconds):
    float64 one (a bound for a wrong term: PNA's float32 gradient is
    ill-conditioned), printed beside the CPU's own float32 leaf's distance.
    ``ogb_products`` is reckoned, not run.
+24b. Sharded train (``SHARDED_TRAIN``'s note): the sharded train step of
+   each family on S mesh devices of the one card against the one-device
+   step from the same state: Llama-3.2-1B at full width, 2 layers, 2 x
+   4,096 tokens on S = 2 and a (1, 2) ("data", "model") mesh; the full
+   two-tower config at B = 32,768 on S = 2 and 4; PNA's ``minibatch_lg`` on
+   S = 2; storage-only and lead-device meshes bit for bit; row splits by
+   the loss, each gradient leaf against a wider copy's (no worse than
+   twice the one-device step's own gap to it), and the training bound on
+   a float32 Llama copy and a float64 two-tower copy at the full B; ms a
+   step, peak memory and the bytes each mesh device holds.
+24c. Dry run: per-device bytes, FLOPs and collectives of three cells that
+   do not fit one card on the 16 x 16 meta mesh (``launch.dryrun``).
 25. One JSON line with every kernel's numbers (``launches`` from the range
    path of its metric and precision, ``serving_launches`` from the serving
    phase, ``forest_launches`` from the forest phases, which must have
@@ -4468,11 +4480,11 @@ def lm(torch, np, failures: list, record: dict, dev, sizes=LM_SIZES) -> dict:
 # the 2 that fit about 70 GB, AdamW at the config's settings (lr held at its
 # schedule's peak: the 200-step warm-up's first rates move no bf16 weight),
 # one TokenStream batch repeated; Phi-3.5-MoE at full width, 2 of 32 layers,
-# one step over its config's 4 microbatches of 512 tokens, with Adafactor
-# (AdamW's float32 m and v for its 2.86 B parameters, held twice by the
-# functional apply beside the float32 gradients, pass 80 GB); float32 copies
-# at cut depth against the CPU (Phi's at 1 layer: its 2-layer copy held the
-# CPU 28 s).
+# one step over its config's 4 microbatches of 512 tokens, with its
+# config's AdamW applied in place (the functional apply would hold AdamW's
+# float32 m and v for its 2.86 B parameters twice beside the float32
+# gradients, past 80 GB); float32 copies at cut depth against the CPU
+# (Phi's at 1 layer: its 2-layer copy held the CPU 28 s).
 LM_TRAIN = dict(batch=2, seq=4096, steps=4, lr=3e-4, seed=0, warmup_seq=256,
                 check_layers=2, check_tokens=256, phi_layers=2, phi_batch=4,
                 phi_seq=512, phi_check_layers=1, phi_check_tokens=64)
@@ -4679,14 +4691,19 @@ def lm_train_llama(torch, np, failures: list, record: dict, dev, model,
 def lm_train_phi(torch, np, failures: list, record: dict, dev, sizes=LM_TRAIN,
                  cfg=None) -> None:
     """Step 2 of ``lm train``: Phi-3.5-MoE at full width, 2 layers, one bf16
-    step (its config's microbatches, float32 accumulation, Adafactor) run
-    twice from the same state, the pairs past capacity counted; a float32
-    copy against the CPU.  ``cfg`` / ``dev`` shrink it for the CPU tests."""
+    step (its config's microbatches, float32 accumulation, its config's
+    optimizer: AdamW on the cosine schedule) applied IN PLACE
+    (``TrainStep.apply_``: one optimizer state);
+    the step run twice from the same state (drawn again from seed 0), its
+    gradients and new state compared by each leaf's digest, one state held
+    at a time; the pairs past capacity counted; a float32 copy against the
+    CPU.  ``cfg`` /
+    ``dev`` shrink it for the CPU tests."""
     from repro_torch.configs.lm_archs import PHI35_MOE
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.models.params import cast_model
     from repro_torch.models.transformer import LMModel
-    from repro_torch.optim import adafactor
+    from repro_torch.optim import make_optimizer
     from repro_torch.pytree import leaves
     from repro_torch.train.step import functional_loss, init_state, make_train_step, to_device
 
@@ -4694,40 +4711,59 @@ def lm_train_phi(torch, np, failures: list, record: dict, dev, sizes=LM_TRAIN,
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    model = LMModel(cfg).init_params(torch.Generator(dev).manual_seed(0), device=dev)
-    opt = adafactor(lr=1e-2)
+    model = LMModel(cfg)
+    opt = make_optimizer(cfg.optimizer)
     step = make_train_step(functional_loss(model, model.loss_fn), opt, cfg.microbatches,
                            accum_dtype=getattr(torch, cfg.grad_accum_dtype))
     batch = to_device(TokenStream(vocab=cfg.vocab, batch=sizes["phi_batch"],
                                   seq=sizes["phi_seq"], seed=0).next(), dev)
-    state = init_state(model.param_tree(), opt)
+
+    def fresh():
+        model.init_params(torch.Generator(dev).manual_seed(0), device=dev)
+        return init_state(model.param_tree(), opt)
+
+    state = fresh()
     stamps = Stamps(torch, dev)
     stamps.mark()
     l0, g0 = step.grads(state["params"], batch)
     stamps.mark()
-    stamps.mark()
-    new = step.apply(state, g0)
-    stamps.mark()
-    fwd_bwd_ms, _, apply_ms = stamps.ms()
-    finite = bool(torch.isfinite(l0)) and all(bool(torch.isfinite(p).all())
-                                             for p in leaves(new["params"]))
-    del g0, new
+    grads_first = leaf_digests(torch, g0)
     # the pairs each expert is sent, from a forward over the same
-    # microbatches (remat runs each MoE call again in the backward)
+    # microbatches at the step's weights (remat runs each MoE call again in
+    # the backward)
     with torch.no_grad(), MoELoads(torch) as loads:
         for mb in step._split(batch):
             model.loss_fn(mb)
     rows = loads.rows()
+    stamps.mark()
+    step.apply_(state, g0)
+    stamps.mark()
+    fwd_bwd_ms, _, apply_ms = stamps.ms()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    finite = bool(torch.isfinite(l0)) and all(bool(torch.isfinite(p).all())
+                                             for p in leaves(state["params"]))
+    first = leaf_digests(torch, state)
+    del g0, state
+    # the step again from the same state, drawn afresh: one state at a time
+    state = fresh()
+    l1, g1 = step.grads(state["params"], batch)
+    repeat = dict(loss_equal=bool(torch.equal(int_bits(torch, l0), int_bits(torch, l1))),
+                  differing_grads=[i for i, (a, b) in enumerate(
+                      zip(grads_first, leaf_digests(torch, g1))) if a != b])
+    step.apply_(state, g1)
+    repeat["differing_state"] = [i for i, (a, b) in enumerate(
+        zip(first, leaf_digests(torch, state))) if a != b]
+    repeat["bit_equal"] = repeat["loss_equal"] and not repeat["differing_grads"] \
+        and not repeat["differing_state"]
+    del g1, state
     row = dict(layers=cfg.n_layers, batch=[sizes["phi_batch"], sizes["phi_seq"]],
-               microbatches=cfg.microbatches, optimizer="adafactor", loss=float(l0),
-               finite=finite, event_ms_forward_backward=fwd_bwd_ms,
+               microbatches=cfg.microbatches, optimizer=cfg.optimizer, apply="in place",
+               loss=float(l0), finite=finite, event_ms_forward_backward=fwd_bwd_ms,
                event_ms_optimizer=apply_ms, moe_calls=len(rows),
                pairs=sum(r["pairs"] for r in rows), dropped=sum(r["dropped"] for r in rows),
                capacity=rows[0]["capacity"] if rows else None,
-               max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None)
+               max_memory_allocated=peak, repeat=repeat)
     record["lm train phi"] = row
-    row["repeat"], _ = repeat_step(torch, step, state, batch)
-    del state
     log("lm train phi " + json.dumps(row))
     if not (finite and row["repeat"]["bit_equal"] and rows):
         failures.append(f"lm train phi: {row}")
@@ -5090,8 +5126,365 @@ def gnn_train(torch, np, failures: list, record: dict, dev, sizes=GNN_TRAIN,
     reckon = dict(nodes=s["n"], edges=s["e"], padded_edges=e_pad,
                   gather_bytes_each=e_pad * d * 4, concat_bytes=2 * e_pad * d * 4)
     record["gnn train ogb_products"] = reckon
-    log("gnn train ogb_products not run (row sharding: ROADMAP item 8.4) "
-        + json.dumps(reckon))
+    log("gnn train ogb_products not run (it does not fit one card; the dryrun line "
+        "reckons it per device on the 16 x 16 mesh) " + json.dumps(reckon))
+
+
+# The sharded train phase (PERF.md §4): each family's sharded step
+# (parallel.sharded_step) on S mesh devices of the one card (cuda:0 reused)
+# against the one-device step from the same state, each timed after an
+# untimed forward + backward.  Llama-3.2-1B at full width, depth cut to
+# llama_layers, 2 x 4,096 tokens, AdamW in place, over S = 2 data shards and
+# a (1, 2) ("data", "model") mesh; the full two-tower config at B = 32,768
+# over S = 2 and 4; PNA's minibatch_lg over S = 2.  A mesh whose data axes
+# are 1, or a family whose rows run on the lead device (PNA), is held bit
+# for bit in loss, parameters and moments.  A mesh that splits rows is held
+# to the loss within SHARDED_LOSS_REL relative, and each parameter within
+# 2 lr of the one-device step's (plus one rounding for bf16: AdamW's first
+# step moves an element by at most lr, so this catches an update misplaced
+# or applied twice, not a wrong gradient).  Its gradients are held two
+# ways: a float32 Llama copy and a float64 two-tower copy (the same
+# weights, the full batch) to the training bound of PERF.md §2 (each
+# gradient leaf within SHARDED_GRAD_REL of its largest, at most 1% of a
+# leaf's parameters beyond 1e-5); the bf16 config and the float32 two
+# tower, whose gradients carry their dtype's rounding (and the two tower's
+# logits' cone, PERF.md §2), leaf by leaf against that wider copy's
+# one-device gradient: the sharded step's largest gap to it no more than
+# SHARDED_NO_WORSE times the one-device step's own, plus one rounding of
+# the leaf's dtype for each shard (``reference_gaps``).  The one-device step's in-place apply is held to its
+# functional apply bit for bit (Llama).
+SHARDED_TRAIN = dict(seed=0, llama_layers=2, llama_batch=2, llama_seq=4096, llama_lr=3e-4,
+                     tt_batch=32_768, tt_lr=3e-3, tt_shards=(2, 4),
+                     gnn_cell="minibatch_lg",
+                     gnn_lr=3e-4, gnn_shards=2)
+SHARDED_LOSS_REL = 1e-5
+SHARDED_GRAD_REL = 1e-4
+SHARDED_NO_WORSE = 2.0
+# the cells the dryrun line reckons on the 16 x 16 mesh: none fits one card
+DRYRUN_CELLS = (("pna", "ogb_products"), ("phi3.5-moe-42b-a6.6b", "train_4k"),
+                ("llama3.2-1b", "train_4k"))
+
+
+def leaf_digests(torch, tree, chunk: int = 1 << 24) -> list:
+    """Three sums of each leaf's bits (int64, wrapping), chunk by chunk: the
+    plain sum, the sum of squares, and the sum of each element's bits times
+    its position + 1, so that moving values within a leaf (rows swapped)
+    changes the digest too.  A step's state compared with another run's
+    without a second copy of it."""
+    from repro_torch.pytree import leaves
+
+    out = []
+    for t in leaves(tree):
+        v = int_bits(torch, t).reshape(-1)
+        a = b = c = 0
+        for i in range(0, v.numel(), chunk):
+            x = v[i:i + chunk].long()
+            a += int(x.sum())
+            b += int((x * x).sum())
+            pos = torch.arange(i + 1, i + 1 + x.numel(), dtype=torch.int64, device=x.device)
+            c += int((x * pos).sum())
+        out.append((a, b, c))
+    return out
+
+
+def clone_tree(torch, tree):
+    from repro_torch.pytree import tree_map
+
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def param_gaps(torch, got: dict, want: dict, lr: float) -> dict:
+    """A row-split step's new parameters and gradients (``got``: {"params",
+    "grads"}) against the one-device step's (``want``), leaf by leaf: the
+    gradient's largest gap over the leaf's largest |gradient|; the
+    parameter's largest gap over its bound (2 lr; for a bf16 leaf plus one
+    bf16 rounding of the larger value, 2 ** (e - 8) for a value in
+    [2 ** (e - 1), 2 ** e)); the share of the leaf's elements beyond 1e-5
+    (float32) or one rounding (bf16), in all and among the elements whose
+    two gradients agree in sign; the share whose gradients' signs differ."""
+    from repro_torch.pytree import leaves_with_paths, path_key
+
+    out = {}
+    pairs = zip(leaves_with_paths(got["params"]), leaves_with_paths(want["params"]),
+                leaves_with_paths(got["grads"]), leaves_with_paths(want["grads"]))
+    for (path, x), (_, y), (_, gx), (_, gy) in pairs:
+        d = (x.float() - y.float()).abs()
+        bound = torch.full_like(d, 2 * lr)
+        floor = torch.full_like(d, 1e-5)
+        if x.dtype == torch.bfloat16:
+            _, e = torch.frexp(torch.maximum(x.float().abs(), y.float().abs()))
+            floor = torch.ldexp(torch.ones_like(d), e - 8)
+            bound = bound + floor
+        gx, gy = gx.float(), gy.to(gx.device).float()
+        same_sign = torch.sign(gx) == torch.sign(gy)
+        beyond = d > floor
+        out[path_key(path)] = dict(
+            dtype=str(x.dtype).split(".")[-1],
+            grad_rel=float((gx - gy).abs().max() / gy.abs().max().clamp_min(1e-30)),
+            param_over_bound=float((d / bound).max()), param_max_abs=float(d.max()),
+            share_beyond=float(beyond.float().mean()),
+            share_beyond_same_sign=float((beyond & same_sign).float().mean()),
+            share_sign_differs=float((~same_sign).float().mean()))
+    return out
+
+
+def reference_gaps(torch, got, one, ref, shards: int) -> dict:
+    """Each gradient leaf of a row-split step over ``shards`` shards
+    (``got``) and of the one-device step (``one``) against ``ref``, a wider
+    copy's one-device gradient of the same weights on the same batch: each
+    one's largest gap over ref's largest |value|, and the bound the sharded
+    one is held to: SHARDED_NO_WORSE times the one-device gap, plus a
+    rounding of the leaf's dtype for each shard (each shard's gradient is
+    rounded to the leaf's dtype before the float32 sum, and the sum again
+    after it, where the one-device step rounds once)."""
+    from repro_torch.pytree import leaves_with_paths, path_key
+
+    out = {}
+    for (path, x), (_, y), (_, r) in zip(leaves_with_paths(got), leaves_with_paths(one),
+                                         leaves_with_paths(ref)):
+        r = r.to(x.device).double()
+        top = r.abs().max().clamp_min(1e-300)
+        sharded = float((x.double() - r).abs().max() / top)
+        one_device = float((y.to(x.device).double() - r).abs().max() / top)
+        out[path_key(path)] = dict(
+            sharded=sharded, one_device=one_device,
+            bound=SHARDED_NO_WORSE * one_device + shards * torch.finfo(x.dtype).eps / 2)
+        del r
+    return out
+
+
+def sharded_against_one(torch, np, failures: list, tag: str, family: str, model, opt,
+                        batch: dict, meshes: list, dev, lr: float,
+                        check_apply: bool = False, strict: bool = False,
+                        reference=None) -> tuple[dict, object]:
+    """One family's sharded step on each mesh of ``meshes`` ((label, mesh))
+    against the one-device step from the same state (the model's
+    parameters): ms a step by CUDA events after an untimed forward +
+    backward, peak memory, the bytes one mesh device holds by its specs and
+    the bytes held on the card, and the comparison (``SHARDED_TRAIN``'s
+    note; a mesh that splits rows: ``strict``, PERF.md §2's training bound
+    and every gradient leaf within SHARDED_GRAD_REL of its largest; else
+    ``reference``, a wider copy's one-device gradients, ``reference_gaps``).
+    Returns the row and the one-device step's gradients."""
+    from repro_torch.configs.common import loss_for
+    from repro_torch.parallel.sharded_step import gather_state, plan_for, sharded_step_for
+    from repro_torch.parallel.sharding import n_shards
+    from repro_torch.pytree import leaves
+    from repro_torch.train.step import functional_loss, init_state, make_train_step
+
+    cuda = dev.type == "cuda"
+    p0 = model.param_tree()  # each state below starts from a clone of it
+    one = make_train_step(functional_loss(model, loss_for(family, model)), opt)
+    row: dict = dict(rows=plan_for(family, model)["rows"],
+                     dtype=str(model.cfg.dtype).split(".")[-1],
+                     batch={k: list(v.shape) for k, v in batch.items()})
+    ref = init_state(clone_tree(torch, p0), opt)
+    one.grads(ref["params"], batch)  # untimed
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    stamps = Stamps(torch, dev)
+    stamps.mark()
+    loss, grads = one.grads(ref["params"], batch)
+    stamps.mark()
+    functional = one.apply(ref, grads) if check_apply else None
+    stamps.mark()
+    one.apply_(ref, grads)
+    stamps.mark()
+    ms = stamps.ms()
+    exact_of = {label: mesh.size("data") == 1 or plan_for(family, model)["rows"] == "lead"
+                for label, mesh in meshes}
+    if not any(exact_of.values()):
+        ref = {"params": ref["params"]}  # a row split compares parameters only
+    row["one_device"] = dict(ms=ms[0] + ms[2], ms_forward_backward=ms[0],
+                             ms_apply_in_place=ms[2], loss=float(loss),
+                             max_memory_allocated=torch.cuda.max_memory_allocated()
+                             if cuda else None)
+    if check_apply:
+        row["in_place_vs_functional"] = differing_leaves(torch, ref, functional)
+        del functional
+        if row["in_place_vs_functional"]:
+            failures.append(f"sharded train {tag}: the in-place apply differs from the "
+                            f"functional one: {row['in_place_vs_functional']}")
+    for label, mesh in meshes:
+        step = sharded_step_for(family, model, opt, mesh)
+        state = step.shard(init_state(clone_tree(torch, p0), opt))
+        step.grads(state, batch)  # untimed
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        stamps = Stamps(torch, dev)
+        stamps.mark()
+        l_sh, g_sh = step.grads(state, batch)
+        step.apply_(state, g_sh)
+        stamps.mark()
+        held: dict = {}
+        for s in leaves(state):
+            for d, n in s.held_bytes().items():
+                held[str(d)] = held.get(str(d), 0) + n
+        device_bytes = sum(s.device_bytes() for s in leaves(state))
+        exact = exact_of[label]
+        whole = gather_state(state if exact else {"params": state["params"]}, dev)
+        del state
+        # one mesh device's share of the state by its specs; held: the
+        # bytes on each distinct device (a piece two mesh devices of one
+        # card share is held once)
+        m = dict(mesh=mesh.sizes, ms=stamps.ms()[0], loss=float(l_sh),
+                 device_bytes=device_bytes, held_bytes=held, exact=exact,
+                 max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None)
+        if exact:
+            m["differing_leaves"] = differing_leaves(torch, whole, ref)
+            m["loss_equal"] = bool(torch.equal(int_bits(torch, l_sh),
+                                               int_bits(torch, loss.to(l_sh.device))))
+            ok = not m["differing_leaves"] and m["loss_equal"]
+        else:
+            m["loss_rel"] = abs(m["loss"] - float(loss)) / abs(float(loss))
+            m["leaves"] = param_gaps(torch, {"params": whole["params"], "grads": g_sh},
+                                     {"params": ref["params"], "grads": grads}, lr)
+            m["lr"] = lr
+            m["strict"] = strict
+            if not strict:
+                if reference is None:
+                    raise ValueError(f"{tag}: a row split that is not strict needs a "
+                                     "reference gradient")
+                m["against_reference"] = reference_gaps(torch, g_sh, grads, reference,
+                                                        n_shards(mesh))
+            ok = m["loss_rel"] <= SHARDED_LOSS_REL and all(
+                r["param_over_bound"] <= 1.0 and (not strict or (
+                    r["grad_rel"] <= SHARDED_GRAD_REL and r["share_beyond"] <= 0.01))
+                for r in m["leaves"].values()) and all(
+                r["sharded"] <= r["bound"] for r in m.get("against_reference", {}).values())
+        del g_sh
+        m["ok"] = ok
+        row[label] = m
+        if not ok:
+            failures.append(f"sharded train {tag} {label}: {m}")
+        del whole
+        if cuda:
+            torch.cuda.empty_cache()
+    return row, grads
+
+
+def sharded_train(torch, np, failures: list, record: dict, dev, sizes=SHARDED_TRAIN,
+                  llama_cfg=None, tt_cfg=None, gnn_cell: str | None = None,
+                  mesh_fn=None) -> None:
+    """The sharded train phase (``SHARDED_TRAIN``'s note).  ``llama_cfg`` /
+    ``tt_cfg`` / ``gnn_cell`` / ``mesh_fn`` / ``dev`` shrink it for the CPU
+    tests (``mesh_fn(data, model)`` builds a mesh; ``make_local_mesh`` on
+    the card)."""
+    from repro_torch.configs.lm_archs import LLAMA32_1B
+    from repro_torch.configs.recsys_archs import TWO_TOWER
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import ClickStream, TokenStream
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.params import cast_model, check_ids
+    from repro_torch.models.recsys import TwoTowerModel
+    from repro_torch.models.transformer import LMModel
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import to_device
+
+    cuda = dev.type == "cuda"
+    if mesh_fn is None:
+        def mesh_fn(data, model):
+            return make_local_mesh(model, n_devices=data * model)
+    if cuda:
+        log(f"sharded train phase on {card_line()}")
+    seconds = {}
+    gen = lambda: torch.Generator(dev).manual_seed(sizes["seed"])  # noqa: E731
+
+    t0 = time.perf_counter()
+    cfg = llama_cfg or dataclasses.replace(LLAMA32_1B, n_layers=sizes["llama_layers"])
+    model = LMModel(cfg).init_params(gen(), device=dev)
+    raw = TokenStream(vocab=cfg.vocab, batch=sizes["llama_batch"], seq=sizes["llama_seq"],
+                      seed=sizes["seed"]).next()
+    check_ids(raw["tokens"], cfg.vocab, "tokens")
+    # the float32 copy first: its one-device gradient is the bf16 run's
+    # reference
+    copy = cast_model(model, torch.float32, dev)
+    row, ref32 = sharded_against_one(
+        torch, np, failures, "llama float32", "lm", copy, adamw(lr=sizes["llama_lr"]),
+        to_device(raw, dev), [("S2", mesh_fn(2, 1))], dev, sizes["llama_lr"], strict=True)
+    record["sharded train llama float32"] = row
+    log("sharded train llama float32 " + json.dumps(row))
+    copy.to_empty(device="meta")
+    row, _ = sharded_against_one(
+        torch, np, failures, "llama", "lm", model, adamw(lr=sizes["llama_lr"]),
+        to_device(raw, dev), [("S2", mesh_fn(2, 1)), ("1x2", mesh_fn(1, 2))], dev,
+        sizes["llama_lr"], check_apply=True, reference=ref32)
+    row.update(config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab)
+    record["sharded train llama"] = row
+    log("sharded train llama " + json.dumps(row))
+    model.to_empty(device="meta")
+    del ref32
+    seconds["llama"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = tt_cfg or TWO_TOWER
+    model = TwoTowerModel(cfg).init_params(gen(), device=dev)
+    batch = to_device(ClickStream(cfg, batch=sizes["tt_batch"], seed=sizes["seed"]).next(), dev)
+    meshes = [(f"S{s}", mesh_fn(s, 1)) for s in sizes["tt_shards"]]
+    # the towers' gradient at the initial weights is mostly the logits'
+    # rounding in float32 (the cone: PERF.md §2), so the training bound is
+    # held on a float64 copy, whose (B, B) product runs in float64, over the
+    # whole batch; its one-device gradient is the float32 and bf16 runs'
+    # reference
+    copy = cast_model(model, torch.float64, dev)
+    row, ref64 = sharded_against_one(
+        torch, np, failures, "two tower float64", "recsys", copy, adamw(lr=sizes["tt_lr"]),
+        batch, meshes, dev, sizes["tt_lr"], strict=True)
+    record["sharded train two tower float64"] = row
+    log("sharded train two tower float64 " + json.dumps(row))
+    copy.to_empty(device="meta")
+    copy = cast_model(model, torch.float32, dev)
+    row, _ = sharded_against_one(
+        torch, np, failures, "two tower float32", "recsys", copy, adamw(lr=sizes["tt_lr"]),
+        batch, meshes, dev, sizes["tt_lr"], reference=ref64)
+    record["sharded train two tower float32"] = row
+    log("sharded train two tower float32 " + json.dumps(row))
+    copy.to_empty(device="meta")
+    row, _ = sharded_against_one(
+        torch, np, failures, "two tower", "recsys", model, adamw(lr=sizes["tt_lr"]), batch,
+        meshes, dev, sizes["tt_lr"], reference=ref64)
+    row.update(config=cfg.name, vocab=cfg.vocab)
+    record["sharded train two tower"] = row
+    log("sharded train two tower " + json.dumps(row))
+    model.to_empty(device="meta")
+    del ref64
+    seconds["two_tower"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cell = gnn_cell or sizes["gnn_cell"]
+    bundle = get_arch("pna")
+    flat = gnn_cell_batch(np, cell, bundle.cells[cell].inputs(), sizes["seed"])
+    model = bundle.model_for(cell).init_params(gen(), device=dev)
+    row, _ = sharded_against_one(
+        torch, np, failures, "pna", "gnn", model, adamw(lr=sizes["gnn_lr"]),
+        to_device(flat, dev), [(f"S{sizes['gnn_shards']}", mesh_fn(sizes["gnn_shards"], 1))],
+        dev, sizes["gnn_lr"])
+    row.update(cell=cell)
+    record["sharded train pna"] = row
+    log("sharded train pna " + json.dumps(row))
+    seconds["pna"] = time.perf_counter() - t0
+    log("sharded train seconds " + json.dumps(seconds))
+
+
+def dryrun_line(record: dict, cells=DRYRUN_CELLS) -> None:
+    """Per-device bytes on the 16 x 16 production mesh (``meta`` devices)
+    of the cells that do not fit one card (``launch.dryrun``)."""
+    from repro_torch.launch.dryrun import reckon_cell
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh()
+    out = {}
+    for arch, shape in cells:
+        rec = reckon_cell(arch, shape, mesh)
+        out[f"{arch}/{shape}"] = dict(per_device_bytes=rec["per_device_bytes"],
+                                      device_flops=rec["device_flops"],
+                                      model_flops=rec["model_flops"],
+                                      collective_bytes=rec["collective_bytes"],
+                                      plan=rec["plan"], seconds=rec["seconds"])
+    record["dryrun"] = out
+    log("dryrun 16x16 " + json.dumps(out))
 
 
 def main() -> int:
@@ -5297,6 +5690,8 @@ def main() -> int:
         ("lm", lambda: lm_run.update(lm(torch, np, failures, record, dev))),
         ("lm train", lambda: lm_train(torch, np, failures, record, dev)),
         ("gnn train", lambda: gnn_train(torch, np, failures, record, dev)),
+        ("sharded train", lambda: sharded_train(torch, np, failures, record, dev)),
+        ("dryrun", lambda: dryrun_line(record)),
     )
     for phase, fn in phases:
         t0 = time.perf_counter()

@@ -14,8 +14,12 @@ package restores in the other:
     ``step_K/``: a crash mid-save never corrupts the latest checkpoint;
   * async save: every leaf is copied to the host before the writer thread
     starts, so a later in-place update never reaches a save in flight;
-  * restore places the leaves on any device (``device=``, the one-card
-    counterpart of the reference's ``shardings=``: an elastic restart).
+  * restore places the leaves on any device (``device=``) or over any
+    mesh (``placements=``, the counterpart of the reference's
+    ``shardings=``): a state saved under one mesh restores under another
+    (an elastic reshard).  A leaf laid out over a mesh (a
+    ``ShardedTensor``) is saved whole, so either package reads either
+    checkpoint.
 
 Leaves are written, read and hashed by a pool of threads (``np.save``,
 ``np.load`` and sha256 release the interpreter lock), one leaf each: the
@@ -37,7 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.flat_index import resolve_device
-from repro_torch.pytree import leaves_with_paths, path_key, unflatten
+from repro_torch.parallel.sharding import ShardedTensor
+from repro_torch.pytree import leaves, leaves_with_paths, path_key, unflatten
 
 __all__ = ["CheckpointManager"]
 
@@ -56,6 +61,8 @@ _BY_TORCH = {dt: name for name, (dt, _, _, _) in _EXOTIC.items()}
 def _host_copy(leaf) -> tuple[np.ndarray, str]:
     """(a storable host array of ``leaf`` that owns its memory, its logical
     dtype name)."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         name = _BY_TORCH.get(t.dtype)
@@ -156,12 +163,19 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, like: Any, step: int | None = None, device=None,
-                verify: bool = True) -> tuple[Any, dict]:
+                verify: bool = True, placements: Any = None) -> tuple[Any, dict]:
         """Restore into the structure of ``like`` (a tree of tensors, ``meta``
-        tensors or arrays: only its structure and keys are read), every leaf
-        on ``device``: the CUDA device unless ``"cpu"``, raising where there
-        is none.  Returns (state, the save's ``extra``)."""
-        dev = resolve_device(device)
+        tensors, arrays or ``ShardedTensor``s: only its structure and keys
+        are read), every leaf on ``device``: the CUDA device unless
+        ``"cpu"``, raising where there is none.  With ``placements`` (a tree
+        of ``Placement``s, ``like``'s structure) each leaf is laid out over
+        its mesh instead, as a ``ShardedTensor``.  Returns (state, the
+        save's ``extra``)."""
+        if placements is not None:
+            flat_pl = leaves(placements)
+            dev = torch.device("cpu")
+        else:
+            dev = resolve_device(device)
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -186,4 +200,8 @@ class CheckpointManager:
 
         with ThreadPoolExecutor(IO_THREADS) as pool:
             out = [t.to(dev) for t in pool.map(load, [p for p, _ in flat_like])]
+        if placements is not None:
+            if len(flat_pl) != len(out):
+                raise ValueError(f"{len(flat_pl)} placements for {len(out)} leaves")
+            out = [ShardedTensor.place(t, pl) for t, pl in zip(out, flat_pl)]
         return unflatten(like, out), manifest["extra"]

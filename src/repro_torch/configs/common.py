@@ -2,10 +2,10 @@
 port of ``repro.configs.common`` (the LM, GNN and recsys families).
 
 An ArchBundle knows, for every assigned input shape, the batch it takes
-(``TensorSpec`` shapes and torch dtypes; nothing is allocated) and how to
-build a REDUCED version of itself for CPU tests.  One card has no mesh, so
-a cell carries no input partition: asking for one raises, naming the
-ROADMAP item that ports the model-family sharding helpers.
+(``TensorSpec`` shapes and torch dtypes; nothing is allocated), the batch's
+partition specs over a mesh (``Cell.partition``, the reference's
+``input_partition``) and how to build a REDUCED version of itself for CPU
+tests.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.parallel.sharding import P, dp_axes
 
 __all__ = [
     "Cell",
@@ -30,15 +32,7 @@ __all__ = [
     "RECSYS_SHAPES",
     "recsys_batch_spec",
     "recsys_cells",
-    "SHARDING_ITEM",
 ]
-
-# where the model-family sharding (input partitions, row-sharded tables)
-# is queued
-SHARDING_ITEM = (
-    "ROADMAP Queue 1 item 8.4 (the model-family sharding helpers of "
-    "repro.parallel.sharding)"
-)
 
 
 class TensorSpec(NamedTuple):
@@ -55,17 +49,14 @@ class Cell:
     kind: str  # train | prefill | decode | serve
     # inputs() -> dict of TensorSpec (the *batch*, not the parameters)
     inputs: Callable[[], Any]
-    # the reference's input PartitionSpecs; None on one card
-    input_partition: Callable[[Any], Any] | None = None
+    # input_partition(mesh) -> the batch's specs (a dict of ``P``)
+    input_partition: Callable[[Any], Any]
     skip: str | None = None
     note: str = ""
 
-    def partition(self, mesh=None):
-        """The cell's input partition over ``mesh``: not ported yet."""
-        raise NotImplementedError(
-            f"cell {self.shape_name!r}: input partitions over a mesh are "
-            f"{SHARDING_ITEM}"
-        )
+    def partition(self, mesh):
+        """The cell's input partition over ``mesh`` (a ``ShardMesh``)."""
+        return self.input_partition(mesh)
 
 
 @dataclasses.dataclass
@@ -130,10 +121,16 @@ def lm_cells(cfg, model, *, pure_full_attention: bool) -> dict[str, Cell]:
             def inputs(seq=seq, batch=batch):
                 return {"tokens": TensorSpec((batch, seq + 1), torch.int32)}
 
+            def ipart(mesh):
+                return {"tokens": P(dp_axes(mesh), None)}
+
         elif kind == "prefill":
 
             def inputs(seq=seq, batch=batch):
                 return {"tokens": TensorSpec((batch, seq), torch.int32)}
+
+            def ipart(mesh):
+                return {"tokens": P(dp_axes(mesh), None)}
 
         else:  # decode: batch + cache handled by the launcher
 
@@ -143,7 +140,11 @@ def lm_cells(cfg, model, *, pure_full_attention: bool) -> dict[str, Cell]:
                     "pos": TensorSpec((), torch.int32),
                 }
 
-        cells[shape_name] = Cell(shape_name, kind, inputs, skip=skip)
+            def ipart(mesh, batch=batch):
+                tok = P(dp_axes(mesh), None) if batch > 1 else P(None, None)
+                return {"token": tok, "pos": P()}
+
+        cells[shape_name] = Cell(shape_name, kind, inputs, ipart, skip=skip)
     return cells
 
 
@@ -220,8 +221,33 @@ def gnn_cells(cfg) -> dict[str, Cell]:
                 d["label_mask"] = TensorSpec((n,), torch.float32)
             return d
 
-        cells[name] = Cell(name, "train", inputs, note=s.get("note", ""))
+        def ipart(mesh, s=s):
+            all_ax = dp_axes(mesh) + ("model",)
+            nodes = P(all_ax)
+            edges = P(all_ax, None)
+            d = {
+                "x": P(all_ax, None),
+                "edge_src": edges,
+                "edge_dst_local": edges,
+                "edge_valid": edges,
+            }
+            if "graphs" in s:
+                d["graph_id"] = nodes
+                d["labels"] = P(None)
+            else:
+                d["labels"] = nodes
+                d["label_mask"] = nodes
+            return d
+
+        cells[name] = Cell(name, "train", inputs, ipart, note=s.get("note", ""))
     return cells
+
+
+def _axsize(mesh, axes) -> int:
+    out = 1
+    for a in axes:
+        out *= mesh.size(a)
+    return out
 
 
 # ------------------------------------------------------------------ recsys
@@ -273,11 +299,28 @@ def recsys_cells(cfg) -> dict[str, Cell]:
         def inputs(s=s, cand=cand):
             return recsys_batch_spec(cfg, s["batch"], cand, train=s["kind"] == "train")
 
+        def ipart(mesh, s=s, cand=cand):
+            dp = dp_axes(mesh)
+            eff = cand or s["batch"]
+            row = P(dp) if eff % _axsize(mesh, dp) == 0 else P(None)
+            specs = recsys_batch_spec(cfg, s["batch"], cand, train=s["kind"] == "train")
+            out = {}
+            for key, sd in specs.items():
+                if key == "candidates":
+                    # FEATURE-dim sharding: row gathers stay local; the dot
+                    # becomes a partial contraction + a small all-reduce
+                    out[key] = P(None, "model")
+                elif key == "user_ids" and cand:
+                    out[key] = P(None, None)  # batch=1
+                else:
+                    out[key] = P(*(tuple(row) + (None,) * (len(sd.shape) - 1)))
+            return out
+
         note = ""
         if cand and cfg.kind != "two_tower":
             note = (
                 "retrieval_cand for a CTR model = bulk-score 1M candidate rows "
                 "for one user (user features broadcast into each row)"
             )
-        cells[name] = Cell(name, s["kind"], inputs, note=note)
+        cells[name] = Cell(name, s["kind"], inputs, ipart, note=note)
     return cells

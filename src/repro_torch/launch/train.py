@@ -5,6 +5,8 @@ every family (LM, GNN, recsys):
         --steps 20 --reduced --device cpu      # the reduced config on the CPU
     PYTHONPATH=src python -m repro_torch.launch.train --arch pna \\
         --steps 20 --reduced                   # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --steps 20 --reduced --mesh 2x2        # over a (data, model) mesh
 
 Runs on the CUDA device (``--device cuda``, the default, raising where
 there is none, float32 matmuls in IEEE float32) unless ``--device cpu``.
@@ -21,7 +23,13 @@ head (``graph_level=True``: the ``molecule`` cell's model, or the reduced
 config with it).  The reference feeds the stream to the node-level base
 model, whose loss cannot pair its node logits with graph labels and raises.
 
-A run resumes from the latest checkpoint in ``--checkpoint-dir``.
+``--mesh DxM`` runs the loop over a ``("data", "model")`` mesh of D × M
+devices (``launch.mesh.make_local_mesh``; CPU devices with ``--device
+cpu``, ``launch.simdevices.simulated_mesh``): the state in pieces by the
+model's ``param_specs``, the sharded step of ``parallel.sharded_step``.
+
+A run resumes from the latest checkpoint in ``--checkpoint-dir``, under
+whatever mesh saved it.
 """
 
 from __future__ import annotations
@@ -36,11 +44,14 @@ from repro_torch.configs import common
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.flat_index import resolve_device
 from repro_torch.data.pipeline import ClickStream, TokenStream, batched_molecules
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.simdevices import simulated_mesh
 from repro_torch.optim import make_optimizer
+from repro_torch.parallel.sharded_step import sharded_step_for
 from repro_torch.train.loop import TrainLoop, TrainLoopConfig
 from repro_torch.train.step import functional_loss
 
-__all__ = ["make_stream", "train_model", "main"]
+__all__ = ["make_stream", "train_model", "parse_mesh", "main"]
 
 # the families whose training is not ported yet, and the ROADMAP item of each
 NOT_TRAINED: dict[str, str] = {}
@@ -94,6 +105,18 @@ def make_stream(family: str, model, cfg, reduced: bool):
     return MoleculeStream(model.cfg.d_feat, model.cfg.n_classes)
 
 
+def parse_mesh(text: str, device: torch.device):
+    """``"DxM"`` -> a ``("data", "model")`` mesh of D × M devices on
+    ``device``'s type."""
+    try:
+        d, m = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh takes DxM (e.g. 2x2), got {text!r}") from None
+    if device.type == "cpu":
+        return simulated_mesh(d * m, (d, m), ("data", "model"))
+    return make_local_mesh(model_parallel=m, n_devices=d * m)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -103,6 +126,7 @@ def main(argv=None) -> None:
     ap.add_argument("--checkpoint-every", type=int, default=25)
     ap.add_argument("--compression", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None, help="DxM: a (data, model) mesh, e.g. 2x2")
     args = ap.parse_args(argv)
     bundle = get_arch(args.arch)
     if bundle.family in NOT_TRAINED:
@@ -117,6 +141,11 @@ def main(argv=None) -> None:
     model, cfg = train_model(bundle, args.reduced)
     loss_fn = functional_loss(model, common.loss_for(bundle.family, model))
     opt = make_optimizer(getattr(cfg, "optimizer", "adamw"), total_steps=args.steps)
+    microbatches = 1 if args.reduced else getattr(cfg, "microbatches", 1)
+    sharded = None
+    if args.mesh:
+        sharded = sharded_step_for(bundle.family, model, opt, parse_mesh(args.mesh, dev),
+                                   microbatches=microbatches, compression=args.compression)
     loop = TrainLoop(
         loss_fn, opt, make_stream(bundle.family, model, cfg, args.reduced),
         TrainLoopConfig(
@@ -124,15 +153,17 @@ def main(argv=None) -> None:
             checkpoint_every=args.checkpoint_every,
             checkpoint_dir=args.checkpoint_dir,
             compression=args.compression,
-            microbatches=1 if args.reduced else getattr(cfg, "microbatches", 1),
+            microbatches=microbatches,
         ),
         device=dev,
+        sharded=sharded,
     )
     state = loop.init_or_restore(
         lambda: model.init_params(torch.Generator(dev).manual_seed(0), device=dev).param_tree())
     loop.run(state)
     print(f"done: final loss {loop.losses[-1]:.4f} over {len(loop.losses)} steps "
-          f"({loop.stragglers} straggler events) on {dev}")
+          f"({loop.stragglers} straggler events) on "
+          f"{dev if sharded is None else f'a {args.mesh} mesh of {dev.type} devices'}")
 
 
 if __name__ == "__main__":

@@ -40,8 +40,10 @@ half the gradient, where ``clamp_min`` would pass all of it.  A quotient
 with a constant on either side is one tensor division (torch would
 multiply by a reciprocal).
 
-One card has no mesh: ``param_specs`` raises, and so does a config with
-``batch_axes``, naming the ROADMAP item that ports the sharding helpers.
+``param_specs`` is the reference's (every weight replicated: the sharded
+objects are the node and edge rows, ``Cell.partition``); ``batch_axes``
+pins the node and edge rows, which ``maybe_constrain`` checks inside a
+sharded step.
 ``partition_edges`` is a host (numpy) function, a copy of the reference's
 (``tests/test_torch_copies.py`` pins it).
 """
@@ -53,9 +55,9 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.common import SHARDING_ITEM
 from repro_torch.core.distances import check_ieee_fp32
 from repro_torch.models.params import ParamModule
+from repro_torch.parallel.sharding import P, maybe_constrain
 
 __all__ = ["PNAConfig", "PNAModel"]
 
@@ -168,6 +170,18 @@ class PNAModel(ParamModule):
     def _zero_init(self, name: str) -> bool:
         return name.startswith("b_")
 
+    def param_specs(self, mesh) -> dict:
+        """GNN weights are tiny (75-wide): replicated, as in the reference;
+        the sharded objects are the node and edge arrays (``Cell.partition``)."""
+        return {k: P(*([None] * len(s))) for k, (s, _) in self.param_shapes().items()}
+
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The reference pins node / edge rows over ``batch_axes`` here."""
+        axes = self.cfg.batch_axes
+        if axes is None:
+            return t
+        return maybe_constrain(t, P(tuple(axes), *([None] * (t.ndim - 1))))
+
     # ----------------------------------------------------------------- forward
 
     def forward(self, batch: dict) -> torch.Tensor:
@@ -181,10 +195,6 @@ class PNAModel(ParamModule):
         (S, E_loc).
 
         Returns node logits (N, C) or graph logits (G, C), float32."""
-        if self.cfg.batch_axes is not None:
-            raise NotImplementedError(
-                f"batch_axes={self.cfg.batch_axes!r}: node and edge rows over a mesh "
-                f"are {SHARDING_ITEM}")
         if "edge_valid" in batch:
             return self._forward_partitioned(batch)
         return self._forward_flat(batch)
@@ -234,7 +244,8 @@ class PNAModel(ParamModule):
 
         h = _mm(x, self.w_in)
         for layer in range(c.n_layers):
-            m_in = torch.cat([take_rows(h, src), take_rows(h, dst)], dim=-1)
+            m_in = torch.cat([self._rows(take_rows(h, src)), self._rows(take_rows(h, dst))],
+                             dim=-1)
             m = torch.relu(_mm(m_in, self.w_msg[layer]) + self.b_msg[layer])  # (E, d)
             h = self._update(h, layer, s_cnt, segment_sum(m, dst, n), segment_max(m, dst, n),
                              segment_min(m, dst, n), segment_sum(m * m, dst, n), s_amp, s_att)

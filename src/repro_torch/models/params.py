@@ -18,7 +18,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.common import SHARDING_ITEM
 from repro_torch.core.flat_index import resolve_device
 
 __all__ = ["ParamModule", "check_ids", "from_numpy", "load_jax_params", "cast_model"]
@@ -137,8 +136,10 @@ class ParamModule(nn.Module):
             self._set(name, i, t.detach())
         return self
 
-    def param_specs(self, mesh=None) -> dict:
-        raise NotImplementedError(f"parameter partitions are {SHARDING_ITEM}")
+    def param_specs(self, mesh) -> dict:
+        """The reference's partition specs of the parameter tree over
+        ``mesh`` (a ``ShardMesh``), per family."""
+        raise NotImplementedError
 
     def param_bytes(self) -> int:
         return sum(math.prod(shape) * dt.itemsize for _, _, (shape, dt) in self._leaves())

@@ -32,9 +32,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from repro_torch.configs.common import SHARDING_ITEM
 from repro_torch.core.distances import check_ieee_fp32
-from repro_torch.models.params import ParamModule, cast_model, check_ids, load_jax_params
+from repro_torch.models.params import ParamModule, _is_leaf, cast_model, check_ids, load_jax_params
+from repro_torch.parallel.sharding import P, maybe_constrain
 
 __all__ = [
     "RecsysConfig",
@@ -90,20 +90,21 @@ def _mlp_apply(x, ws, bs, final_act=False):
 
 
 def _constrain_rows(x, batch_axes):
-    """The reference pins an embedding lookup's row sharding here; one card
-    has no mesh, so ``batch_axes`` must be None."""
+    """The reference pins an embedding lookup's row sharding here
+    (``maybe_constrain`` checks the spec inside a sharded step)."""
     if batch_axes is None:
         return x
-    raise NotImplementedError(
-        f"batch_axes={batch_axes!r}: row-sharded lookups are {SHARDING_ITEM}"
-    )
+    return maybe_constrain(x, P(tuple(batch_axes), *([None] * (x.ndim - 1))))
 
 
 def _fp32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a.float() @ b.float()`` in IEEE float32."""
-    a = a.float()
-    check_ieee_fp32(a)
-    return a @ b.float()
+    """``a.float() @ b.float()`` in IEEE float32 (a float64 copy of a model,
+    which the reference has no counterpart of, multiplies in float64)."""
+    dt = torch.promote_types(a.dtype, torch.float32)
+    a = a.to(dt)
+    if dt == torch.float32:
+        check_ieee_fp32(a)
+    return a @ b.to(dt)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +129,27 @@ class RecsysConfig:
     batch_axes: tuple | None = None
 
 
-class WideDeepModel(ParamModule):
+class _RecsysModule(ParamModule):
+    def param_specs(self, mesh) -> dict:
+        """The reference's specs: stacked tables (T, V, D) and a big single
+        table (>= 65,536 rows) row-sharded over ``"model"``, the rest
+        replicated (the tables too on a mesh without a "model" axis, where
+        the reference's raise)."""
+        model = "model" if "model" in mesh.axis_names else None
+
+        def spec(v):
+            shape, _ = v
+            if len(shape) == 3:  # stacked tables (T, V, D): rows over model
+                return P(None, model, None)
+            if len(shape) == 2 and shape[0] >= 65536:  # big single table
+                return P(model, None)
+            return P(*([None] * len(shape)))
+
+        return {k: spec(v) if _is_leaf(v) else [spec(x) for x in v]
+                for k, v in self.param_shapes().items()}
+
+
+class WideDeepModel(_RecsysModule):
     """Wide&Deep (arXiv:1606.07792): wide hashed-linear + deep MLP on field
     embeddings, summed logits."""
 
@@ -152,7 +173,7 @@ class WideDeepModel(ParamModule):
         return (deep + wide).float()[:, 0]
 
 
-class DINModel(ParamModule):
+class DINModel(_RecsysModule):
     """Deep Interest Network (arXiv:1706.06978): target attention over the
     user behaviour sequence."""
 
@@ -187,7 +208,7 @@ class DINModel(ParamModule):
         return _mlp_apply(z, self.mlp_w, self.mlp_b).float()[:, 0]
 
 
-class TwoTowerModel(ParamModule):
+class TwoTowerModel(_RecsysModule):
     """Two-tower retrieval (Yi et al., RecSys'19): user/item towers -> dot;
     trained with in-batch sampled softmax (logQ-free synthetic variant)."""
 
@@ -222,16 +243,27 @@ class TwoTowerModel(ParamModule):
         if "candidates" in batch:  # retrieval scoring: precomputed item matrix
             u = self.user_embed(batch["user_ids"])  # (B, E)
             return _fp32_product(u, batch["candidates"].T)
-        u = self.user_embed(batch["user_ids"])
-        i = self.item_embed(batch["item_ids"])
+        u, i = self.towers(batch)
         return _fp32_product(u, i.T) * 20.0  # temperature
 
-    def loss_fn(self, batch: dict) -> torch.Tensor:
-        logits = self.forward(batch)  # (B, B) in-batch softmax
-        labels = torch.arange(logits.shape[0], device=logits.device)
+    def towers(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """(user rows, item rows) of a training batch."""
+        return self.user_embed(batch["user_ids"]), self.item_embed(batch["item_ids"])
+
+    def in_batch_terms(self, u: torch.Tensor, items: torch.Tensor,
+                       first: int = 0) -> torch.Tensor:
+        """Each row's ``logz - gold`` of the in-batch softmax: ``u``'s rows
+        (the batch's rows ``first``, ``first + 1``, …) against every row of
+        ``items``, each row's own item its label."""
+        logits = _fp32_product(u, items.T) * 20.0
+        labels = first + torch.arange(logits.shape[0], device=logits.device)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[:, None])[:, 0]
-        return torch.mean(logz - gold)
+        return logz - gold
+
+    def loss_fn(self, batch: dict) -> torch.Tensor:
+        """The (B, B) in-batch softmax's mean over the batch's rows."""
+        return torch.mean(self.in_batch_terms(*self.towers(batch)))
 
     def forward_retrieval_pruned(
         self, batch: dict, *, block: int = 128, budget_blocks: int = 3136,
@@ -314,7 +346,7 @@ def lexsort_rows(secondary: torch.Tensor, primary: torch.Tensor) -> torch.Tensor
     return torch.gather(first, 1, second)
 
 
-class DLRMModel(ParamModule):
+class DLRMModel(_RecsysModule):
     """DLRM-RM2 (arXiv:1906.00091): bottom MLP on dense feats, dot-product
     feature interaction, top MLP."""
 

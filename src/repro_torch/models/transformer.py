@@ -51,10 +51,17 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.common import SHARDING_ITEM, TensorSpec
+from repro_torch.configs.common import TensorSpec
 from repro_torch.core.distances import check_ieee_fp32
 from repro_torch.models import layers
 from repro_torch.models.params import ParamModule
+from repro_torch.parallel.sharding import (
+    P,
+    divisible_or_none,
+    dp_axes,
+    fsdp_axes,
+    maybe_constrain,
+)
 
 __all__ = ["LMConfig", "LMModel"]
 
@@ -90,7 +97,7 @@ class LMConfig:
     microbatches: int = 1
     seq_shard_activations: bool = False
     # FSDP execution mode of the reference's mesh (all-gather each layer's
-    # weights at use); one card has no mesh
+    # weights at use); the port's sharded step gathers a leaf whole
     unshard_weights_at_use: bool = False
     expert_axis: str | None = None  # mesh axis for MoE expert parallelism
     attn_q_chunk: int | None = None  # query chunking for long prefill
@@ -188,6 +195,48 @@ class LMModel(ParamModule):
     def _zero_init(self, name: str) -> bool:
         return "norm" in name
 
+    def param_specs(self, mesh) -> dict:
+        """FSDP over data axes (input dim) + TP over model axis (output dim):
+        the reference's specs.  On a mesh without a "model" axis (where the
+        reference's raise) what it would split is replicated."""
+        c = self.cfg
+        fs = fsdp_axes(mesh)
+        m = mesh.size("model") if "model" in mesh.axis_names else 0
+        d_ok = lambda dim: divisible_or_none(dim, mesh, fs)  # noqa: E731
+        m_ok = lambda dim: ("model" if m and dim % m == 0 else None)  # noqa: E731
+        dh = c.dh
+        specs = {
+            # the embedding is gathered, not multiplied: vocab-sharded only
+            "embed": P(m_ok(c.vocab), None),
+            "unembed": P(m_ok(c.vocab), d_ok(c.d_model)),
+            "final_norm": P(None),
+            "attn_norm": P(None, None),
+            "mlp_norm": P(None, None),
+            "wq": P(None, d_ok(c.d_model), m_ok(c.n_heads * dh)),
+            "wk": P(None, d_ok(c.d_model), m_ok(c.n_kv_heads * dh)),
+            "wv": P(None, d_ok(c.d_model), m_ok(c.n_kv_heads * dh)),
+            "wo": P(None, m_ok(c.n_heads * dh), d_ok(c.d_model)),
+        }
+        if c.post_norms:
+            specs["attn_post_norm"] = P(None, None)
+            specs["mlp_post_norm"] = P(None, None)
+        if c.is_moe:
+            e_ax = m_ok(c.moe_experts)
+            specs["router"] = P(None, d_ok(c.d_model), None)
+            specs["moe_gate"] = P(None, e_ax, d_ok(c.d_model), None)
+            specs["moe_up"] = P(None, e_ax, d_ok(c.d_model), None)
+            specs["moe_down"] = P(None, e_ax, None, d_ok(c.d_model))
+            if c.n_shared_experts:
+                fs_dim = c.n_shared_experts * c.d_ff
+                specs["shared_gate"] = P(None, d_ok(c.d_model), m_ok(fs_dim))
+                specs["shared_up"] = P(None, d_ok(c.d_model), m_ok(fs_dim))
+                specs["shared_down"] = P(None, m_ok(fs_dim), d_ok(c.d_model))
+        else:
+            specs["w_gate"] = P(None, d_ok(c.d_model), m_ok(c.d_ff))
+            specs["w_up"] = P(None, d_ok(c.d_model), m_ok(c.d_ff))
+            specs["w_down"] = P(None, m_ok(c.d_ff), d_ok(c.d_model))
+        return specs
+
     # ------------------------------------------------------------------ layers
 
     def _layer_params(self) -> tuple[dict, list[str]]:
@@ -217,9 +266,7 @@ class LMModel(ParamModule):
         c = self.cfg
         b = x.shape[0]
         dh = c.dh
-        if c.batch_axes is not None:
-            raise NotImplementedError(
-                f"batch_axes={c.batch_axes!r}: activations over a mesh are {SHARDING_ITEM}")
+        x = self._constrain_resid(x)
 
         h = layers.rms_norm(x, lp["attn_norm"])
         q = layers._matmul(h, lp["wq"]).reshape(b, -1, c.n_heads, dh)
@@ -320,6 +367,16 @@ class LMModel(ParamModule):
         return (offset + torch.arange(s, dtype=torch.int32, device=self.embed.device)
                 ).expand(b, s)
 
+    def _constrain_resid(self, x: torch.Tensor) -> torch.Tensor:
+        """The reference pins the residual stream's rows over ``batch_axes``
+        (and its sequence over ``"model"`` with ``seq_shard_activations``);
+        ``maybe_constrain`` checks the spec inside a sharded step."""
+        c = self.cfg
+        if c.batch_axes is None:
+            return x
+        seq = "model" if c.seq_shard_activations else None
+        return maybe_constrain(x, P(tuple(c.batch_axes), seq, None))
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Teacher-forced logits: tokens (B, S) -> (B, S, vocab)."""
         c = self.cfg
@@ -417,8 +474,20 @@ class LMModel(ParamModule):
             "v": TensorSpec(shape, c.dtype),
         }
 
-    def cache_specs(self, mesh=None, batch: int = 1) -> dict:
-        raise NotImplementedError(f"KV-cache partitions are {SHARDING_ITEM}")
+    def cache_specs(self, mesh, batch: int) -> dict:
+        """The reference's KV-cache specs: batch over the data axes when they
+        divide it, the sequence over ``"model"``."""
+        dp = dp_axes(mesh)
+        dp_size = 1
+        for a in dp:
+            dp_size *= mesh.size(a)
+        bdim = dp if batch % dp_size == 0 else None  # batch=1: replicate
+        spec = P(None, bdim, "model", None, None)  # seq-sharded KV
+        out = {"k": spec, "v": spec}
+        if self.cfg.kv_cache_dtype == "int8":
+            out["k_scale"] = P(None, bdim, "model", None)
+            out["v_scale"] = P(None, bdim, "model", None)
+        return out
 
     def decode_step(self, cache: dict, token: torch.Tensor,
                     pos: int) -> tuple[torch.Tensor, dict]:

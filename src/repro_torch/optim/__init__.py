@@ -8,4 +8,4 @@ from repro_torch.optim.optimizers import (  # noqa: F401
     clip_by_global_norm,
     make_optimizer,
 )
-from repro_torch.optim.compression import int8_error_feedback  # noqa: F401
+from repro_torch.optim.compression import int8_error_feedback, int8_error_feedback_  # noqa: F401

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.pytree import leaves, unflatten
 
-__all__ = ["int8_error_feedback"]
+__all__ = ["int8_error_feedback", "int8_error_feedback_"]
 
 
 def _quantize(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -29,18 +29,32 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
+def _one(g: torch.Tensor, r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(one leaf's compressed-then-decompressed gradient, its new residual)."""
+    g32 = g.float() + r
+    q, s = _quantize(g32)
+    deq = _dequantize(q, s)
+    return deq.to(g.dtype), g32 - deq
+
+
 @torch.no_grad()
 def int8_error_feedback(grads, residuals):
     """Returns (compressed-then-decompressed grads, new residuals).
 
     ``residuals`` matches ``grads`` (float32); pass zeros initially.
     """
-
-    def one(g, r):
-        g32 = g.float() + r
-        q, s = _quantize(g32)
-        deq = _dequantize(q, s)
-        return deq.to(g.dtype), g32 - deq
-
-    out = [one(g, r) for g, r in zip(leaves(grads), leaves(residuals))]
+    out = [_one(g, r) for g, r in zip(leaves(grads), leaves(residuals))]
     return unflatten(grads, [o[0] for o in out]), unflatten(grads, [o[1] for o in out])
+
+
+@torch.no_grad()
+def int8_error_feedback_(grads, residuals):
+    """``int8_error_feedback`` with each new residual written into the old
+    one in place (the same operations, leaf by leaf); returns the
+    compressed-then-decompressed grads."""
+    out = []
+    for g, r in zip(leaves(grads), leaves(residuals)):
+        deq, new_r = _one(g, r)
+        r.copy_(new_r)
+        out.append(deq)
+    return unflatten(grads, out)

@@ -10,8 +10,19 @@ two tensors: torch forms ``x / t`` of a Python ``x`` as ``x * (1 / t)``,
 and on CUDA ``t / c`` of a Python ``c`` as ``t * (1 / c)``, two roundings
 each.  Nothing inside ``update`` reads a value to the host.
 
-One card has no mesh, so ``state_specs`` (the optimizer state's partition
-specs) raises, as ``param_specs`` does.
+Each optimizer is split where a mesh splits it: ``prepare`` reads the
+whole gradient tree (the step count, the learning rate, AdamW's global
+clip factor) and ``leaf`` updates one parameter and its own state from
+those scalars (AdamW scaling its gradient by the clip factor first).  ``update`` is the reference's functional step (new trees);
+``update_`` writes each new leaf into the old tensors in place, leaf by
+leaf, through the same ``leaf`` (so the same operations in the same
+order, bit for bit): the port's counterpart of the reference's
+``donate_argnums=(0,)``, holding one leaf's transients instead of a second
+state.  ``elementwise`` says whether ``leaf`` works element by element
+given the scalars, so that a piece of a leaf updates alone on its own
+device (AdamW; Adafactor's factored moments and RMS clip reach over whole
+dims).  ``state_specs`` is the reference's: the state's partition specs
+from the parameters'.
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.common import SHARDING_ITEM
+from repro_torch.parallel.sharding import P
 from repro_torch.pytree import leaves, leaves_upto, tree_map, unflatten
 
 __all__ = [
@@ -38,19 +49,65 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    # update(grads, state, params) -> (new params, new state)
-    update: Callable[..., tuple[Any, Any]]
-    # state_specs(param_specs): the reference's partition specs; raises here
+    # prepare(grads, state) -> the step's scalars ("step": the new count):
+    # what reads the whole gradient tree
+    prepare: Callable[[Any, Any], dict]
+    # leaf(p, g, s, scalars) -> (new p, new s): one leaf, s its state dict
+    leaf: Callable[..., tuple[torch.Tensor, dict]]
+    # split(state, params) -> each leaf's state dict (views of ``state``'s
+    # tensors), in ``params``' leaf order; join(params, dicts, step) the
+    # state tree back
+    split: Callable[[Any, Any], list]
+    join: Callable[[Any, list, torch.Tensor], Any]
+    # state_specs(param_specs) -> the state's partition specs
     state_specs: Callable[[Any], Any]
+    elementwise: bool
+
+    def update(self, grads, state, params, _unused_step=None):
+        """(new params, new state): the reference's functional update."""
+        sc = self.prepare(grads, state)
+        out = [self.leaf(p, g, s, sc)
+               for p, g, s in zip(leaves(params), leaves(grads), self.split(state, params))]
+        return (unflatten(params, [o[0] for o in out]),
+                self.join(params, [o[1] for o in out], sc["step"]))
+
+    @torch.no_grad()
+    def update_(self, grads, state, params) -> None:
+        """``update`` written into ``params`` and ``state`` in place, one
+        leaf at a time (``leaf_``)."""
+        sc = self.prepare(grads, state)
+        for p, g, s in zip(leaves(params), leaves(grads), self.split(state, params)):
+            self.leaf_(p, g, s, sc)
+        state["step"].copy_(sc["step"])
+
+    @torch.no_grad()
+    def leaf_(self, p: torch.Tensor, g: torch.Tensor, s: dict, sc: dict) -> None:
+        """``leaf`` written into ``p`` and ``s`` in place.  An elementwise
+        optimizer goes ``CHUNK`` elements at a time (each element's
+        operations are the same, so are its bits), so its transients are a
+        chunk's, not a leaf's."""
+        if self.elementwise and p.numel() > CHUNK and p.is_contiguous() and all(
+                v.is_contiguous() for v in s.values()):
+            flat_p, flat_g = p.view(-1), g.reshape(-1)
+            flat_s = {k: v.view(-1) for k, v in s.items()}
+            for i in range(0, flat_p.numel(), CHUNK):
+                sl = slice(i, i + CHUNK)
+                self.leaf_(flat_p[sl], flat_g[sl], {k: v[sl] for k, v in flat_s.items()}, sc)
+            return
+        new_p, new_s = self.leaf(p, g, s, sc)
+        p.copy_(new_p)
+        for k, v in new_s.items():
+            s[k].copy_(v)
+
+
+# elements an elementwise in-place update takes at a time (64 MiB of float32
+# transients each)
+CHUNK = 1 << 24
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     """``x`` as a float32 0-d tensor on ``like``'s device (no host copy)."""
     return torch.full((), x, dtype=torch.float32, device=like.device)
-
-
-def _state_specs(_param_specs):
-    raise NotImplementedError(f"optimizer state partitions are {SHARDING_ITEM}")
 
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -74,14 +131,25 @@ def cosine_schedule(peak: float, warmup: int, total: int, floor: float = 0.1):
     return lr
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled to a global norm of at most ``max_norm``, the norm).
-    The leaves' squared norms are summed in JAX's leaf order."""
+def _clip_scale(grads, max_norm: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the factor that scales ``grads`` to a global norm of at most
+    ``max_norm``, the norm).  The leaves' squared norms are summed in JAX's
+    leaf order."""
     flat = leaves(grads)
     gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in flat))
     scale = torch.clamp_max(
         torch.div(_f32(max_norm, gnorm), torch.clamp_min(gnorm, 1e-9)), 1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
+    return scale, gnorm
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (g.float() * scale).to(g.dtype)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global norm of at most ``max_norm``, the norm)."""
+    scale, gnorm = _clip_scale(grads, max_norm)
+    return tree_map(lambda g: _clipped(g, scale), grads), gnorm
 
 
 def adamw(
@@ -104,31 +172,39 @@ def adamw(
         }
 
     @torch.no_grad()
-    def update(grads, state, params, _unused_step=None):
+    def prepare(grads, state):
         step = state["step"] + 1
-        if grad_clip:
-            grads, _ = clip_by_global_norm(grads, grad_clip)
+        # the global clip's factor; each leaf is scaled by it in ``leaf``
+        # (elementwise: the bits of scaling the whole tree first)
+        sc = {"clip": _clip_scale(grads, grad_clip)[0]} if grad_clip else {}
         lr_t = lr_fn(step)
         t = step.float()
         bc1 = 1 - torch.pow(_f32(b1, t), t)
         bc2 = 1 - torch.pow(_f32(b2, t), t)
+        return {**sc, "step": step, "lr": lr_t, "bc1": bc1, "bc2": bc2}
 
-        def upd(p, g, m, v):
-            g = g.float()
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
-            mh, vh = m / bc1, v / bc2
-            delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.float()
-            return (p.float() - lr_t * delta).to(p.dtype), m, v
+    @torch.no_grad()
+    def leaf(p, g, s, sc):
+        if "clip" in sc:
+            g = _clipped(g, sc["clip"])
+        g = g.float()
+        m = b1 * s["m"] + (1 - b1) * g
+        v = b2 * s["v"] + (1 - b2) * g * g
+        mh, vh = m / sc["bc1"], v / sc["bc2"]
+        delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.float()
+        return (p.float() - sc["lr"] * delta).to(p.dtype), {"m": m, "v": v}
 
-        out = [upd(*a) for a in zip(leaves(params), leaves(grads), leaves(state["m"]),
-                                     leaves(state["v"]))]
-        new_params = unflatten(params, [o[0] for o in out])
-        new_m = unflatten(params, [o[1] for o in out])
-        new_v = unflatten(params, [o[2] for o in out])
-        return new_params, {"m": new_m, "v": new_v, "step": step}
+    def split(state, params):
+        return [{"m": m, "v": v} for m, v in zip(leaves(state["m"]), leaves(state["v"]))]
 
-    return Optimizer(init, update, _state_specs)
+    def join(params, dicts, step):
+        return {"m": unflatten(params, [d["m"] for d in dicts]),
+                "v": unflatten(params, [d["v"] for d in dicts]), "step": step}
+
+    def state_specs(param_specs):
+        return {"m": param_specs, "v": param_specs, "step": P()}
+
+    return Optimizer(init, prepare, leaf, split, join, state_specs, elementwise=True)
 
 
 def adafactor(
@@ -167,48 +243,59 @@ def adafactor(
         }
 
     @torch.no_grad()
-    def update(grads, state, params, _unused=None):
+    def prepare(grads, state):
         step = state["step"] + 1
         t = step.float()
-        beta = 1.0 - t ** (-decay)
-        lr_t = lr_fn(step)
+        return {"step": step, "beta": 1.0 - t ** (-decay), "lr": lr_fn(step)}
 
-        def upd_slice(p, g, f):
-            g = g.float()
-            g2 = g * g + eps
-            if "vr" in f:
-                vr = beta * f["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * f["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-                rfac = torch.rsqrt(
-                    vr / torch.clamp_min(torch.mean(vr, dim=-1, keepdim=True), eps))
-                cfac = torch.rsqrt(vc)
-                u = g * rfac[..., None] * cfac[..., None, :]
-                newf = {"vr": vr, "vc": vc}
-            else:
-                v = beta * f["v"] + (1 - beta) * g2
-                u = g * torch.rsqrt(v)
-                newf = {"v": v}
-            # update clipping (RMS)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-12)
-            u = u / torch.clamp_min(_div(rms, clip_threshold), 1.0)
-            newp = p.float() - lr_t * (u + weight_decay * p.float())
-            return newp.to(p.dtype), newf
+    def upd_slice(p, g, f, beta, lr_t):
+        g = g.float()
+        g2 = g * g + eps
+        if "vr" in f:
+            vr = beta * f["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
+            vc = beta * f["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
+            rfac = torch.rsqrt(
+                vr / torch.clamp_min(torch.mean(vr, dim=-1, keepdim=True), eps))
+            cfac = torch.rsqrt(vc)
+            u = g * rfac[..., None] * cfac[..., None, :]
+            newf = {"vr": vr, "vc": vc}
+        else:
+            v = beta * f["v"] + (1 - beta) * g2
+            u = g * torch.rsqrt(v)
+            newf = {"v": v}
+        # update clipping (RMS)
+        rms = torch.sqrt(torch.mean(u * u) + 1e-12)
+        u = u / torch.clamp_min(_div(rms, clip_threshold), 1.0)
+        newp = p.float() - lr_t * (u + weight_decay * p.float())
+        return newp.to(p.dtype), newf
 
-        def upd(p, g, f):
-            if scan_leading_dim and p.ndim >= 3 and p.shape[0] >= 8:
-                outs = [upd_slice(p[i], g[i], {k: v[i] for k, v in f.items()})
-                        for i in range(p.shape[0])]
-                return (torch.stack([o[0] for o in outs]),
-                        {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]})
-            return upd_slice(p, g, f)
+    @torch.no_grad()
+    def leaf(p, g, f, sc):
+        beta, lr_t = sc["beta"], sc["lr"]
+        if scan_leading_dim and p.ndim >= 3 and p.shape[0] >= 8:
+            outs = [upd_slice(p[i], g[i], {k: v[i] for k, v in f.items()}, beta, lr_t)
+                    for i in range(p.shape[0])]
+            return (torch.stack([o[0] for o in outs]),
+                    {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]})
+        return upd_slice(p, g, f, beta, lr_t)
 
-        out = [upd(p, g, f) for p, g, f in zip(leaves(params), leaves(grads),
-                                                 leaves_upto(state["f"], params))]
-        new_params = unflatten(params, [o[0] for o in out])
-        new_f = unflatten(params, [o[1] for o in out])
-        return new_params, {"f": new_f, "step": step}
+    def split(state, params):
+        return leaves_upto(state["f"], params)
 
-    return Optimizer(init, update, _state_specs)
+    def join(params, dicts, step):
+        return {"f": unflatten(params, dicts), "step": step}
+
+    def state_specs(param_specs):
+        def one(spec):
+            # vr drops the last dim's sharding, vc the second-to-last's
+            parts = tuple(spec)
+            if len(parts) >= 2:
+                return {"vr": P(*parts[:-1]), "vc": P(*(parts[:-2] + parts[-1:]))}
+            return {"v": P(*parts) if parts else P()}
+
+        return {"f": tree_map(one, param_specs), "step": P()}
+
+    return Optimizer(init, prepare, leaf, split, join, state_specs, elementwise=False)
 
 
 def make_optimizer(kind: str, total_steps: int = 10_000) -> Optimizer:

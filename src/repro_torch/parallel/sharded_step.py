@@ -1,0 +1,343 @@
+"""The sharded train step of the port: the counterpart of
+``jax.jit(make_train_step(...))`` over a state and a batch that carry
+``NamedSharding``s (the reference's ``tests/test_multidevice.py``).  The
+reference leans on GSPMD, whose rule is that a partitioned program
+computes the one-device program's function.  The port has no partitioner,
+so this module keeps that rule by hand:
+
+* **State in pieces.**  Every leaf of the train state (parameters,
+  optimizer state, the int8 residual, the step counts) is a
+  :class:`~repro_torch.parallel.sharding.ShardedTensor`: the pieces its
+  spec names, each on its own device (``state_specs``: the parameters'
+  specs, the optimizer's ``state_specs`` of them, ``P()`` for a count).
+* **Gathered exactly for compute.**  Each parameter is gathered whole
+  onto each compute device (a copy, no arithmetic; once a step per
+  distinct device, so shards of one card read one copy); each shard runs
+  the one-device loss and backward on its rows over it.
+  A layer's compute is not split over ``"model"``: the model axis shards
+  storage only (see ROADMAP for the tensor-parallel compute left open).
+* **Rows** (``rows=``), per family (``plan_for``):
+
+  - ``"split"`` — the loss is a mean of independent per-row terms (a dense
+    LM's token cross-entropy, the CTR models' BCE): the batch's rows are
+    split over the data axes, shard ``s`` on ``shard_devices(mesh)[s]``,
+    and the loss and gradients are ``sum_s (rows_s / rows) * x_s``,
+    summed in shard order 0 … S−1 in float32 (float64 for a float64 copy)
+    on the lead device, the gradients then cast to their parameter's
+    dtype.
+  - ``"in_batch"`` — the two-tower loss is an in-batch softmax over a
+    (B, B) logit matrix, so rows interact through the item column: each
+    shard embeds its rows, the item rows are all-gathered (float32, in
+    shard order), each shard takes its rows' softmax over every column,
+    the item rows' gradients are summed over the shards in shard order in
+    float32 (the reduce-scatter), and each shard runs its towers' backward.
+  - ``"lead"`` — rows interact beyond that: PNA's message passing crosses
+    node shards, and an MoE LM counts expert capacity over a (micro)batch
+    of tokens, so a split would drop other tokens.  The whole batch runs on
+    the lead device; the state stays in pieces.
+
+  With one compute shard (a mesh whose data axes are 1, or ``"lead"``) the
+  loss and gradients are that shard's own: storage-only sharding gives the
+  one-device step's bits.
+* **Updated in place, piece by piece** (the port's counterpart of
+  ``donate_argnums=(0,)``).  The optimizer's ``prepare`` runs once over the
+  whole gradient tree on the lead device (the step count, the learning
+  rate, AdamW's global-norm clip: one sum per leaf, as on one device).  An
+  elementwise optimizer (AdamW) then updates each piece on its own device
+  from its slice of the gradient and the step's scalars; Adafactor's row
+  and column means, the mean of ``vr`` and the RMS clip reach over whole
+  dims, so its leaf is gathered onto the lead device, updated by the same
+  ``leaf`` code and written back into its pieces.  Either way each element
+  goes through the one-device operations.  The int8 residual is one scale
+  per whole leaf, so it is gathered, updated and written back the same
+  way.
+
+Nothing here reads a value to the host; on a CUDA mesh nothing runs on the
+CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.optim import Optimizer, int8_error_feedback
+from repro_torch.parallel.sharding import (
+    P,
+    ShardedTensor,
+    ShardMesh,
+    active_mesh,
+    dp_axes,
+    n_shards,
+    shard_devices,
+    shard_tree,
+)
+from repro_torch.pytree import leaves, tree_map, unflatten
+
+__all__ = [
+    "ROWS",
+    "state_specs",
+    "shard_state",
+    "gather_state",
+    "plan_for",
+    "ShardedTrainStep",
+    "make_sharded_train_step",
+    "sharded_step_for",
+]
+
+ROWS = ("split", "in_batch", "lead")
+
+
+def state_specs(optimizer: Optimizer, param_specs, compression: bool = False) -> dict:
+    """The specs of ``train.step.init_state``'s tree."""
+    out = {"params": param_specs, "opt": optimizer.state_specs(param_specs), "step": P()}
+    if compression:
+        out["residual"] = param_specs
+    return out
+
+
+def shard_state(state, placements):
+    """``state`` (whole tensors) laid out by ``placements`` (the same tree of
+    ``Placement``s): a tree of ``ShardedTensor``s."""
+    return tree_map(lambda pl, t: ShardedTensor.place(t, pl), placements, state)
+
+
+def gather_state(state, device):
+    """A tree of ``ShardedTensor``s as whole tensors on ``device``."""
+    return tree_map(lambda s: s.gather(device), state)
+
+
+def plan_for(family: str, model) -> dict:
+    """How a model of ``family`` splits its rows (see the module note):
+    ``rows`` and, for the in-batch softmax, ``towers`` and ``head``."""
+    if family == "lm":
+        return {"rows": "lead" if model.cfg.is_moe else "split"}
+    if family == "gnn":
+        return {"rows": "lead"}
+    if model.cfg.kind == "two_tower":
+        from repro_torch.train.step import functional_loss
+
+        return {"rows": "in_batch", "towers": functional_loss(model, model.towers),
+                "head": model.in_batch_terms}
+    return {"rows": "split"}
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or wider where it is (a float64 copy of a model)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _splits_rows(spec) -> bool:
+    spec = P(*spec) if not isinstance(spec, P) else spec
+    return bool(spec) and spec[0] is not None
+
+
+@dataclasses.dataclass
+class ShardedTrainStep:
+    """``step_(state, batch) -> (state, {"loss"})`` over a state of
+    ``ShardedTensor``s (``shard``), updated in place; ``grads`` and
+    ``apply_`` are its two parts."""
+
+    loss_fn: Callable
+    optimizer: Optimizer
+    mesh: ShardMesh
+    param_specs: Any
+    # the batch's specs: a dict of ``P`` (``Cell.partition``), one ``P`` for
+    # every key, or None for every key's rows over the data axes
+    batch_spec: Any = None
+    rows: str = "split"
+    towers: Callable | None = None  # in_batch: towers(params, batch) -> (u, i)
+    head: Callable | None = None    # in_batch: head(u, items, first) -> row terms
+    microbatches: int = 1
+    compression: bool = False
+
+    def __post_init__(self):
+        if self.rows not in ROWS:
+            raise ValueError(f"rows must be one of {ROWS}, got {self.rows!r}")
+        if self.rows == "in_batch" and (self.towers is None or self.head is None):
+            raise ValueError("rows='in_batch' needs towers and head")
+        if not dp_axes(self.mesh):
+            raise ValueError(f"mesh {self.mesh.axis_names} has no data axis")
+        if self.mesh.lead.type == "meta":
+            raise ValueError("a meta mesh holds nothing: it is for the dry run")
+        self.placements = shard_tree(
+            self.mesh, state_specs(self.optimizer, self.param_specs, self.compression))
+
+    # ------------------------------------------------------------------ state
+
+    def shard(self, state) -> dict:
+        """``train.step.init_state``'s tree laid out over the mesh."""
+        return shard_state(state, self.placements)
+
+    # ------------------------------------------------------------------ rows
+
+    def _row_shards(self, batch: dict) -> list[tuple[torch.device, dict, int]]:
+        """``(device, the shard's batch, its rows)`` of every compute shard."""
+        keys = list(batch)
+        rows = batch[keys[0]].shape[0]
+        spec = self.batch_spec
+        split = self.rows != "lead" and (
+            spec is None or (_splits_rows(spec) if not isinstance(spec, dict)
+                             else any(_splits_rows(spec[k]) for k in keys)))
+        if not split or n_shards(self.mesh) == 1:
+            dev = self.mesh.lead if not split else shard_devices(self.mesh)[0]
+            return [(dev, {k: v.to(dev) for k, v in batch.items()}, rows)]
+        s = n_shards(self.mesh)
+        step = -(-rows // s)
+        out = []
+        for i, dev in enumerate(shard_devices(self.mesh)):
+            lo, hi = min(rows, i * step), min(rows, (i + 1) * step)
+            if hi > lo:
+                out.append((dev, {k: self._piece(k, v, lo, hi).to(dev)
+                                  for k, v in batch.items()}, hi - lo))
+        return out
+
+    def _piece(self, key: str, v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        spec = self.batch_spec
+        if isinstance(spec, dict) and not _splits_rows(spec[key]):
+            return v
+        return v[lo:hi]
+
+    def _gathered(self, state, dev, cache: dict) -> tuple[Any, list]:
+        """The parameters whole on ``dev``, gathered once per distinct device
+        (shards of one card read one copy; ``cache`` holds it for a step)."""
+        if dev not in cache:
+            cache[dev] = gather_state(state["params"], dev)
+        return cache[dev], leaves(cache[dev])
+
+    # ----------------------------------------------------------------- grads
+
+    def grads(self, state, batch: dict) -> tuple[torch.Tensor, Any]:
+        """(loss, whole gradients) on the lead device, each gradient in its
+        parameter's dtype."""
+        shards = self._row_shards(batch)
+        with active_mesh(self.mesh):
+            if self.rows == "in_batch" and len(shards) > 1:
+                return self._in_batch_grads(state, shards)
+            return self._row_grads(state, shards)
+
+    def _row_grads(self, state, shards) -> tuple[torch.Tensor, Any]:
+        from repro_torch.train.step import TrainStep
+
+        lead = self.mesh.lead
+        local = TrainStep(self.loss_fn, self.optimizer, self.microbatches)
+        total = sum(n for _, _, n in shards)
+        loss = acc = None
+        cache: dict = {}
+        for dev, b, n in shards:
+            params, _ = self._gathered(state, dev, cache)
+            l, g = local.grads(params, b)
+            del params
+            if len(shards) == 1:
+                return l.to(lead), tree_map(lambda x: x.to(lead), g)
+            w = torch.full((), n / total, dtype=torch.float32, device=lead)
+            part = [_wide(x.to(lead)) * w for x in leaves(g)]
+            del g
+            acc = part if acc is None else [a + x for a, x in zip(acc, part)]
+            loss = l.to(lead) * w if loss is None else loss + l.to(lead) * w
+        dts = [s.dtype for s in leaves(state["params"])]
+        return loss, unflatten(state["params"], [a.to(dt) for a, dt in zip(acc, dts)])
+
+    def _in_batch_grads(self, state, shards) -> tuple[torch.Tensor, Any]:
+        lead = self.mesh.lead
+        total = sum(n for _, _, n in shards)
+        fwd = []
+        cache: dict = {}
+        for dev, b, _ in shards:
+            params, flat = self._gathered(state, dev, cache)
+            live = [p.detach().requires_grad_(True) for p in flat]
+            with torch.enable_grad():
+                u, i = self.towers(unflatten(params, live), b)
+            fwd.append((live, u, i))
+            del params, flat
+        items = [_wide(i.detach()) for _, _, i in fwd]  # the all-gather
+        loss = d_items = None
+        d_users = []
+        first = 0
+        for (dev, _, n), (_, u, _) in zip(shards, fwd):
+            every = torch.cat([it.to(dev) for it in items]).requires_grad_(True)
+            ul = u.detach().requires_grad_(True)
+            with torch.enable_grad():
+                part = torch.sum(self.head(ul, every, first)) / total
+                gu, gi = torch.autograd.grad(part, [ul, every])
+            d_users.append(gu)
+            loss = part.detach().to(lead) if loss is None else loss + part.detach().to(lead)
+            d_items = gi.to(lead) if d_items is None else d_items + gi.to(lead)
+            del every, gi
+            first += n
+        acc = None
+        first = 0
+        for (dev, _, n), (live, u, i), gu in zip(shards, fwd, d_users):
+            gi = d_items[first:first + n].to(dev).to(i.dtype)  # the reduce-scatter
+            g = torch.autograd.grad([u, i], live, [gu, gi], allow_unused=True,
+                                    materialize_grads=True)
+            part = [_wide(x.to(lead)) for x in g]
+            acc = part if acc is None else [a + x for a, x in zip(acc, part)]
+            first += n
+        del fwd
+        dts = [s.dtype for s in leaves(state["params"])]
+        return loss, unflatten(state["params"], [a.to(dt) for a, dt in zip(acc, dts)])
+
+    # ----------------------------------------------------------------- apply
+
+    @torch.no_grad()
+    def apply_(self, state, grads) -> dict:
+        """Compression, the optimizer and the step counts, written into
+        ``state``'s pieces in place; returns ``state``."""
+        lead = self.mesh.lead
+        opt = self.optimizer
+        if self.compression:
+            out = []
+            for g, r in zip(leaves(grads), leaves(state["residual"])):
+                deq, new_r = int8_error_feedback([g], [r.gather(lead)])
+                r.scatter_(new_r[0])
+                out.append(deq[0])
+            grads = unflatten(grads, out)
+        sc = opt.prepare(grads, {"step": state["opt"]["step"].gather(lead)})
+        for p, g, s in zip(leaves(state["params"]), leaves(grads),
+                           opt.split(state["opt"], state["params"])):
+            if opt.elementwise:
+                self._pieces_(p, g, s, sc)
+            else:
+                new_p, new_s = opt.leaf(p.gather(lead), g,
+                                        {k: v.gather(lead) for k, v in s.items()}, sc)
+                p.scatter_(new_p)
+                for k, v in new_s.items():
+                    s[k].scatter_(v)
+        state["opt"]["step"].scatter_(sc["step"])
+        state["step"].scatter_(state["step"].gather(lead) + 1)
+        return state
+
+    def _pieces_(self, p: ShardedTensor, g: torch.Tensor, s: dict, sc: dict) -> None:
+        """One elementwise update of every piece of ``p`` on its device."""
+        for piece, by_dev in p.pieces.items():
+            b = p.placement.bounds(p.shape, piece)
+            for dev, pt in by_dev.items():
+                self.optimizer.leaf_(pt, g[b].to(dev), {k: v.pieces[piece][dev]
+                                                        for k, v in s.items()},
+                                     {k: v.to(dev) for k, v in sc.items()})
+
+    def step_(self, state, batch: dict) -> tuple[dict, dict]:
+        loss, grads = self.grads(state, batch)
+        return self.apply_(state, grads), {"loss": loss}
+
+
+def make_sharded_train_step(loss_fn: Callable, optimizer: Optimizer, mesh: ShardMesh,
+                            param_specs, batch_spec=None, **kw) -> ShardedTrainStep:
+    """The sharded step of ``loss_fn(params, batch)``; ``kw``: ``rows``,
+    ``towers``, ``head`` (``plan_for``), ``microbatches``, ``compression``."""
+    return ShardedTrainStep(loss_fn, optimizer, mesh, param_specs, batch_spec, **kw)
+
+
+def sharded_step_for(family: str, model, optimizer: Optimizer, mesh: ShardMesh,
+                     **kw) -> ShardedTrainStep:
+    """``make_sharded_train_step`` for a port model of ``family``: its loss,
+    its ``param_specs(mesh)`` and its row plan (``plan_for``)."""
+    from repro_torch.configs.common import loss_for
+    from repro_torch.train.step import functional_loss
+
+    loss_fn = functional_loss(model, loss_for(family, model))
+    return make_sharded_train_step(loss_fn, optimizer, mesh, model.param_specs(mesh),
+                                   **plan_for(family, model), **kw)

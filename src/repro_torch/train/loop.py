@@ -7,9 +7,15 @@
     place them on another device (``device=``),
   * straggler watchdog: an EMA of each step's wall time; a step slower than
     ``straggler_factor`` x EMA is logged and counted,
-  * optional int8 error-feedback gradient compression (``repro_torch.optim``).
+  * optional int8 error-feedback gradient compression (``repro_torch.optim``),
+  * each step updates the state in place (``TrainStep.step_``: the
+    counterpart of the reference's ``donate_argnums=(0,)``), so the loop
+    never holds two optimizer states.
 
-The loop runs on the CUDA device unless it is given ``device="cpu"``.
+The loop runs on the CUDA device unless it is given ``device="cpu"``; given
+``sharded`` (a ``parallel.sharded_step.ShardedTrainStep``) it runs that
+step over its mesh, the state in pieces, and a restart restores the latest
+checkpoint under that mesh whatever mesh saved it.
 """
 
 from __future__ import annotations
@@ -47,13 +53,16 @@ class TrainLoop:
         stream,  # data pipeline with next()/state()/restore()
         cfg: TrainLoopConfig,
         device=None,
+        sharded=None,
     ):
         self.cfg = cfg
         self.optimizer = optimizer
         self.stream = stream
-        self.device = resolve_device(device)
+        self.sharded = sharded
+        self.device = sharded.mesh.lead if sharded is not None else resolve_device(device)
         self.ckpt = CheckpointManager(cfg.checkpoint_dir, cfg.keep_last)
-        self.step_fn = make_train_step(loss_fn, optimizer, cfg.microbatches, cfg.compression)
+        self.step_fn = sharded if sharded is not None else make_train_step(
+            loss_fn, optimizer, cfg.microbatches, cfg.compression)
         self.stragglers = 0
         self.losses: list[float] = []
         self.step_seconds: list[float] = []  # each step's wall time, the sync included
@@ -65,19 +74,22 @@ class TrainLoop:
         state = init_state(params, self.optimizer, self.cfg.compression)
         latest = self.ckpt.latest_step()
         if latest is None:
-            return state
-        state, extra = self.ckpt.restore(state, step=latest, device=self.device)
+            return state if self.sharded is None else self.sharded.shard(state)
+        state, extra = self.ckpt.restore(
+            state, step=latest, device=self.device,
+            placements=None if self.sharded is None else self.sharded.placements)
         self.stream.restore(extra["stream"])
         print(f"[restore] resumed from step {latest}")
         return state
 
     def run(self, state: Any, crash_at: int | None = None) -> Any:
         ema = None
-        start = int(state["step"])
+        start = int(state["step"] if self.sharded is None
+                    else state["step"].gather(self.device))
         for step in range(start, self.cfg.total_steps):
             batch = to_device(self.stream.next(), self.device)
             t0 = now()
-            state, metrics = self.step_fn(state, batch)
+            state, metrics = self.step_fn.step_(state, batch)
             loss = float(metrics["loss"])  # blocks: the one sync a step
             dt = now() - t0
             self.losses.append(loss)

@@ -12,6 +12,12 @@ call by ``torch.func.functional_call``.  Microbatches (the reference's
 ``lax.scan``) are a loop that accumulates in ``accum_dtype``.  Nothing in
 a step reads a value to the host; the loop's ``float(loss)`` is the one
 sync a step.
+
+``apply`` is the reference's functional update (a new state);
+``apply_`` writes the new parameters, moments and residual into the old
+tensors in place, leaf by leaf, with the same operations: the counterpart
+of the reference's ``jax.jit(step, donate_argnums=(0,))``, which the loop
+and the launcher use.  It never holds two optimizer states.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.optim import Optimizer, int8_error_feedback
+from repro_torch.optim import Optimizer, int8_error_feedback, int8_error_feedback_
 from repro_torch.pytree import leaves, leaves_with_paths, tree_map, unflatten
 
 __all__ = ["make_train_step", "init_state", "functional_loss", "to_device", "TrainStep"]
@@ -127,9 +133,24 @@ class TrainStep:
         new_state["step"] = state["step"] + 1
         return new_state
 
+    @torch.no_grad()
+    def apply_(self, state: dict, grads) -> dict:
+        """``apply`` written into ``state``'s tensors in place; returns
+        ``state``."""
+        if self.compression:
+            grads = int8_error_feedback_(grads, state["residual"])
+        self.optimizer.update_(grads, state["opt"], state["params"])
+        state["step"].copy_(state["step"] + 1)
+        return state
+
     def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
         loss, grads = self.grads(state["params"], batch)
         return self.apply(state, grads), {"loss": loss}
+
+    def step_(self, state: dict, batch: dict) -> tuple[dict, dict]:
+        """One step updating ``state`` in place (``apply_``)."""
+        loss, grads = self.grads(state["params"], batch)
+        return self.apply_(state, grads), {"loss": loss}
 
 
 def make_train_step(

@@ -12,6 +12,9 @@ variance lies within a rounding of 0 (``chip_smoke.GNN_REL``'s note), so
 a float32 leaf lies further than a rounding from the float64 one on
 either device, by an amount that changes with each rounding: the card's
 is held within 5e-2 of the CPU's float64 leaf, a bound for a wrong term.
+On a well-conditioned graph (every node of degree 8, spread features) the
+card's float32 gradient is held within 1e-4 of the CPU's float32 one, the
+LM's bound, so a fault in the backward outside the segment ops shows.
 The file imports no jax; on the card it runs as
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_gnn.py
@@ -174,3 +177,48 @@ def test_pna_steps_twice_and_from_a_checkpoint_are_bit_equal(card, layout, tmp_p
     mgr.save(3, state)
     restored, _ = mgr.restore(state, device=card)
     assert _equal_trees(step(state, batch)[0], step(restored, batch)[0])
+
+
+def _conditioned_batch(seed: int, n: int = 512, deg: int = 8) -> dict:
+    """Every node receives ``deg`` edges from other nodes (no degree below
+    4) and the features are spread (standard deviation 2): every
+    (node, channel) variance of the messages is 0 exactly (a channel no
+    message lights) or far above its rounding."""
+    rng = np.random.default_rng(seed)
+    dst = np.repeat(np.arange(n), deg)
+    src = (dst + rng.integers(1, n, dst.size)) % n
+    return {"x": (rng.normal(size=(n, 8)) * 2.0).astype(np.float32),
+            "edge_src": src.astype(np.int32), "edge_dst": dst.astype(np.int32),
+            "labels": rng.integers(0, 3, n).astype(np.int32),
+            "label_mask": (rng.random(n) < 0.7).astype(np.float32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_float32_gradient_within_1e4_on_a_well_conditioned_graph(card, seed):
+    """ROADMAP Queue 3 item 16: on a graph where the float32 gradient is well
+    conditioned (the CPU's float32 leaves within 1e-5 of its float64 ones,
+    checked here), each of the card's float32 gradient leaves lies within
+    1e-4 of that leaf's largest value of the CPU's float32 gradient (the
+    LM's bound), and the loss within 1e-5 relative.  The 5e-2 check of the
+    ill-conditioned graphs above stays as it is."""
+    f64 = torch.float64  # lint: disable=R3
+
+    def grads(m, b):
+        return make_train_step(functional_loss(m, m.loss_fn), None).grads(m.param_tree(), b)
+
+    def rel(x, y):
+        return float((x.cpu().to(f64) - y.to(f64)).abs().max()) / float(y.abs().max())
+
+    cpu = PNAModel(PNAConfig(**SMALL)).init_params(torch.Generator().manual_seed(seed),
+                                                   device="cpu")
+    batch = to_device(_conditioned_batch(seed), "cpu")
+    l32, g32 = grads(cpu, batch)
+    _, g64 = grads(cast_model(cpu, f64, "cpu"), dict(batch, x=batch["x"].to(f64)))
+    for k in g32:
+        assert rel(g32[k], g64[k]) <= 1e-5, k
+    on_card = cast_model(cpu, torch.float32, card)
+    lc, gc = grads(on_card, to_device(_conditioned_batch(seed), card))
+    assert abs(float(lc) - float(l32)) <= LOSS_REL * abs(float(l32))
+    for k in g32:
+        assert rel(gc[k], g32[k]) <= 1e-4, (k, rel(gc[k], g32[k]))

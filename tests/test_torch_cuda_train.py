@@ -173,3 +173,53 @@ def test_async_save_is_not_reached_by_later_updates(card, tmp_path):
     got, _ = mgr.restore({"w": torch.empty(1 << 20, device="meta")}, device="cpu")
     assert torch.equal(got["w"], want)
     assert np.isfinite(want.numpy()).all()
+
+
+def _equal_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "two-tower-retrieval", "pna"])
+@pytest.mark.parametrize("data,model_parallel", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
+def test_sharded_step_on_card_matches_the_one_device_step(card, arch, data,
+                                                          model_parallel):
+    """``parallel.sharded_step`` over ``make_local_mesh`` on the card (the
+    mesh devices are ``cuda:0`` reused) against the one-device step on the
+    card from the same state: bit for bit where no rows are split (a data
+    axis of 1, PNA's ``"lead"`` plan); within the training bound (loss 1e-5
+    relative, a parameter within 2 * lr, at most 1% of a leaf beyond 1e-5)
+    where they are."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel.sharded_step import gather_state, plan_for, sharded_step_for
+
+    bundle = get_arch(arch)
+    model, cfg, batch_fn = bundle.make_reduced()
+    model.init_params(torch.Generator(card).manual_seed(0), device=card)
+    batch = batch_fn(torch.Generator(card).manual_seed(1)) if bundle.family == "lm" else (
+        to_device(ClickStream(cfg, batch=64, seed=0).next(), card)
+        if bundle.family == "recsys" else None)
+    if batch is None:
+        from repro_torch.data.pipeline import batched_molecules
+
+        model = type(model)(dataclasses.replace(cfg, graph_level=True))
+        model.init_params(torch.Generator(card).manual_seed(0), device=card)
+        batch = to_device(batched_molecules(np.random.default_rng(0), 8, 10, 20,
+                                            model.cfg.d_feat, model.cfg.n_classes), card)
+    opt = adamw(lr=LR)
+    one = make_train_step(functional_loss(model, common.loss_for(bundle.family, model)), opt)
+    mesh = make_local_mesh(model_parallel, n_devices=data * model_parallel)
+    step = sharded_step_for(bundle.family, model, opt, mesh)
+    clone = lambda: tree_map(lambda t: t.clone(), model.param_tree())  # noqa: E731
+    want, wm = one(init_state(clone(), opt), batch)
+    got, gm = step.step_(step.shard(init_state(clone(), opt)), batch)
+    assert all(t.is_cuda for s in leaves(got) for _, _, t in s.local())
+    whole = gather_state(got, card)
+    if data == 1 or plan_for(bundle.family, model)["rows"] == "lead":
+        assert _equal_bits(gm["loss"], wm["loss"])
+        assert all(_equal_bits(x, y) for x, y in zip(leaves(whole), leaves(want)))
+        return
+    assert abs(float(gm["loss"]) - float(wm["loss"])) <= LOSS_REL * abs(float(wm["loss"]))
+    for x, y in zip(leaves(whole["params"]), leaves(want["params"])):
+        d = (x.float() - y.float()).abs()
+        assert float(d.max()) <= 2 * LR and float((d > 1e-5).float().mean()) <= 0.01

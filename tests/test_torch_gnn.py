@@ -304,7 +304,10 @@ def test_reduced_config_and_batch():
 
 def test_gnn_cells_match_jax():
     """The four cells' dst-partitioned input specs, kinds and notes equal
-    JAX's in shape and dtype; a cell's partition raises naming item 8.4."""
+    JAX's in shape and dtype, and each cell's partition equals JAX's on the
+    three meshes of ``torch_sharding_common``."""
+    from torch_sharding_common import MESHES, meshes, spec_tuples
+
     jb, tb = jax_registry()["pna"], get_arch("pna")
     assert tb.family == jb.family == "gnn" and list(tb.cells) == list(jb.cells)
     assert common.GNN_EDGE_BLOCKS == 512
@@ -316,8 +319,10 @@ def test_gnn_cells_match_jax():
         for key, spec in got.items():
             assert spec.shape == want[key].shape
             assert spec.dtype == DTYPES[want[key].dtype.type]
-        with pytest.raises(NotImplementedError, match="item 8.4"):
-            cell.partition(None)
+        for names, shape in MESHES:
+            jmesh, tmesh = meshes(names, shape)
+            assert spec_tuples(cell.partition(tmesh)) == spec_tuples(
+                jcell.input_partition(jmesh))
     assert tb.cells["minibatch_lg"].inputs()["x"].shape == (169_984, 602)
 
 
@@ -326,13 +331,28 @@ def test_all_cells_equal_jax():
 
 
 def test_sharding_knobs_raise_with_their_item():
-    _, _, tm = _pair()
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        tm.param_specs(None)
+    """``param_specs`` equals JAX's (replicated); a config with
+    ``batch_axes`` gives the same logits bit for bit, and inside a sharded
+    step its row spec must name the active mesh's axes (the name is kept
+    from when the port raised here)."""
+    from repro_torch.launch.simdevices import simulated_mesh
+    from repro_torch.parallel.sharding import active_mesh
+    from torch_sharding_common import MESHES, meshes, spec_tuples
+
+    jm, _, tm = _pair()
+    for names, shape in MESHES:
+        jmesh, tmesh = meshes(names, shape)
+        assert spec_tuples(tm.param_specs(tmesh)) == spec_tuples(jm.param_specs(jmesh))
     sharded = PNAModel(dataclasses.replace(tm.cfg, batch_axes=("data",))).load_param_tree(
         tm.param_tree())
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        sharded.forward(_torch(_node_batch(0)))
+    batch = _torch(_node_batch(0))
+    want = tm.forward(batch)
+    assert torch.equal(sharded.forward(batch), want)
+    with active_mesh(simulated_mesh(2)):
+        assert torch.equal(sharded.forward(batch), want)
+    with active_mesh(simulated_mesh(2, axis_names=("pod",))), \
+            pytest.raises(ValueError, match="lacks"):
+        sharded.forward(batch)
 
 
 # --------------------------------------------------- checkpoints, launcher

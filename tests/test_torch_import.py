@@ -156,8 +156,11 @@ def test_training_modules_and_a_step_load_no_jax():
 
 
 def test_sharded_engine_runs_with_jax_absent():
-    """``repro_torch.parallel`` imports, and a mesh-built index answers on
-    CPU shards, in a process where importing jax or ``repro`` fails."""
+    """``repro_torch.parallel`` imports, a mesh-built index answers on CPU
+    shards, the sharded train step steps the reduced Llama on a simulated
+    (2, 2) mesh (``launch.simdevices``), ``launch.mesh`` lays out the
+    production mesh and ``launch.dryrun`` reckons a cell on it, in a process
+    where importing jax or ``repro`` fails."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -175,6 +178,21 @@ def test_sharded_engine_runs_with_jax_absent():
         "ids, _, ks = flat_index.bss_knn_batched(idx, x[290:], 3)\n"
         "assert st['n_shards'] == ks['n_shards'] == 4 and ids.shape == (10, 3)\n"
         "assert isinstance(idx.sharded(), shard_index.ShardedBSSIndex)\n"
+        "import torch\n"
+        "from repro_torch.configs.registry import get_arch\n"
+        "from repro_torch.launch import dryrun, mesh, simdevices\n"
+        "from repro_torch.optim import adamw\n"
+        "from repro_torch.parallel.sharded_step import sharded_step_for\n"
+        "from repro_torch.train.step import init_state\n"
+        "model, cfg, batch_fn = get_arch('llama3.2-1b').make_reduced()\n"
+        "model.init_params(torch.Generator().manual_seed(0), device='cpu')\n"
+        "step = sharded_step_for('lm', model, adamw(), simdevices.simulated_mesh(\n"
+        "    4, (2, 2), ('data', 'model')))\n"
+        "state, m = step.step_(step.shard(init_state(model.param_tree(), adamw())),\n"
+        "                      batch_fn(torch.Generator().manual_seed(1)))\n"
+        "assert torch.isfinite(m['loss'])\n"
+        "rec = dryrun.reckon_cell('llama3.2-1b', 'decode_32k', mesh.make_production_mesh())\n"
+        "assert rec['status'] == 'reckoned' and rec['n_devices'] == 256\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -141,17 +141,35 @@ def test_load_jax_params_refuses_a_wrong_tree():
 
 
 def test_mesh_knobs_raise_with_their_item():
+    """The reduced Kimi's parameter and KV-cache specs and Llama's
+    ``train_4k`` partition equal JAX's on the three meshes of
+    ``torch_sharding_common``; ``batch_axes`` leaves the logits' bits as
+    they are, and inside a sharded step its spec must name the active
+    mesh's axes (the name is kept from when the port raised here)."""
+    from repro_torch.launch.simdevices import simulated_mesh
+    from repro_torch.parallel.sharding import active_mesh
+    from torch_sharding_common import MESHES, meshes, spec_tuples
+
     tm, cfg, batch_fn = registry()["kimi-k2-1t-a32b"].make_reduced()
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        tm.param_specs(None)
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        tm.cache_specs(None, 1)
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        registry()["llama3.2-1b"].cells["train_4k"].partition(None)
-    sharded = LMModel(dataclasses.replace(cfg, batch_axes=("data",)))
-    sharded.init_params(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        sharded.forward(batch_fn(torch.Generator().manual_seed(1))["tokens"][:, :8])
+    jm, _, _ = jax_registry()["kimi-k2-1t-a32b"].make_reduced()
+    for names, shape in MESHES:
+        jmesh, tmesh = meshes(names, shape)
+        assert spec_tuples(tm.param_specs(tmesh)) == spec_tuples(jm.param_specs(jmesh))
+        for b in (1, 32):
+            assert spec_tuples(tm.cache_specs(tmesh, b)) == spec_tuples(jm.cache_specs(jmesh, b))
+        assert spec_tuples(registry()["llama3.2-1b"].cells["train_4k"].partition(tmesh)) == \
+            spec_tuples(jax_registry()["llama3.2-1b"].cells["train_4k"].input_partition(jmesh))
+    tm.init_params(torch.Generator().manual_seed(0), device="cpu")
+    sharded = LMModel(dataclasses.replace(cfg, batch_axes=("data",))).load_param_tree(
+        tm.param_tree())
+    tokens = batch_fn(torch.Generator().manual_seed(1))["tokens"][:, :8]
+    want = tm.forward(tokens)
+    assert torch.equal(sharded.forward(tokens), want)
+    with active_mesh(simulated_mesh(2)):
+        assert torch.equal(sharded.forward(tokens), want)
+    with active_mesh(simulated_mesh(2, axis_names=("pod",))), \
+            pytest.raises(ValueError, match="lacks"):
+        sharded.forward(tokens)
 
 
 def test_expert_axis_changes_nothing_on_one_card():

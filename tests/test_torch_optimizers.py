@@ -115,14 +115,24 @@ def test_adafactor_scanned_update_equals_dense_without_clip():
 
 
 def test_state_specs_raise_naming_the_sharding_item():
-    """The reference's test holds the specs' structure to the state's; one
-    card has no mesh, so the port's ``state_specs`` raises, naming the
-    ROADMAP item, and the states keep the reference's structure."""
+    """The state's structure is the reference's, and so are its specs:
+    AdamW's moments take the parameters' specs, Adafactor's ``vr`` / ``vc``
+    drop the last / second-to-last dim's (the name is kept from when the
+    port raised here)."""
+    from jax.sharding import PartitionSpec as JP
+
+    from repro_torch.parallel.sharding import P
+    from torch_sharding_common import spec_tuples
+
     params = {"w": torch.zeros((12, 8, 6)), "s": torch.zeros((5,))}
-    for opt, keys in ((adamw(), ["m", "step", "v"]), (adafactor(), ["f", "step"])):
+    specs = {"w": P(None, ("pod", "data"), "model"), "s": P("model")}
+    jspecs = {"w": JP(None, ("pod", "data"), "model"), "s": JP("model")}
+    for (opt, keys), jopt in zip(((adamw(), ["m", "step", "v"]), (adafactor(), ["f", "step"])),
+                                 (j_adamw(), j_adafactor())):
         assert sorted(opt.init(params)) == keys
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8.4"):
-            opt.state_specs({"w": None, "s": None})
+        got = opt.state_specs(specs)
+        assert spec_tuples(got) == spec_tuples(jopt.state_specs(jspecs))
+        assert sorted(got) == keys
 
 
 def test_cosine_schedule_shape():

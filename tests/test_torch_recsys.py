@@ -186,15 +186,33 @@ def test_cast_model_upcasts_the_same_weights():
 
 
 def test_sharding_knobs_raise_with_their_item():
+    """DLRM's parameter specs and DIN's ``serve_p99`` partition equal JAX's
+    on the three meshes of ``torch_sharding_common``; ``batch_axes``
+    leaves the logits' bits as they are, and inside a sharded step its spec
+    must name the active mesh's axes (the name is kept from when the port
+    raised here)."""
+    from repro_torch.launch.simdevices import simulated_mesh
+    from repro_torch.parallel.sharding import active_mesh
+    from torch_sharding_common import MESHES, meshes, spec_tuples
+
     tm, cfg, _ = registry()["dlrm-rm2"].make_reduced()
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        tm.param_specs(None)
-    sharded = R.DLRMModel(dataclasses.replace(cfg, batch_axes=("data",)))
-    sharded.init_params(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        sharded.forward(_torch(_batch(cfg, seed=5)))
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        registry()["din"].cells["serve_p99"].partition(None)
+    jm, _, _ = jax_registry()["dlrm-rm2"].make_reduced()
+    for names, shape in MESHES:
+        jmesh, tmesh = meshes(names, shape)
+        assert spec_tuples(tm.param_specs(tmesh)) == spec_tuples(jm.param_specs(jmesh))
+        assert spec_tuples(registry()["din"].cells["serve_p99"].partition(tmesh)) == \
+            spec_tuples(jax_registry()["din"].cells["serve_p99"].input_partition(jmesh))
+    tm.init_params(torch.Generator().manual_seed(0), device="cpu")
+    sharded = R.DLRMModel(dataclasses.replace(cfg, batch_axes=("data",))).load_param_tree(
+        tm.param_tree())
+    batch = _torch(_batch(cfg, seed=5))
+    want = tm.forward(batch)
+    assert torch.equal(sharded.forward(batch), want)
+    with active_mesh(simulated_mesh(2)):
+        assert torch.equal(sharded.forward(batch), want)
+    with active_mesh(simulated_mesh(2, axis_names=("pod",))), \
+            pytest.raises(ValueError, match="lacks"):
+        sharded.forward(batch)
 
 
 def test_check_ids_refuses_ids_out_of_range():

@@ -417,8 +417,6 @@ def test_mesh_validation_errors():
                          mesh=ShardMesh(("cpu",), axis_names=("model",)))
     with pytest.raises(ValueError, match="no mesh"):
         idx.sharded()
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
-        ShardMesh(("cpu",) * 4, axis_names=("data", "model"), shape=(2, 2))
     with pytest.raises(ValueError, match="mixes device types"):
         ShardMesh(("cpu", "cuda:0"))
     with pytest.raises(ValueError, match="holds"):
@@ -451,6 +449,33 @@ def test_model_axis_of_size_one_and_pod_data_order():
         hits, st = sharded_query_batched(ShardedBSSIndex(t_idx, m), q, t, opts=TORCH)
         assert hits == want_hits and st["n_shards"] == 4
         _assert_same_stats(st, want)
+
+
+@pytest.mark.parametrize("case", CASES[:2], ids=CASE_IDS[:2])
+def test_model_axis_replicates_bit_for_bit(case):
+    """A ``(2, 2)`` ("data", "model") mesh partitions the blocks over the
+    data axis alone and replicates over "model", as the reference's
+    ``ShardedBSSIndex`` does (it reads only ``dp_axes``): range hits, every
+    stat, ``alive``, kNN ids and distances equal the ``(2, 1)`` mesh's bit
+    for bit."""
+    _, t_idx, q, t = _built(*case)
+    k = case[-1]
+    out = {}
+    for shape in ((2, 2), (2, 1)):
+        mesh = ShardMesh(("cpu",) * (shape[0] * shape[1]), axis_names=("data", "model"),
+                         shape=shape)
+        sidx = ShardedBSSIndex(t_idx, mesh)
+        assert sidx.n_shards == 2
+        hits, st = sharded_query_batched(sidx, q, t, opts=TORCH)
+        ids, dists, kst = sharded_knn_batched(sidx, q, k, opts=TORCH)
+        out[shape] = (hits, st, _alive(t_idx, q, t, sharded=sidx), ids, dists, kst)
+    a, b = out[(2, 2)], out[(2, 1)]
+    assert a[0] == b[0]
+    _assert_same_stats(a[1], b[1])
+    np.testing.assert_array_equal(a[2], b[2])
+    np.testing.assert_array_equal(a[3], b[3])
+    assert np.asarray(a[4]).tobytes() == np.asarray(b[4]).tobytes()
+    _assert_same_stats(a[5], b[5])
 
 
 def test_local_mesh_needs_a_card(monkeypatch):

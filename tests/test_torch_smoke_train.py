@@ -157,3 +157,61 @@ def test_block_balanced_ids_fit_the_sampled_subgraph():
     assert np.array_equal(moved["x"][new_id], batch["x"])
     spec = get_arch("pna").cells["minibatch_lg"].inputs()
     assert spec["edge_src"].shape == (512, 360)
+
+
+def test_sharded_train_checks_pass_on_the_cpu():
+    """The ``sharded train`` phase on the CPU at a reduced size (simulated
+    meshes): the in-place apply equal to the functional one, the storage-
+    only and lead-device meshes bit for bit, the row-split ones within the
+    training bound (float32 Llama, float64 two tower over the whole batch)
+    or, in bf16 and float32, no worse than the one-device step against the
+    wider copy's gradient."""
+    from repro_torch.launch.simdevices import simulated_mesh
+
+    _, llama, _ = get_arch("llama3.2-1b").make_reduced()
+    _, tower, _ = get_arch("two-tower-retrieval").make_reduced()
+    sizes = dict(chip_smoke.SHARDED_TRAIN, llama_batch=2, llama_seq=16, tt_batch=64)
+    failures, record = [], {}
+    chip_smoke.sharded_train(
+        torch, np, failures, record, CPU, sizes,
+        llama_cfg=dataclasses.replace(llama, dtype=torch.bfloat16), tt_cfg=tower,
+        gnn_cell="molecule",
+        mesh_fn=lambda d, m: simulated_mesh(d * m, (d, m), ("data", "model")))
+    assert failures == []
+    llama_row = record["sharded train llama"]
+    assert llama_row["in_place_vs_functional"] == []
+    assert llama_row["1x2"]["exact"] and llama_row["1x2"]["differing_leaves"] == []
+    assert not llama_row["S2"]["exact"] and llama_row["S2"]["ok"]
+    assert set(llama_row["S2"]["against_reference"]) == set(llama_row["S2"]["leaves"])
+    f64 = record["sharded train two tower float64"]
+    assert f64["batch"]["user_ids"][0] == 64 and f64["S4"]["strict"]
+    for name in ("two tower", "two tower float32"):
+        gaps = record[f"sharded train {name}"]["S4"]["against_reference"]
+        assert all(r["sharded"] <= r["bound"] for r in gaps.values())
+    assert record["sharded train two tower"]["rows"] == "in_batch"
+    assert set(record["sharded train two tower"]) >= {"S2", "S4"}
+    assert record["sharded train pna"]["S2"]["differing_leaves"] == []
+
+
+def test_reference_gaps_catch_a_wrong_gradient():
+    """A row-split gradient with one shard's half dropped lies far beyond
+    twice the one-device gradient's rounding gap to the wider reference;
+    one with the same rounding passes."""
+    gen = torch.Generator().manual_seed(0)
+    ref = {"w": torch.randn(64, 32, generator=gen, dtype=torch.float64)}
+    one = {"w": ref["w"].to(torch.bfloat16)}
+    good = {"w": (ref["w"] + 1e-3 * torch.randn(64, 32, generator=gen,
+                                               dtype=torch.float64)).to(torch.bfloat16)}
+    dropped = {"w": torch.cat([ref["w"][:32], ref["w"][32:] / 2]).to(torch.bfloat16)}
+    ok = chip_smoke.reference_gaps(torch, good, one, ref, 2)["w"]
+    bad = chip_smoke.reference_gaps(torch, dropped, one, ref, 2)["w"]
+    assert ok["sharded"] <= ok["bound"]
+    assert bad["sharded"] > bad["bound"] and bad["sharded"] > 0.1
+
+
+def test_dryrun_line_reckons_the_cells_that_do_not_fit():
+    record = {}
+    chip_smoke.dryrun_line(record)
+    got = record["dryrun"]
+    assert list(got) == [f"{a}/{s}" for a, s in chip_smoke.DRYRUN_CELLS]
+    assert all(r["per_device_bytes"]["total"] > 0 for r in got.values())

@@ -18,9 +18,18 @@ another order, so:
 Then one train step of every recsys arch (``tests/test_arch_smoke.py``'s
 ``test_arch_smoke_train_step``), and a step run under the audit's dispatch
 watch: no float64 tensor and no operator that waits for the host.
+
+Last, the in-place ``apply_`` against the functional ``apply`` (every
+optimizer, with and without compression, bit for bit), the sharded train
+step of each family on simulated meshes against the one-device step, the
+reference's four-device step mirrored, the port's sharded step held to the
+reference's own jit step on its simulated 4-device mesh (a subprocess,
+~20 s), and the launcher over a mesh (these ~40 s of the file's time).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -38,8 +47,8 @@ from repro_torch.configs import common
 from repro_torch.configs.registry import registry
 from repro_torch.data.pipeline import ClickStream
 from repro_torch.models import recsys as R
-from repro_torch.optim import adamw, make_optimizer
-from repro_torch.pytree import leaves
+from repro_torch.optim import adafactor, adamw, make_optimizer
+from repro_torch.pytree import leaves, tree_map
 from repro_torch.train.step import functional_loss, init_state, make_train_step, to_device
 
 ARCHS = ["wide-deep", "din", "two-tower-retrieval", "dlrm-rm2"]
@@ -175,3 +184,278 @@ def test_microbatches_must_divide_the_batch():
     state = init_state(tm.param_tree(), adamw())
     with pytest.raises(ValueError, match="not divisible"):
         step(state, to_device(ClickStream(tm.cfg, 16, seed=0).next(), "cpu"))
+
+
+# ------------------------------------------------ in place and sharded
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return a.contiguous().numpy().tobytes() == b.contiguous().numpy().tobytes()
+
+
+def _clone(tree):
+    return tree_map(lambda t: t.clone(), tree)
+
+
+@pytest.mark.parametrize("compression", [False, True], ids=["plain", "int8"])
+@pytest.mark.parametrize("opt_kind", ["adamw", "adafactor", "adafactor-dense"])
+def test_in_place_apply_equals_the_functional_one(opt_kind, compression, monkeypatch):
+    """``apply_`` (the loop's, in place) against ``apply`` (the reference's
+    functional update) over three steps of the reduced Kimi (stacked MoE
+    leaves of 8 layers scanned slice by slice, bf16 and float32 leaves;
+    AdamW's leaves updated 1,000 elements at a time): parameters, moments,
+    residual and counts bit for bit, and ``apply_`` writes into the tensors
+    it was given."""
+    from repro_torch.optim import optimizers
+
+    monkeypatch.setattr(optimizers, "CHUNK", 1000)
+    model, cfg, batch_fn = registry()["kimi-k2-1t-a32b"].make_reduced()
+    model = type(model)(dataclasses.replace(cfg, n_layers=8, dtype=torch.bfloat16))
+    model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    opt = {"adamw": adamw(lr=LR), "adafactor": adafactor(lr=LR),
+           "adafactor-dense": adafactor(lr=LR, scan_leading_dim=False)}[opt_kind]
+    step = make_train_step(functional_loss(model, model.loss_fn), opt,
+                           compression=compression)
+    a = init_state(_clone(model.param_tree()), opt, compression)
+    b = init_state(_clone(model.param_tree()), opt, compression)
+    held = leaves(b)
+    for i in range(3):
+        _, grads = step.grads(a["params"], batch_fn(torch.Generator().manual_seed(i)))
+        a = step.apply(a, grads)
+        assert step.apply_(b, grads) is b
+    assert all(x is y for x, y in zip(leaves(b), held))
+    assert int(b["step"]) == 3
+    for x, y in zip(leaves(a), leaves(b)):
+        assert _bits_equal(x, y)
+
+
+# reduced configs of every family and their row plans
+SHARDED_ARCHS = ["llama3.2-1b", "phi3.5-moe-42b-a6.6b", "two-tower-retrieval", "dlrm-rm2",
+                 "pna"]
+SHARDED_MESHES = [((2,), ("data",)), ((2, 2), ("data", "model")),
+                  ((1, 2), ("data", "model"))]
+
+
+def _family_batch(bundle, model):
+    cfg = model.cfg
+    if bundle.family == "lm":
+        from repro_torch.data.pipeline import TokenStream
+
+        return to_device(TokenStream(vocab=cfg.vocab, batch=8, seq=16, seed=0).next(), "cpu")
+    if bundle.family == "recsys":
+        return to_device(ClickStream(cfg, batch=16, seed=0).next(), "cpu")
+    from repro_torch.data.pipeline import batched_molecules
+
+    return to_device(batched_molecules(np.random.default_rng(0), 8, 10, 20, cfg.d_feat,
+                                       cfg.n_classes), "cpu")
+
+
+@pytest.mark.parametrize("shape,names", SHARDED_MESHES, ids=["2", "2x2", "1x2"])
+@pytest.mark.parametrize("arch", SHARDED_ARCHS)
+def test_sharded_step_matches_the_one_device_step(arch, shape, names):
+    """Two steps of ``parallel.sharded_step`` on a simulated mesh against
+    the one-device step from the same state: bit for bit in loss,
+    parameters and moments where no rows are split (data axes of 1, or the
+    ``"lead"`` plan of an MoE LM and PNA); loss within 1e-5 relative and
+    each parameter within 2 * lr a step, at most 1% of a leaf beyond 1e-5,
+    where they are."""
+    from repro_torch.launch.simdevices import simulated_mesh
+    from repro_torch.parallel.sharded_step import gather_state, plan_for, sharded_step_for
+
+    bundle = registry()[arch]
+    model, cfg, _ = bundle.make_reduced()
+    if bundle.family == "gnn":
+        model = type(model)(dataclasses.replace(cfg, graph_level=True))
+    model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    batch = _family_batch(bundle, model)
+    opt = adamw(lr=LR)
+    one = make_train_step(functional_loss(model, common.loss_for(bundle.family, model)), opt)
+    mesh = simulated_mesh(int(np.prod(shape)), shape, names)
+    step = sharded_step_for(bundle.family, model, opt, mesh)
+    want = init_state(_clone(model.param_tree()), opt)
+    got = step.shard(init_state(_clone(model.param_tree()), opt))
+    exact = mesh.size("data") == 1 or plan_for(bundle.family, model)["rows"] == "lead"
+    for i in range(2):
+        want, wm = one(want, batch)
+        got, gm = step.step_(got, batch)
+        whole = gather_state(got, "cpu")
+        if exact:
+            assert _bits_equal(gm["loss"], wm["loss"])
+            for x, y in zip(leaves(whole), leaves(want)):
+                assert _bits_equal(x, y)
+            continue
+        assert abs(float(gm["loss"]) - float(wm["loss"])) <= LOSS_REL * abs(float(wm["loss"]))
+        for x, y in zip(leaves(whole["params"]), leaves(want["params"])):
+            d = (x.float() - y.float()).abs()
+            assert float(d.max()) <= 2 * LR * (i + 1)
+            assert float((d > 1e-5).float().mean()) <= 0.01
+
+
+def test_the_reference_four_device_step_mirrored():
+    """``tests/test_multidevice.py``'s step: the reduced Llama with
+    ``batch_axes=("data",)`` on a (4,) mesh, parameters replicated
+    (``P()``), the batch replicated (``P(None, None)``): a finite loss, the
+    one-device step's bits."""
+    from repro_torch.launch.simdevices import simulated_mesh
+    from repro_torch.parallel.sharded_step import gather_state, make_sharded_train_step
+    from repro_torch.parallel.sharding import P
+
+    model, cfg, batch_fn = registry()["llama3.2-1b"].make_reduced()
+    model = type(model)(dataclasses.replace(cfg, batch_axes=("data",)))
+    model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    batch = batch_fn(torch.Generator().manual_seed(1))
+    opt = adamw(lr=1e-3)
+    loss_fn = functional_loss(model, common.loss_for("lm", model))
+    specs = tree_map(lambda _: P(), model.param_tree())
+    step = make_sharded_train_step(loss_fn, opt, simulated_mesh(4), specs,
+                                   {"tokens": P(None, None)})
+    state, metrics = step.step_(step.shard(init_state(_clone(model.param_tree()), opt)), batch)
+    assert np.isfinite(float(metrics["loss"]))
+    want, wm = make_train_step(loss_fn, opt)(init_state(_clone(model.param_tree()), opt), batch)
+    assert _bits_equal(metrics["loss"], wm["loss"])
+    for x, y in zip(leaves(gather_state(state, "cpu")), leaves(want)):
+        assert _bits_equal(x, y)
+
+
+# the reference's sharded step on its simulated 4-device host mesh: the
+# reduced Llama (batch_axes=("data",)) on (4,) with everything replicated,
+# as tests/test_multidevice.py runs it, and on (2, 2) with the model's
+# param_specs and the batch's rows over "data"; each writes the loss, the
+# gradients (jit of jax.grad over the same sharded inputs) and the new
+# parameters of one AdamW step
+_JAX_SHARDED_STEP = """
+    import dataclasses
+    import numpy as np
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from repro.configs import common
+    from repro.configs.registry import registry
+    from repro.optim import adamw
+    from repro.train.step import init_state, make_train_step
+
+    model, cfg, batch_fn = registry()["llama3.2-1b"].make_reduced()
+    model = type(model)(dataclasses.replace(cfg, batch_axes=("data",)))
+    params = model.init_params(jax.random.PRNGKey(0))
+    batch = batch_fn(jax.random.PRNGKey(1))
+    loss_fn = common.loss_for("lm", model)
+    out = {"tokens": np.asarray(batch["tokens"])}
+    out.update({"init/" + k: np.asarray(v) for k, v in params.items()})
+    for name, shape, axes in (("4", (4,), ("data",)), ("2x2", (2, 2), ("data", "model"))):
+        # Mesh, not make_mesh: newer jax makes explicit-axis meshes, whose
+        # row-split gather needs an out_sharding the reference never gives
+        mesh = Mesh(np.array(jax.devices()[:4]).reshape(shape), axes)
+        if name == "4":
+            specs, bspec = {k: P() for k in params}, P(None, None)
+        else:
+            specs, bspec = model.param_specs(mesh), P("data", None)
+        with mesh:
+            p = jax.device_put(params, {k: NamedSharding(mesh, s) for k, s in specs.items()})
+            b = jax.device_put(batch, {"tokens": NamedSharding(mesh, bspec)})
+            grads = jax.jit(jax.grad(loss_fn))(p, b)
+            step = jax.jit(make_train_step(loss_fn, adamw(lr=1e-3)), donate_argnums=(0,))
+            state, metrics = step(init_state(p, adamw(lr=1e-3)), b)
+        out[name + "/loss"] = np.asarray(metrics["loss"])
+        out.update({name + "/grad/" + k: np.asarray(v) for k, v in grads.items()})
+        out.update({name + "/param/" + k: np.asarray(v) for k, v in state["params"].items()})
+    np.savez(sys.argv[1], **out)
+    print("JAX_SHARDED_OK")
+"""
+
+
+def test_sharded_step_holds_to_the_reference_four_device_step(tmp_path):
+    """The port's sharded step against the reference's jit step on its
+    simulated 4-device mesh (one subprocess, ~20 s), over JAX's own
+    parameters and batch: on (4,), everything replicated (the reference's
+    ``tests/test_multidevice.py``), and on (2, 2) with ``param_specs`` and
+    the rows split over ``"data"``.  The loss within 1e-5 relative, each
+    gradient leaf within 1e-4 of its largest |value|, each new parameter
+    within 2 lr, at most 1% of a leaf beyond 1e-5."""
+    from multidevice_shim import run_simulated_mesh
+
+    from repro_torch.launch.simdevices import simulated_mesh
+    from repro_torch.models.params import load_jax_params
+    from repro_torch.parallel.sharded_step import gather_state, make_sharded_train_step
+    from repro_torch.parallel.sharding import P
+    from repro_torch.pytree import leaves_with_paths, path_key
+
+    path = tmp_path / "jax_sharded.npz"
+    run = run_simulated_mesh(_JAX_SHARDED_STEP, 4, str(path))
+    assert "JAX_SHARDED_OK" in run.stdout, run.stdout + "\n" + run.stderr
+    ref = dict(np.load(path))
+    model, cfg, _ = registry()["llama3.2-1b"].make_reduced()
+    model = type(model)(dataclasses.replace(cfg, batch_axes=("data",)))
+    load_jax_params(model, {k[5:]: v for k, v in ref.items() if k.startswith("init/")},
+                    device="cpu")
+    batch = {"tokens": torch.from_numpy(ref["tokens"]).long()}
+    opt = adamw(lr=1e-3)
+    loss_fn = functional_loss(model, common.loss_for("lm", model))
+    for name, shape, axes in (("4", (4,), ("data",)), ("2x2", (2, 2), ("data", "model"))):
+        mesh = simulated_mesh(4, shape, axes)
+        if name == "4":
+            specs, bspec = tree_map(lambda _: P(), model.param_tree()), {"tokens": P(None, None)}
+        else:
+            specs, bspec = model.param_specs(mesh), {"tokens": P("data", None)}
+        step = make_sharded_train_step(loss_fn, opt, mesh, specs, bspec)
+        state = step.shard(init_state(_clone(model.param_tree()), opt))
+        loss, grads = step.grads(state, batch)
+        want = float(ref[name + "/loss"])
+        assert abs(float(loss) - want) <= LOSS_REL * abs(want), name
+        for p, g in leaves_with_paths(grads):
+            jg = torch.from_numpy(ref[f"{name}/grad/{path_key(p)}"])
+            assert float((g - jg).abs().max()) <= 1e-4 * float(jg.abs().max()), (name, p)
+        whole = gather_state(step.apply_(state, grads), "cpu")
+        for p, x in leaves_with_paths(whole["params"]):
+            d = (x - torch.from_numpy(ref[f"{name}/param/{path_key(p)}"])).abs()
+            assert float(d.max()) <= 2 * 1e-3, (name, p)
+            assert float((d > 1e-5).float().mean()) <= 0.01, (name, p)
+
+
+def test_launcher_trains_over_a_mesh_and_resumes_under_another(tmp_path, capsys):
+    """``launch.train --mesh 2x2`` on CPU devices checkpoints every step;
+    a second run under ``--mesh 4x1`` resumes from its last checkpoint."""
+    from repro_torch.launch.train import main as train_main
+
+    args = ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", "--checkpoint-every",
+            "1", "--checkpoint-dir", str(tmp_path)]
+    train_main(args + ["--steps", "2", "--mesh", "2x2"])
+    assert "on a 2x2 mesh of cpu devices" in capsys.readouterr().out
+    train_main(args + ["--steps", "3", "--mesh", "4x1"])
+    out = capsys.readouterr().out
+    assert "[restore] resumed from step 2" in out and "over 1 steps" in out
+
+
+@pytest.mark.parametrize("opt_kind", ["adamw", "adafactor"])
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_sharded_step_with_microbatches_and_compression(opt_kind, shape):
+    """The reduced Llama (float32) with 2 microbatches a shard and int8
+    compression, AdamW or Adafactor (whose leaves are gathered onto the
+    lead device for their whole-dim means), two steps: bit for bit on
+    (1, 2), within the bounds of the test above on (2, 2)."""
+    from repro_torch.launch.simdevices import simulated_mesh
+    from repro_torch.parallel.sharded_step import gather_state, sharded_step_for
+
+    model, _, _ = registry()["llama3.2-1b"].make_reduced()
+    model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    batch = _family_batch(registry()["llama3.2-1b"], model)
+    opt = adamw(lr=LR) if opt_kind == "adamw" else adafactor(lr=LR)
+    one = make_train_step(functional_loss(model, model.loss_fn), opt, microbatches=2,
+                          compression=True)
+    mesh = simulated_mesh(shape[0] * shape[1], shape, ("data", "model"))
+    step = sharded_step_for("lm", model, opt, mesh, microbatches=2, compression=True)
+    want = init_state(_clone(model.param_tree()), opt, compression=True)
+    got = step.shard(init_state(_clone(model.param_tree()), opt, compression=True))
+    for i in range(2):
+        want, wm = one(want, batch)
+        got, gm = step.step_(got, batch)
+    whole = gather_state(got, "cpu")
+    assert sorted(whole) == sorted(want) == ["opt", "params", "residual", "step"]
+    if shape[0] == 1:
+        assert _bits_equal(gm["loss"], wm["loss"])
+        assert all(_bits_equal(x, y) for x, y in zip(leaves(whole), leaves(want)))
+        return
+    assert abs(float(gm["loss"]) - float(wm["loss"])) <= LOSS_REL * abs(float(wm["loss"]))
+    for x, y in zip(leaves(whole["params"]), leaves(want["params"])):
+        d = (x.float() - y.float()).abs()
+        assert float(d.max()) <= 2 * LR * 2 and float((d > 1e-5).float().mean()) <= 0.01
