@@ -289,15 +289,18 @@ phase prints its seconds):
    ill-conditioned), printed beside the CPU's own float32 leaf's distance.
    ``ogb_products`` is reckoned, not run.
 24b. Sharded train (``SHARDED_TRAIN``'s note): the sharded train step of
-   each family on S mesh devices of the one card against the one-device
+   each family on mesh devices of the one card against the one-device
    step from the same state: Llama-3.2-1B at full width, 2 layers, 2 x
-   4,096 tokens on S = 2 and a (1, 2) ("data", "model") mesh; the full
-   two-tower config at B = 32,768 on S = 2 and 4; PNA's ``minibatch_lg`` on
-   S = 2; storage-only and lead-device meshes bit for bit; row splits by
-   the loss, each gradient leaf against a wider copy's (no worse than
-   twice the one-device step's own gap to it), and the training bound on
-   a float32 Llama copy and a float64 two-tower copy at the full B; ms a
-   step, peak memory and the bytes each mesh device holds.
+   4,096 tokens on S = 2 and, split over "model", on (1, 2), (1, 4) and
+   (2, 2); Phi-3.5-MoE at full width, 1 layer, 4 microbatches of 512
+   tokens, expert-parallel on (1, 2) and (2, 2) (its MoE block's routing
+   and output against one device's); the full two-tower config at
+   B = 32,768 on S = 2 and 4; PNA's ``minibatch_lg`` on S = 2; one-shard
+   meshes bit for bit; the rest by the loss, each gradient leaf against a
+   wider copy's (no worse than twice the one-device step's own gap to
+   it), and the training bound on float32 Llama and Phi copies and a
+   float64 two-tower copy; each mesh's gradient computed twice, bit for
+   bit; ms a step, peak memory and the bytes each mesh device holds.
 24c. Dry run: per-device bytes, FLOPs and collectives of three cells that
    do not fit one card on the 16 x 16 meta mesh (``launch.dryrun``).
 25. One JSON line with every kernel's numbers (``launches`` from the range
@@ -5131,32 +5134,49 @@ def gnn_train(torch, np, failures: list, record: dict, dev, sizes=GNN_TRAIN,
 
 
 # The sharded train phase (PERF.md §4): each family's sharded step
-# (parallel.sharded_step) on S mesh devices of the one card (cuda:0 reused)
+# (parallel.sharded_step) on mesh devices of the one card (cuda:0 reused)
 # against the one-device step from the same state, each timed after an
-# untimed forward + backward.  Llama-3.2-1B at full width, depth cut to
-# llama_layers, 2 x 4,096 tokens, AdamW in place, over S = 2 data shards and
-# a (1, 2) ("data", "model") mesh; the full two-tower config at B = 32,768
-# over S = 2 and 4; PNA's minibatch_lg over S = 2.  A mesh whose data axes
-# are 1, or a family whose rows run on the lead device (PNA), is held bit
-# for bit in loss, parameters and moments.  A mesh that splits rows is held
-# to the loss within SHARDED_LOSS_REL relative, and each parameter within
-# 2 lr of the one-device step's (plus one rounding for bf16: AdamW's first
-# step moves an element by at most lr, so this catches an update misplaced
-# or applied twice, not a wrong gradient).  Its gradients are held two
-# ways: a float32 Llama copy and a float64 two-tower copy (the same
-# weights, the full batch) to the training bound of PERF.md §2 (each
-# gradient leaf within SHARDED_GRAD_REL of its largest, at most 1% of a
-# leaf's parameters beyond 1e-5); the bf16 config and the float32 two
-# tower, whose gradients carry their dtype's rounding (and the two tower's
-# logits' cone, PERF.md §2), leaf by leaf against that wider copy's
-# one-device gradient: the sharded step's largest gap to it no more than
-# SHARDED_NO_WORSE times the one-device step's own, plus one rounding of
-# the leaf's dtype for each shard (``reference_gaps``).  The one-device step's in-place apply is held to its
-# functional apply bit for bit (Llama).
+# untimed forward + backward whose gradient the timed one must repeat bit
+# for bit.  Llama-3.2-1B at full width, depth cut to llama_layers, 2 x
+# 4,096 tokens, AdamW in place, over S = 2 data shards and, split over
+# "model" (the "model" plan: heads, MLP columns and vocabulary split, the
+# residual stream sequence-sharded), over (1, 2), (1, 4) and (2, 2)
+# ("data", "model") meshes; Phi-3.5-MoE at full width, depth cut to
+# phi_layers, phi_microbatches microbatches of phi_batch / phi_microbatches
+# rows x phi_seq tokens, expert-parallel over (1, 2) and (2, 2), its MoE
+# block's routing (loads and drops per expert) held to one device's
+# exactly and its output compared bit for bit; the full two-tower config at
+# B = 32,768 over S = 2 and 4; PNA's minibatch_lg over S = 2.  A mesh whose
+# one shard computes it all (data axes of 1 under the "split" plan, or PNA
+# on the lead device) is held bit for bit in loss, parameters and moments.
+# Any other mesh is held to the loss within SHARDED_LOSS_REL relative, and
+# each parameter within 2 lr of the one-device step's (plus one rounding
+# for bf16: AdamW's first step moves an element by at most lr, so this
+# catches an update misplaced or applied twice, not a wrong gradient).
+# Its gradients are held two ways: float32 Llama and Phi copies and a
+# float64 two-tower copy (the same weights, the full batch) to the
+# training bound of PERF.md §2 (each gradient leaf within SHARDED_GRAD_REL
+# of its largest, at most 1% of a leaf's parameters beyond 1e-5); the bf16
+# configs and the float32 two tower, whose gradients carry their dtype's
+# rounding (and the two tower's logits' cone, PERF.md §2), leaf by leaf
+# against that wider copy's one-device gradient: the sharded step's
+# largest gap to it no more than SHARDED_NO_WORSE times the one-device
+# step's own, plus one rounding of the leaf's dtype for each shard of the
+# mesh (``reference_gaps``).  A bf16 LM split over "model" rounds each
+# shard's partial product to bf16 before the sum; at full width its loss
+# still moves by less than 1e-5, so split_loss_rel is SHARDED_LOSS_REL here
+# (a reduced width moves it more: the CPU tests set their own), and its
+# gap to the float32 copy's loss is recorded beside the one-device gap.
+# The one-device step's in-place apply is held to its functional apply bit
+# for bit (Llama).
 SHARDED_TRAIN = dict(seed=0, llama_layers=2, llama_batch=2, llama_seq=4096, llama_lr=3e-4,
+                     llama_meshes=((2, 1), (1, 2), (1, 4), (2, 2)),
+                     llama_f32_meshes=((2, 1), (1, 4), (2, 2)),
+                     phi_layers=1, phi_batch=8, phi_seq=256, phi_microbatches=4, phi_lr=3e-4,
+                     phi_meshes=((1, 2), (2, 2)),
                      tt_batch=32_768, tt_lr=3e-3, tt_shards=(2, 4),
                      gnn_cell="minibatch_lg",
-                     gnn_lr=3e-4, gnn_shards=2)
+                     gnn_lr=3e-4, gnn_shards=2, split_loss_rel=1e-5)
 SHARDED_LOSS_REL = 1e-5
 SHARDED_GRAD_REL = 1e-4
 SHARDED_NO_WORSE = 2.0
@@ -5170,21 +5190,22 @@ def leaf_digests(torch, tree, chunk: int = 1 << 24) -> list:
     plain sum, the sum of squares, and the sum of each element's bits times
     its position + 1, so that moving values within a leaf (rows swapped)
     changes the digest too.  A step's state compared with another run's
-    without a second copy of it."""
+    without a second copy of it.  The sums stay on the device until one
+    read at the end."""
     from repro_torch.pytree import leaves
 
-    out = []
+    sums = []
     for t in leaves(tree):
         v = int_bits(torch, t).reshape(-1)
-        a = b = c = 0
+        acc = torch.zeros(3, dtype=torch.int64, device=v.device)
         for i in range(0, v.numel(), chunk):
             x = v[i:i + chunk].long()
-            a += int(x.sum())
-            b += int((x * x).sum())
             pos = torch.arange(i + 1, i + 1 + x.numel(), dtype=torch.int64, device=x.device)
-            c += int((x * pos).sum())
-        out.append((a, b, c))
-    return out
+            acc += torch.stack([x.sum(), (x * x).sum(), (x * pos).sum()])
+        sums.append(acc)
+    if not sums:
+        return []
+    return [tuple(row) for row in torch.stack([a.to(sums[0].device) for a in sums]).tolist()]
 
 
 def clone_tree(torch, tree):
@@ -5253,31 +5274,68 @@ def reference_gaps(torch, got, one, ref, shards: int) -> dict:
     return out
 
 
+def model_split(mesh) -> bool:
+    """The mesh splits compute over more than one "model" shard."""
+    return "model" in mesh.axis_names and mesh.size("model") > 1
+
+
+def mesh_label(shape) -> str:
+    """``S<d>`` for a data-only (d, 1) mesh, ``<d>x<m>`` otherwise."""
+    d, m = shape
+    return f"S{d}" if m == 1 else f"{d}x{m}"
+
+
+def piece_digests(torch, grads) -> list:
+    """``leaf_digests`` of a gradient tree whose leaves may be in pieces
+    (``ShardedTensor``): each piece once, in piece order."""
+    from repro_torch.parallel.sharding import ShardedTensor
+    from repro_torch.pytree import leaves
+
+    flat = []
+    for g in leaves(grads):
+        if isinstance(g, ShardedTensor):
+            flat.extend(next(iter(by_dev.values())) for by_dev in g.pieces.values())
+        else:
+            flat.append(g)
+    return leaf_digests(torch, flat)
+
+
 def sharded_against_one(torch, np, failures: list, tag: str, family: str, model, opt,
                         batch: dict, meshes: list, dev, lr: float,
                         check_apply: bool = False, strict: bool = False,
-                        reference=None) -> tuple[dict, object]:
+                        reference=None, microbatches: int = 1,
+                        reference_loss: float | None = None,
+                        split_loss_rel: float = SHARDED_LOSS_REL,
+                        reckon: bool = False) -> tuple[dict, object]:
     """One family's sharded step on each mesh of ``meshes`` ((label, mesh))
     against the one-device step from the same state (the model's
     parameters): ms a step by CUDA events after an untimed forward +
-    backward, peak memory, the bytes one mesh device holds by its specs and
-    the bytes held on the card, and the comparison (``SHARDED_TRAIN``'s
-    note; a mesh that splits rows: ``strict``, PERF.md §2's training bound
-    and every gradient leaf within SHARDED_GRAD_REL of its largest; else
-    ``reference``, a wider copy's one-device gradients, ``reference_gaps``).
-    Returns the row and the one-device step's gradients."""
+    backward (whose gradient and loss the timed one must repeat bit for
+    bit), peak memory, the bytes one mesh device holds by its specs, the
+    bytes held on the card, the parameter bytes each mesh device computes
+    with (``compute_bytes``: its "model" pieces, whole over the data axes),
+    with ``reckon``, an LM's per-device bytes as the dry run reckons the
+    same step (``reckoned_bytes``), and the comparison (``SHARDED_TRAIN``'s note; a mesh that is not one
+    shard computing it all: ``strict``, PERF.md §2's training bound and
+    every gradient leaf within SHARDED_GRAD_REL of its largest; else
+    ``reference``, a wider copy's one-device gradients,
+    ``reference_gaps``; the loss within SHARDED_LOSS_REL of the one-device
+    loss, or ``split_loss_rel`` on a mesh split over "model"; with
+    ``reference_loss``, that copy's loss, each loss's gap to it is recorded
+    beside the one-device gap).  Returns
+    the row and the one-device step's gradients and loss."""
     from repro_torch.configs.common import loss_for
     from repro_torch.parallel.sharded_step import gather_state, plan_for, sharded_step_for
-    from repro_torch.parallel.sharding import n_shards
     from repro_torch.pytree import leaves
     from repro_torch.train.step import functional_loss, init_state, make_train_step
 
     cuda = dev.type == "cuda"
     p0 = model.param_tree()  # each state below starts from a clone of it
-    one = make_train_step(functional_loss(model, loss_for(family, model)), opt)
-    row: dict = dict(rows=plan_for(family, model)["rows"],
-                     dtype=str(model.cfg.dtype).split(".")[-1],
-                     batch={k: list(v.shape) for k, v in batch.items()})
+    one = make_train_step(functional_loss(model, loss_for(family, model)), opt, microbatches)
+    rows = plan_for(family, model)["rows"]
+    row: dict = dict(rows=rows, dtype=str(model.cfg.dtype).split(".")[-1],
+                     batch={k: list(v.shape) for k, v in batch.items()},
+                     microbatches=microbatches)
     ref = init_state(clone_tree(torch, p0), opt)
     one.grads(ref["params"], batch)  # untimed
     if cuda:
@@ -5292,10 +5350,8 @@ def sharded_against_one(torch, np, failures: list, tag: str, family: str, model,
     one.apply_(ref, grads)
     stamps.mark()
     ms = stamps.ms()
-    exact_of = {label: mesh.size("data") == 1 or plan_for(family, model)["rows"] == "lead"
+    exact_of = {label: rows == "lead" or (rows != "model" and mesh.size("data") == 1)
                 for label, mesh in meshes}
-    if not any(exact_of.values()):
-        ref = {"params": ref["params"]}  # a row split compares parameters only
     row["one_device"] = dict(ms=ms[0] + ms[2], ms_forward_backward=ms[0],
                              ms_apply_in_place=ms[2], loss=float(loss),
                              max_memory_allocated=torch.cuda.max_memory_allocated()
@@ -5306,10 +5362,14 @@ def sharded_against_one(torch, np, failures: list, tag: str, family: str, model,
         if row["in_place_vs_functional"]:
             failures.append(f"sharded train {tag}: the in-place apply differs from the "
                             f"functional one: {row['in_place_vs_functional']}")
+    if not any(exact_of.values()):
+        ref = {"params": ref["params"]}  # parameters are all that is compared
     for label, mesh in meshes:
-        step = sharded_step_for(family, model, opt, mesh)
+        step = sharded_step_for(family, model, opt, mesh, microbatches=microbatches)
         state = step.shard(init_state(clone_tree(torch, p0), opt))
-        step.grads(state, batch)  # untimed
+        l_first, g_first = step.grads(state, batch)  # untimed
+        first = (piece_digests(torch, g_first), int_bits(torch, l_first).clone())
+        del g_first
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -5318,6 +5378,8 @@ def sharded_against_one(torch, np, failures: list, tag: str, family: str, model,
         l_sh, g_sh = step.grads(state, batch)
         step.apply_(state, g_sh)
         stamps.mark()
+        repeated = (piece_digests(torch, g_sh) == first[0]
+                    and bool(torch.equal(int_bits(torch, l_sh), first[1])))
         held: dict = {}
         for s in leaves(state):
             for d, n in s.held_bytes().items():
@@ -5331,13 +5393,23 @@ def sharded_against_one(torch, np, failures: list, tag: str, family: str, model,
         # card share is held once)
         m = dict(mesh=mesh.sizes, ms=stamps.ms()[0], loss=float(l_sh),
                  device_bytes=device_bytes, held_bytes=held, exact=exact,
+                 repeated_bit_for_bit=repeated,
+                 compute_bytes=max(step.compute_bytes) if step.compute_bytes else None,
                  max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None)
+        if reckon:
+            # one mesh device's bytes as the dry run reckons this step (the
+            # activations of one model shard); the card holds every device's
+            from repro_torch.launch.dryrun import reckon_lm_step
+
+            tok = batch["tokens"].shape
+            m["reckoned_bytes"] = reckon_lm_step(model, mesh, tok[0], tok[1] - 1, microbatches)
         if exact:
             m["differing_leaves"] = differing_leaves(torch, whole, ref)
             m["loss_equal"] = bool(torch.equal(int_bits(torch, l_sh),
                                                int_bits(torch, loss.to(l_sh.device))))
             ok = not m["differing_leaves"] and m["loss_equal"]
         else:
+            g_sh = gather_state(g_sh, dev)
             m["loss_rel"] = abs(m["loss"] - float(loss)) / abs(float(loss))
             m["leaves"] = param_gaps(torch, {"params": whole["params"], "grads": g_sh},
                                      {"params": ref["params"], "grads": grads}, lr)
@@ -5345,34 +5417,86 @@ def sharded_against_one(torch, np, failures: list, tag: str, family: str, model,
             m["strict"] = strict
             if not strict:
                 if reference is None:
-                    raise ValueError(f"{tag}: a row split that is not strict needs a "
+                    raise ValueError(f"{tag}: a split that is not strict needs a "
                                      "reference gradient")
                 m["against_reference"] = reference_gaps(torch, g_sh, grads, reference,
-                                                        n_shards(mesh))
-            ok = m["loss_rel"] <= SHARDED_LOSS_REL and all(
+                                                        mesh.n_devices)
+            m["loss_bound"] = split_loss_rel if model_split(mesh) else SHARDED_LOSS_REL
+            if reference_loss is not None:
+                # read beside the one-device gap, not held
+                top = abs(reference_loss)
+                m["loss_against_reference"] = dict(
+                    sharded=abs(m["loss"] - reference_loss) / top,
+                    one_device=abs(float(loss) - reference_loss) / top)
+            ok = m["loss_rel"] <= m["loss_bound"] and all(
                 r["param_over_bound"] <= 1.0 and (not strict or (
                     r["grad_rel"] <= SHARDED_GRAD_REL and r["share_beyond"] <= 0.01))
                 for r in m["leaves"].values()) and all(
                 r["sharded"] <= r["bound"] for r in m.get("against_reference", {}).values())
         del g_sh
-        m["ok"] = ok
+        m["ok"] = ok = ok and repeated
         row[label] = m
         if not ok:
             failures.append(f"sharded train {tag} {label}: {m}")
         del whole
         if cuda:
             torch.cuda.empty_cache()
-    return row, grads
+    return row, grads, float(loss)
+
+
+def moe_split_against_one(torch, model, tokens, mesh) -> dict:
+    """The first layer's MoE block on the rms-normed embeddings of
+    ``tokens`` (one microbatch), one device (``layers.moe_block``) against
+    expert-parallel over ``mesh`` (``layers.moe_block_split``, rows over
+    the data shards, the sequence over "model" as the step lays them):
+    the routing (expert ids, capacity, pairs kept and dropped per expert)
+    and the output, bit for bit, with the largest difference."""
+    from repro_torch.models import layers
+    from repro_torch.parallel.collectives import piece_bounds
+    from repro_torch.parallel.sharding import n_shards
+
+    c = model.cfg
+    x = layers.rms_norm(model.embed[tokens.long()].to(c.dtype), model.mlp_norm[0])
+    b, s, d = x.shape
+    dims = layers.MoEDims(c.moe_experts, c.moe_top_k, model._capacity(b * s), c.expert_axis)
+    w = [model.router[0], model.moe_gate[0], model.moe_up[0], model.moe_down[0]]
+    one: dict = {}
+    want, _ = layers.moe_block(x, *w, dims, stats=one)
+    m = mesh.size("model") if "model" in mesh.axis_names else 1
+    rows = tuple(piece_bounds(b, n_shards(mesh), i) for i in range(n_shards(mesh)))
+    lay = layers.SplitLayout(mesh, m, rows, s, bool(c.seq_shard_activations) and m > 1)
+    split = c.moe_experts % m == 0
+    xs, per_rank = [], []
+    for r in range(lay.R):
+        (b0, b1), (t0, t1) = rows[r // m], lay.seq_piece(r % m)
+        dev = lay.device(r)
+        xs.append(x[b0:b1, t0:t1].to(dev))
+        e0, e1 = piece_bounds(c.moe_experts, m, r % m) if split else (0, c.moe_experts)
+        per_rank.append([w[0].to(dev)] + [t[e0:e1].to(dev) for t in w[1:]])
+    got_stats: dict = {}
+    outs, _ = layers.moe_block_split(xs, *[[p[i] for p in per_rank] for i in range(4)],
+                                     dims, lay, split, stats=got_stats)
+    got = torch.empty_like(want)
+    for r, o in enumerate(outs):
+        (b0, b1), (t0, t1) = rows[r // m], lay.seq_piece(r % m)
+        got[b0:b1, t0:t1] = o.to(got.device)
+    same = lambda k: bool(torch.equal(one[k], got_stats[k].to(one[k].device)))  # noqa: E731
+    return dict(capacity=one["capacity"], capacity_equal=one["capacity"] == got_stats["capacity"],
+                ids_equal=same("top_e"), loads_equal=same("loads"), drops_equal=same("drops"),
+                loads=one["loads"].tolist(), drops=one["drops"].tolist(),
+                out_bits_equal=bool(torch.equal(int_bits(torch, got), int_bits(torch, want))),
+                out_max_abs_diff=float((got.float() - want.float()).abs().max().detach()),
+                out_max_abs=float(want.float().abs().max().detach()))
 
 
 def sharded_train(torch, np, failures: list, record: dict, dev, sizes=SHARDED_TRAIN,
                   llama_cfg=None, tt_cfg=None, gnn_cell: str | None = None,
-                  mesh_fn=None) -> None:
+                  mesh_fn=None, phi_cfg=None) -> None:
     """The sharded train phase (``SHARDED_TRAIN``'s note).  ``llama_cfg`` /
-    ``tt_cfg`` / ``gnn_cell`` / ``mesh_fn`` / ``dev`` shrink it for the CPU
-    tests (``mesh_fn(data, model)`` builds a mesh; ``make_local_mesh`` on
-    the card)."""
-    from repro_torch.configs.lm_archs import LLAMA32_1B
+    ``phi_cfg`` / ``tt_cfg`` / ``gnn_cell`` / ``mesh_fn`` / ``dev`` shrink
+    it for the CPU tests (``mesh_fn(data, model)`` builds a mesh;
+    ``make_local_mesh`` on the card)."""
+    from repro_torch.configs.lm_archs import LLAMA32_1B, PHI35_MOE
     from repro_torch.configs.recsys_archs import TWO_TOWER
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import ClickStream, TokenStream
@@ -5392,6 +5516,9 @@ def sharded_train(torch, np, failures: list, record: dict, dev, sizes=SHARDED_TR
     seconds = {}
     gen = lambda: torch.Generator(dev).manual_seed(sizes["seed"])  # noqa: E731
 
+    def meshes(shapes):
+        return [(mesh_label(sh), mesh_fn(*sh)) for sh in shapes]
+
     t0 = time.perf_counter()
     cfg = llama_cfg or dataclasses.replace(LLAMA32_1B, n_layers=sizes["llama_layers"])
     model = LMModel(cfg).init_params(gen(), device=dev)
@@ -5401,16 +5528,19 @@ def sharded_train(torch, np, failures: list, record: dict, dev, sizes=SHARDED_TR
     # the float32 copy first: its one-device gradient is the bf16 run's
     # reference
     copy = cast_model(model, torch.float32, dev)
-    row, ref32 = sharded_against_one(
+    row, ref32, loss32 = sharded_against_one(
         torch, np, failures, "llama float32", "lm", copy, adamw(lr=sizes["llama_lr"]),
-        to_device(raw, dev), [("S2", mesh_fn(2, 1))], dev, sizes["llama_lr"], strict=True)
+        to_device(raw, dev), meshes(sizes["llama_f32_meshes"]), dev, sizes["llama_lr"],
+        strict=True)
     record["sharded train llama float32"] = row
     log("sharded train llama float32 " + json.dumps(row))
     copy.to_empty(device="meta")
-    row, _ = sharded_against_one(
+    row, _, _ = sharded_against_one(
         torch, np, failures, "llama", "lm", model, adamw(lr=sizes["llama_lr"]),
-        to_device(raw, dev), [("S2", mesh_fn(2, 1)), ("1x2", mesh_fn(1, 2))], dev,
-        sizes["llama_lr"], check_apply=True, reference=ref32)
+        to_device(raw, dev), meshes(sizes["llama_meshes"]), dev,
+        sizes["llama_lr"], check_apply=True, reference=ref32, reference_loss=loss32,
+        split_loss_rel=sizes["split_loss_rel"],
+        reckon=True)
     row.update(config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab)
     record["sharded train llama"] = row
     log("sharded train llama " + json.dumps(row))
@@ -5419,32 +5549,69 @@ def sharded_train(torch, np, failures: list, record: dict, dev, sizes=SHARDED_TR
     seconds["llama"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    cfg = phi_cfg or dataclasses.replace(PHI35_MOE, n_layers=sizes["phi_layers"])
+    model = LMModel(cfg).init_params(gen(), device=dev)
+    raw = TokenStream(vocab=cfg.vocab, batch=sizes["phi_batch"], seq=sizes["phi_seq"],
+                      seed=sizes["seed"]).next()
+    check_ids(raw["tokens"], cfg.vocab, "tokens")
+    batch = to_device(raw, dev)
+    mb = sizes["phi_microbatches"]
+    moe = {}
+    for label, mesh in meshes(sizes["phi_meshes"]):
+        moe[label] = r = moe_split_against_one(
+            torch, model, batch["tokens"][:batch["tokens"].shape[0] // mb, :-1], mesh)
+        if not (r["capacity_equal"] and r["ids_equal"] and r["loads_equal"]
+                and r["drops_equal"]):
+            failures.append(f"sharded train phi {label}: the expert-parallel routing "
+                            f"differs from one device's: {r}")
+    record["sharded train phi moe block"] = moe
+    log("sharded train phi moe block " + json.dumps(moe))
+    copy = cast_model(model, torch.float32, dev)
+    row, ref32, loss32 = sharded_against_one(
+        torch, np, failures, "phi float32", "lm", copy, adamw(lr=sizes["phi_lr"]), batch,
+        meshes(sizes["phi_meshes"]), dev, sizes["phi_lr"], strict=True, microbatches=mb)
+    record["sharded train phi float32"] = row
+    log("sharded train phi float32 " + json.dumps(row))
+    copy.to_empty(device="meta")
+    row, _, _ = sharded_against_one(
+        torch, np, failures, "phi", "lm", model, adamw(lr=sizes["phi_lr"]), batch,
+        meshes(sizes["phi_meshes"]), dev, sizes["phi_lr"], reference=ref32, microbatches=mb,
+        reference_loss=loss32, split_loss_rel=sizes["split_loss_rel"], reckon=True)
+    row.update(config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+               experts=cfg.moe_experts)
+    record["sharded train phi"] = row
+    log("sharded train phi " + json.dumps(row))
+    model.to_empty(device="meta")
+    del ref32
+    seconds["phi"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     cfg = tt_cfg or TWO_TOWER
     model = TwoTowerModel(cfg).init_params(gen(), device=dev)
     batch = to_device(ClickStream(cfg, batch=sizes["tt_batch"], seed=sizes["seed"]).next(), dev)
-    meshes = [(f"S{s}", mesh_fn(s, 1)) for s in sizes["tt_shards"]]
+    tt_meshes = meshes([(s, 1) for s in sizes["tt_shards"]])
     # the towers' gradient at the initial weights is mostly the logits'
     # rounding in float32 (the cone: PERF.md §2), so the training bound is
     # held on a float64 copy, whose (B, B) product runs in float64, over the
     # whole batch; its one-device gradient is the float32 and bf16 runs'
     # reference
     copy = cast_model(model, torch.float64, dev)
-    row, ref64 = sharded_against_one(
+    row, ref64, _ = sharded_against_one(
         torch, np, failures, "two tower float64", "recsys", copy, adamw(lr=sizes["tt_lr"]),
-        batch, meshes, dev, sizes["tt_lr"], strict=True)
+        batch, tt_meshes, dev, sizes["tt_lr"], strict=True)
     record["sharded train two tower float64"] = row
     log("sharded train two tower float64 " + json.dumps(row))
     copy.to_empty(device="meta")
     copy = cast_model(model, torch.float32, dev)
-    row, _ = sharded_against_one(
+    row, _, _ = sharded_against_one(
         torch, np, failures, "two tower float32", "recsys", copy, adamw(lr=sizes["tt_lr"]),
-        batch, meshes, dev, sizes["tt_lr"], reference=ref64)
+        batch, tt_meshes, dev, sizes["tt_lr"], reference=ref64)
     record["sharded train two tower float32"] = row
     log("sharded train two tower float32 " + json.dumps(row))
     copy.to_empty(device="meta")
-    row, _ = sharded_against_one(
+    row, _, _ = sharded_against_one(
         torch, np, failures, "two tower", "recsys", model, adamw(lr=sizes["tt_lr"]), batch,
-        meshes, dev, sizes["tt_lr"], reference=ref64)
+        tt_meshes, dev, sizes["tt_lr"], reference=ref64)
     row.update(config=cfg.name, vocab=cfg.vocab)
     record["sharded train two tower"] = row
     log("sharded train two tower " + json.dumps(row))
@@ -5457,10 +5624,9 @@ def sharded_train(torch, np, failures: list, record: dict, dev, sizes=SHARDED_TR
     bundle = get_arch("pna")
     flat = gnn_cell_batch(np, cell, bundle.cells[cell].inputs(), sizes["seed"])
     model = bundle.model_for(cell).init_params(gen(), device=dev)
-    row, _ = sharded_against_one(
+    row, _, _ = sharded_against_one(
         torch, np, failures, "pna", "gnn", model, adamw(lr=sizes["gnn_lr"]),
-        to_device(flat, dev), [(f"S{sizes['gnn_shards']}", mesh_fn(sizes["gnn_shards"], 1))],
-        dev, sizes["gnn_lr"])
+        to_device(flat, dev), meshes([(sizes["gnn_shards"], 1)]), dev, sizes["gnn_lr"])
     row.update(cell=cell)
     record["sharded train pna"] = row
     log("sharded train pna " + json.dumps(row))

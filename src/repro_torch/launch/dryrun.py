@@ -13,13 +13,20 @@ plan: one device's share of the batch (each input's dim 0 split over the
 axes its ``Cell.partition`` names there, when they divide it; a train
 cell's microbatch of that) goes through the cell's step with
 ``FlopCounterMode`` counting the matmul FLOPs and ``saved_tensors_hooks``
-the bytes kept for the backward pass.  The port's own sharded step keeps
-an MoE LM's and PNA's rows on the lead device (``plan.port_step_rows``,
-``parallel.sharded_step.plan_for``); the dry run reckons the production
-plan those cells need to fit.
+the bytes kept for the backward pass.  An LM train cell runs the port's
+own plan (``parallel.sharded_step.plan_for``: ``"model"``): its data
+shard's microbatch goes through ``LMModel.split_loss`` on a meta mesh of
+the production mesh's axes with every data axis 1 and the same
+``"model"`` axis, model shard 0 computing its heads, columns, vocabulary
+and sequence share for every model shard (``probe``): its FLOPs, saved
+bytes and the collectives it calls (``parallel.collectives.tally``) are
+one device's.  The MoE's capacity is then
+counted over one data shard's microbatch, the slots a device owns.  PNA's
+step keeps its rows on the lead device (``plan.port_step_rows``); the dry
+run reckons the production plan that cell needs to fit.
 An LM is traced at 2 and 4 layers and extrapolated to its depth (the
 reference's own probe scheme, ``probe_lm_cell``), so a 61-layer cell
-traces in well under a second.  Per cell it emits JSON with the
+traces in about a second.  Per cell it emits JSON with the
 reference's keys where they mean the same (``arch``, ``shape``, ``kind``,
 ``mesh``, ``n_devices``, ``status``, ``note``, ``model_flops``) and:
 
@@ -34,9 +41,16 @@ reference's keys where they mean the same (``arch``, ``shape``, ``kind``,
 * ``collective_bytes``: what the plan implies one device moves, by kind,
   ring-reckoned (a group of n moves (n − 1) / n of the whole, an
   all-reduce twice that): the ``all-gather`` of every parameter's pieces
-  at use (each layer's again in the backward pass under remat, per
-  microbatch), the ``reduce-scatter`` of sharded gradients per microbatch,
-  the ``all-reduce`` of gradients a leaf's spec replicates over data axes.
+  over the data axes at use (each layer's again in the backward pass
+  under remat, per microbatch), the ``reduce-scatter`` of sharded
+  gradients per microbatch, the ``all-reduce`` of gradients a leaf's spec
+  replicates over data axes; and an LM train cell's activation
+  collectives, as its traced step calls them, per microbatch (``…
+  (activations)``: the all-gather of the sequence before each
+  column-parallel product, the reduce-scatter after each row-parallel one
+  and their transposes in the backward pass, once more for the remat
+  recompute; the embedding's and the loss's; ``all-to-all (MoE tokens)``:
+  the dispatch and the combine, forward and backward).
 
 ``model_flops`` is the reference's ``_model_flops`` (``dryrun.py:90-131``)
 line for line, its quirks kept: a GNN cell counts ``edge_src.shape[0]``,
@@ -45,9 +59,9 @@ match: XLA's ``memory_analysis`` (buffer assignment, liveness, fusion
 temporaries: the port reckons what a plan holds, not what a compiler
 allocates), its loop-corrected HLO cost (elementwise work, the
 optimizer's arithmetic and the bytes accessed are not counted here), and
-its parsed HLO collectives (the port's are reckoned from the specs, and
-its layers' compute is not split over "model": no tensor-parallel
-activation collectives are counted).  The reference's supermetric
+its parsed HLO collectives (the port's parameter collectives are
+reckoned from the specs, its activation collectives tallied off the
+traced split step).  The reference's supermetric
 variant of ``retrieval_cand`` is not lowered.  A cell the reference skips
 (``cell.skip``) is skipped with the same reason.  Nothing is allocated on
 any device.
@@ -69,8 +83,10 @@ from repro_torch.configs import common
 from repro_torch.configs.registry import all_cells, get_arch
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.optim import make_optimizer
+from repro_torch.parallel import collectives
 from repro_torch.parallel.sharding import (
     P,
+    Placement,
     ShardMesh,
     abstract_with_sharding,
     dp_axes,
@@ -80,7 +96,7 @@ from repro_torch.parallel.sharded_step import plan_for
 from repro_torch.pytree import leaves_with_paths
 from repro_torch.serve.queue import now
 
-__all__ = ["model_flops", "reckon_cell", "main"]
+__all__ = ["model_flops", "reckon_cell", "reckon_lm_step", "main"]
 
 PREFILL_CHUNK = 2048  # the reference's Sarathi-style chunked prefill
 
@@ -147,13 +163,12 @@ def _placed(mesh: ShardMesh, shapes, specs) -> list:
 
 
 def _collectives(mesh, params: list, *, train: bool, remat: bool, microbatches: int,
-                 layer_keys: set) -> dict:
+                 layer_keys: set, activations: dict | None = None) -> dict:
     """Ring-reckoned bytes one device moves under the plan (module note);
     ``params``: ``_placed``'s leaves."""
-    gather = scatter = reduce = whole = 0.0
+    gather = scatter = reduce = 0.0
     dp = dp_axes(mesh)
     for path, a in params:
-        full = _numel(a.shape) * a.dtype.itemsize
         piece = a.device_bytes
         named = a.placement.spec.names()
         d = math.prod(mesh.size(x) for x in dp if x in named)  # FSDP split
@@ -162,7 +177,6 @@ def _collectives(mesh, params: list, *, train: bool, remat: bool, microbatches: 
         if train:
             uses = microbatches * (2 if remat and path[0] in layer_keys else 1)
         gather += uses * used * (d - 1) / d
-        whole += uses * max(full - piece, 0)
         if not train:
             continue
         scatter += microbatches * used * (d - 1) / d
@@ -170,56 +184,92 @@ def _collectives(mesh, params: list, *, train: bool, remat: bool, microbatches: 
         if r > 1:
             reduce += 2.0 * piece * (r - 1) / r
     out = {"all-gather": gather, "reduce-scatter": scatter, "all-reduce": reduce}
+    for kind, n in (activations or {}).items():
+        key = "all-to-all (MoE tokens)" if kind == "all-to-all" else f"{kind} (activations)"
+        out[key] = n
     out["total"] = sum(out.values())
-    # what the port's sharded step gathers: every leaf whole on each
-    # compute device (its layers are not split over "model")
-    out["all-gather (port step)"] = whole
     return out
 
 
 # ------------------------------------------------------------------- trace
 
 
-def _trace(model, fn, grad: bool) -> dict:
+def _trace(model, fn, grad: bool, params=None) -> dict:
     """Forward (and backward) of ``fn()`` on meta: matmul FLOPs forward and
-    in all, and the bytes saved for the backward pass (parameters and
-    their views excluded)."""
-    params = {id(p) for p in model.parameters()}
+    in all, the bytes saved for the backward pass (``params``, by default
+    the model's, and their views excluded), and the collectives' bytes
+    forward and in all (``collectives.tally``)."""
+    params = list(model.parameters()) if params is None else params
+    ids = {id(p) for p in params}
     saved = [0]
 
     def pack(t):
-        if id(t) not in params and id(t._base) not in params:
+        if id(t) not in ids and id(t._base) not in ids:
             saved[0] += t.numel() * t.element_size()
         return t
 
-    with FlopCounterMode(display=False) as fc:
+    with FlopCounterMode(display=False) as fc, collectives.tally() as moved:
         if grad:
             with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
                 out = fn()
-            fwd = fc.get_total_flops()
+            fwd, fwd_moved = fc.get_total_flops(), dict(moved)
             out.backward()
         else:
             with torch.no_grad():
                 fn()
-            fwd = fc.get_total_flops()
+            fwd, fwd_moved = fc.get_total_flops(), dict(moved)
         total = fc.get_total_flops()
-    for p in model.parameters():
+    for p in params:
         p.grad = None
-    return {"fwd": float(fwd), "total": float(total), "saved": float(saved[0])}
+    out = {"fwd": float(fwd), "total": float(total), "saved": float(saved[0])}
+    for kind in moved:
+        out["fwd moved " + kind] = fwd_moved.get(kind, 0.0)
+        out["moved " + kind] = moved[kind]
+    return out
 
 
-def _lm_probe(model, cell, batch: dict, mb: int) -> dict:
+def _probe_mesh(mesh: ShardMesh) -> ShardMesh:
+    """The production mesh's axes with every data axis 1: one data shard
+    and all its model shards, on meta."""
+    shape = tuple(1 if a in dp_axes(mesh) else n for a, n in zip(mesh.axis_names, mesh.shape))
+    return ShardMesh((torch.device("meta"),) * math.prod(shape), mesh.axis_names, shape)
+
+
+def _split_probe(m, mesh: ShardMesh, specs: dict, batch: dict) -> dict:
+    """``m.split_loss`` traced on ``_probe_mesh(mesh)`` over one data
+    shard's microbatch, device 0 standing for every model shard
+    (``split_loss(probe=True)``): one device's FLOPs, saved bytes and
+    collectives."""
+    probe = _probe_mesh(mesh)
+    dp = set(dp_axes(mesh))
+    tree = {}
+    for k, (shape, dt) in m.param_shapes().items():
+        axes = P(*specs[k]).axes(len(shape))
+        pl = Placement(probe, P(*[tuple(a for a in ax if a not in dp) or None for ax in axes]))
+        piece = pl.bounds(shape, pl.piece_of(0, len(shape)))
+        tree[k] = torch.empty(tuple(b.stop - b.start for b in piece), dtype=dt, device="meta",
+                              requires_grad=True)
+    return _trace(m, lambda: m.split_loss([tree] * probe.n_devices, [batch["tokens"]], probe,
+                                          specs, probe=True),
+                  grad=True, params=list(tree.values()))
+
+
+def _lm_probe(model, cell, batch: dict, mb: int, mesh: ShardMesh) -> dict:
     """The LM traced at 2 and 4 layers, remat off, extrapolated to its depth
     (per layer = (P4 - P2) / 2, fixed = P2 - 2 * per layer); remat adds
-    each layer's forward again and keeps each layer's input instead of its
-    activations."""
+    each layer's forward (and its collectives) again and keeps each layer's
+    input (its sequence share under ``seq_shard_activations``) instead of
+    its activations.  A train cell traces one model shard of the split
+    step (``_split_probe``)."""
     cfg = model.cfg
+    specs = model.param_specs(mesh)
+    msize = mesh.size("model") if "model" in mesh.axis_names else 1
     probes = {}
     for n_layers in (2, 4):
         m = type(model)(dataclasses.replace(cfg, n_layers=n_layers, remat=False,
                                             attn_q_chunk=None))
         if cell.kind == "train":
-            probes[n_layers] = _trace(m, lambda: m.loss_fn(batch), grad=True)
+            probes[n_layers] = _split_probe(m, mesh, specs, batch)
         elif cell.kind == "prefill":
             probes[n_layers] = _trace(
                 m, lambda: m.prefill(batch["tokens"], chunk=PREFILL_CHUNK), grad=False)
@@ -229,18 +279,66 @@ def _lm_probe(model, cell, batch: dict, mb: int) -> dict:
                      for k, s in m.init_cache_shapes(batch["token"].shape[0], seq).items()}
             probes[n_layers] = _trace(m, lambda: m.decode_step(cache, batch["token"], 0),
                                       grad=False)
-    per = {k: (probes[4][k] - probes[2][k]) / 2 for k in probes[2]}
-    fixed = {k: probes[2][k] - 2 * per[k] for k in probes[2]}
+    keys = set(probes[2]) | set(probes[4])
+    per = {k: (probes[4].get(k, 0.0) - probes[2].get(k, 0.0)) / 2 for k in keys}
+    fixed = {k: probes[2].get(k, 0.0) - 2 * per[k] for k in keys}
     L = cfg.n_layers
-    flops = fixed["total"] + L * per["total"]
-    saved = fixed["saved"] + L * per["saved"]
+    at = {k: fixed[k] + L * per[k] for k in keys}
+    flops, saved = at["total"], at["saved"]
+    moved = {k[6:]: at[k] for k in keys if k.startswith("moved ")}
     remat = cell.kind == "train" and cfg.remat
     if remat:
         flops += L * per["fwd"]
+        for kind in moved:
+            moved[kind] += L * per["fwd moved " + kind]
         rows, seq = batch["tokens"].shape[0], batch["tokens"].shape[1] - 1
         x_bytes = rows * seq * cfg.d_model * cfg.dtype.itemsize
+        if cfg.seq_shard_activations:
+            x_bytes /= msize
         saved = fixed["saved"] + L * x_bytes + per["saved"]
-    return {"flops": mb * flops, "saved": saved, "remat": remat}
+    return {"flops": mb * flops, "saved": saved, "remat": remat,
+            "moved": {k: mb * v for k, v in moved.items()}}
+
+
+def _train_bytes(model, mesh, specs, params: list, mb: int, saved: float,
+                 optimizer: str | None = None) -> dict:
+    """One device's parameters, gradients, optimizer state, microbatch
+    accumulator and saved activations for a train step."""
+    cfg = model.cfg
+    mem = {"params": sum(a.device_bytes for _, a in params)}
+    opt = make_optimizer(optimizer or getattr(cfg, "optimizer", "adamw"))
+    mem["grads"] = mem["params"]
+    mem["opt_state"] = sum(a.device_bytes for _, a in _placed(
+        mesh, opt.init(model.abstract_params()), opt.state_specs(specs)))
+    mem["accumulator"] = 0
+    if mb > 1:
+        acc = getattr(torch, getattr(cfg, "grad_accum_dtype", "float32"))
+        mem["accumulator"] = sum(a.placement.device_bytes(a.shape, acc) for _, a in params)
+    mem["activations"] = int(saved)
+    return mem
+
+
+def reckon_lm_step(model, mesh: ShardMesh, rows: int, seq: int, microbatches: int = 1,
+                   optimizer: str = "adamw") -> dict:
+    """One device's bytes of ``model``'s train step over ``mesh`` (the
+    ``"model"`` plan) at ``rows`` x ``seq`` tokens, reckoned as a train
+    cell is (``_train_bytes``; the activations of one model shard of one
+    data shard's microbatch, traced on meta): what a card run of the same
+    step is held beside."""
+    shards = _dp_size(mesh)
+    per = -(-rows // (shards * microbatches))
+    batch = {"tokens": torch.empty((per, seq + 1), dtype=torch.int32, device="meta")}
+    probed = type(model)(model.cfg)  # on meta, whatever holds ``model``'s weights
+    traced = _lm_probe(probed, _TrainCell, batch, microbatches, mesh)
+    specs = probed.param_specs(mesh)
+    params = _placed(mesh, probed.abstract_params(), specs)
+    mem = _train_bytes(probed, mesh, specs, params, microbatches, traced["saved"], optimizer)
+    mem["total"] = sum(mem.values())
+    return mem
+
+
+class _TrainCell:
+    kind = "train"
 
 
 def reckon_cell(arch: str, shape_name: str, mesh: ShardMesh) -> dict:
@@ -269,7 +367,7 @@ def reckon_cell(arch: str, shape_name: str, mesh: ShardMesh) -> dict:
                             dtype=s.dtype, device="meta") for k, s in inputs.items()}
 
     if bundle.family == "lm":
-        traced = _lm_probe(model, cell, batch, mb)
+        traced = _lm_probe(model, cell, batch, mb, mesh)
     elif cell.kind == "train":
         loss = common.loss_for(bundle.family, model)
         t = _trace(model, lambda: loss(batch), grad=True)
@@ -281,17 +379,8 @@ def reckon_cell(arch: str, shape_name: str, mesh: ShardMesh) -> dict:
     specs = model.param_specs(mesh)
     params = _placed(mesh, model.abstract_params(), specs)
     train = cell.kind == "train"
-    mem = {"params": sum(a.device_bytes for _, a in params)}
-    if train:
-        opt = make_optimizer(getattr(cfg, "optimizer", "adamw"))
-        mem["grads"] = mem["params"]
-        mem["opt_state"] = sum(a.device_bytes for _, a in _placed(
-            mesh, opt.init(model.abstract_params()), opt.state_specs(specs)))
-        mem["accumulator"] = 0
-        if mb > 1:
-            acc = getattr(torch, getattr(cfg, "grad_accum_dtype", "float32"))
-            mem["accumulator"] = sum(a.placement.device_bytes(a.shape, acc) for _, a in params)
-        mem["activations"] = int(traced["saved"])
+    mem = (_train_bytes(model, mesh, specs, params, mb, traced["saved"]) if train
+           else {"params": sum(a.device_bytes for _, a in params)})
     if bundle.family == "lm" and cell.kind in ("prefill", "decode"):
         b = inputs["tokens" if cell.kind == "prefill" else "token"].shape[0]
         seq = common.LM_SHAPES[shape_name]["seq"]
@@ -314,7 +403,8 @@ def reckon_cell(arch: str, shape_name: str, mesh: ShardMesh) -> dict:
         "device_flops": traced["flops"],
         "collective_bytes": _collectives(mesh, params, train=train,
                                          remat=traced["remat"], microbatches=mb,
-                                         layer_keys=layer_keys),
+                                         layer_keys=layer_keys,
+                                         activations=traced.get("moved")),
         "model_flops": model_flops(bundle, model, cell, inputs),
         "seconds": round(now() - t0, 3),
     }

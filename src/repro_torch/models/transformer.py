@@ -34,6 +34,14 @@ follows the reference step for step:
   new one.  ``pos`` is a host int, checked against the cache's length on
   the host, so a step reads nothing back from the card.
 
+Over a mesh (the sharded step's ``"model"`` plan) ``split_loss`` and
+``split_forward`` run the same function with each layer's compute split
+over the mesh's ``"model"`` axis as the reference's specs lay it out (FSDP
+over the data axes, tensor parallelism over "model"): column- and
+row-parallel products, heads and vocabulary split, the residual stream
+sequence-sharded under ``seq_shard_activations``, the MoE expert-parallel
+(``layers.moe_block_split``), joined by ``parallel.collectives``.
+
 Token ids index the embedding unchecked inside a pass (the reference's
 gather clamps; torch raises on the CPU and asserts on the card): check them
 with ``check_ids`` where they are made.  ``scale_embed`` multiplies by
@@ -49,12 +57,14 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.common import TensorSpec
 from repro_torch.core.distances import check_ieee_fp32
 from repro_torch.models import layers
 from repro_torch.models.params import ParamModule
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (
     P,
     divisible_or_none,
@@ -97,7 +107,8 @@ class LMConfig:
     microbatches: int = 1
     seq_shard_activations: bool = False
     # FSDP execution mode of the reference's mesh (all-gather each layer's
-    # weights at use); the port's sharded step gathers a leaf whole
+    # weights at use, keeping their "model" split); the port's sharded step
+    # always gathers a leaf over its data axes only
     unshard_weights_at_use: bool = False
     expert_axis: str | None = None  # mesh axis for MoE expert parallelism
     attn_q_chunk: int | None = None  # query chunking for long prefill
@@ -142,8 +153,9 @@ class LMConfig:
 
 
 def _embed_scale(x: torch.Tensor, d_model: int) -> torch.Tensor:
-    """``x * sqrt(d_model)`` with the constant rounded to ``x``'s dtype."""
-    return x * torch.tensor(math.sqrt(d_model), dtype=x.dtype)
+    """``x * sqrt(d_model)`` with the constant rounded to ``x``'s dtype
+    (made on ``x``'s device: no host tensor to wait for)."""
+    return x * layers._const(math.sqrt(d_model), x)
 
 
 def _unembed(x: torch.Tensor, unembed: torch.Tensor) -> torch.Tensor:
@@ -151,6 +163,68 @@ def _unembed(x: torch.Tensor, unembed: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     check_ieee_fp32(xf)
     return xf @ unembed.float().T
+
+
+# ---------------------------------------------------------------- model split
+
+# the dim of each per-layer leaf (the stacked leaf's dim less one; the
+# embeddings' own) that a spec may split over "model"
+_MODEL_DIM = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1, "w_down": 0,
+              "shared_gate": 1, "shared_up": 1, "shared_down": 0, "moe_gate": 0,
+              "moe_up": 0, "moe_down": 0, "embed": 0, "unembed": 0}
+# leaves whose splits must agree: a product whose contraction runs over
+# another leaf's split, and K and V, which share their slices
+_PAIRS = (("wq", "wo"), ("wk", "wv"), ("w_gate", "w_down"), ("w_up", "w_down"),
+          ("shared_gate", "shared_down"), ("shared_up", "shared_down"),
+          ("moe_gate", "moe_up"), ("moe_gate", "moe_down"))
+
+
+class _Split:
+    """What each model shard of a ``split_loss`` computes, from the specs:
+    ``cols(key, j)`` is the range of ``key``'s split dim that model shard
+    ``j`` holds, or None where the spec leaves the leaf whole over
+    ``"model"`` (the shard then runs that product whole)."""
+
+    def __init__(self, model: "LMModel", lay: layers.SplitLayout, specs: dict):
+        self.lay = lay
+        self.m = lay.m
+        shapes = model.param_shapes()
+        self.size, self.split = {}, {}
+        for key, spec in specs.items():
+            axes = P(*spec).axes(len(shapes[key][0]))
+            at = [i for i, ax in enumerate(axes) if "model" in ax]
+            stacked = key not in ("embed", "unembed")
+            want = _MODEL_DIM.get(key)
+            if at and (want is None or at != [want + stacked] or axes[at[0]] != ("model",)):
+                raise NotImplementedError(f"the model-split LM splits {key} over 'model' "
+                                          f"only on dim {want}, not by {spec!r}")
+            self.split[key] = bool(at) and self.m > 1
+            if want is not None:
+                self.size[key] = shapes[key][0][want + stacked]
+        for a, b in _PAIRS:
+            if a in self.split and self.split[a] != self.split[b]:
+                raise NotImplementedError(f"{a} and {b} must be split over 'model' alike")
+
+    def cols(self, key: str, j: int):
+        return coll.piece_bounds(self.size[key], self.m, j) if self.split[key] else None
+
+    def full_seq(self, xs: list) -> list:
+        """The whole sequence on each model shard (an all-gather under
+        ``seq``)."""
+        return self.lay.over_model(coll.all_gather, xs, 1) if self.lay.seq else xs
+
+    def settle(self, parts: list, partial: bool) -> list:
+        """Products back into the residual stream's layout: partial sums
+        (a row-parallel product) reduce-scattered over the sequence under
+        ``seq``, else all-reduced; whole products sliced to the shard's
+        sequence under ``seq``, else kept."""
+        lay = self.lay
+        if partial:
+            fn = coll.reduce_scatter if lay.seq else coll.all_reduce
+            return lay.over_model(fn, parts, 1) if lay.seq else lay.over_model(fn, parts)
+        if not lay.seq:
+            return parts
+        return lay.each(lambda r, x: x[:, slice(*lay.seq_piece(r % self.m))], parts)
 
 
 class LMModel(ParamModule):
@@ -455,6 +529,222 @@ class LMModel(ParamModule):
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, tgt.long()[..., None])[..., 0]
         return torch.mean(logz - gold)
+
+    # ------------------------------------------------------------- model split
+
+    def split_loss(self, params: list, tokens: list, mesh, specs: dict,
+                   probe: bool = False) -> torch.Tensor:
+        """``loss_fn`` over a mesh, each model shard computing what its spec
+        pieces hold (the reference's FSDP + TP plan as GSPMD splits it).
+
+        ``params[r]``: mesh device r's tree, each leaf the piece it holds
+        over ``"model"`` and whole over the data axes (``"model"`` the
+        mesh's last axis, or none); ``tokens[s]``: data shard s's rows of
+        the microbatch, (B_s, S + 1).  Column-parallel ``wq`` / ``wk`` /
+        ``wv`` (heads kv-major, so a column block is a block of KV groups;
+        a shard whose q heads read a KV head its block splits all-gathers
+        K and V), ``w_gate`` / ``w_up`` / ``shared_*``; row-parallel ``wo``
+        / ``w_down`` reduce-scattered over the sequence under
+        ``seq_shard_activations`` (the residual stream, its norms, and the
+        all-gather before each column-parallel product: sequence
+        parallelism), all-reduced otherwise; the embedding and the
+        unembedding split by vocabulary (a vocab-parallel cross-entropy:
+        no shard forms the whole logits); the MoE expert-parallel
+        (``layers.moe_block_split``).  A leaf its spec leaves whole over
+        ``"model"`` runs whole on each shard.  ``remat`` checkpoints each
+        layer, collectives included.  ``probe`` (meta tensors only: the dry
+        run) computes mesh device 0's part alone and lets every device read
+        it.  Returns ``sum_s (B_s / B) loss_s`` on the mesh's lead device,
+        float32."""
+        sp, xf, toks = self._split_trunk(params, tokens, mesh, specs, probe)
+        per = self._split_ce(sp, params, xf, sp.lay.each(lambda r, t: t[:, 1:], toks))
+        b_all = [t.shape[0] for t in tokens]
+        lead, total, m = mesh.lead, sum(b_all), sp.m
+        loss = None
+        for s in (s for s in range(sp.lay.D) if b_all[s]):  # a shard may hold no rows
+            w = torch.full((), b_all[s] / total, dtype=torch.float32, device=lead)
+            part = torch.mean(per[s * m]).to(lead) * w
+            loss = part if loss is None else loss + part
+        return loss
+
+    def split_forward(self, params: list, tokens: list, mesh, specs: dict) -> list:
+        """``forward`` over a mesh (``split_loss``'s layout; ``tokens[s]``
+        (B_s, S) here): each mesh device's logits (B_s, S, its vocabulary
+        piece, or the whole where the unembedding is not split)."""
+        sp, xf, _ = self._split_trunk(params, [F.pad(t, (0, 1)) for t in tokens], mesh, specs)
+        return sp.lay.each(lambda r, x: self._split_logits(params[r], x), xf)
+
+    def _split_trunk(self, params, tokens, mesh, specs, probe=False):
+        """The embedding and the layers of ``split_loss``: its ``_Split``,
+        each device's final-normed stream over the whole sequence, and each
+        device's tokens (B_s, S + 1)."""
+        c = self.cfg
+        m = mesh.size("model") if "model" in mesh.axis_names else 1
+        if "model" in mesh.axis_names and mesh.axis_names[-1] != "model":
+            raise ValueError(f"the model axis must be the mesh's last, got {mesh.axis_names}")
+        b_all = [t.shape[0] for t in tokens]
+        starts = [sum(b_all[:s]) for s in range(len(tokens))]
+        seq_len = tokens[0].shape[1] - 1
+        lay = layers.SplitLayout(mesh, m, tuple((b0, b0 + n) for b0, n in zip(starts, b_all)),
+                                 seq_len, bool(c.seq_shard_activations) and m > 1, probe)
+        if lay.D != len(tokens):
+            raise ValueError(f"{len(tokens)} row shards for {lay.D} data shards")
+        sp = _Split(self, lay, specs)
+        toks = lay.each(lambda r: tokens[r // m].to(lay.device(r)))
+        xs = self._split_embed(sp, params, lay.each(lambda r, t: t[:, :-1], toks))
+        pos = lay.each(lambda r, t: self._positions(t.shape[0], seq_len).to(t.device), toks)
+        keys = self._layer_params()[1]
+        remat = c.remat and torch.is_grad_enabled()
+        for i, loc in enumerate(self._is_local_flags()):
+            lps = lay.each(lambda r: {k: params[r][k][i] for k in keys})
+            if remat:
+                xs = checkpoint(self._split_block, sp, xs, lps, loc, pos, use_reentrant=False)
+            else:
+                xs = self._split_block(sp, xs, lps, loc, pos)
+        xs = lay.each(lambda r, x: layers.rms_norm(x, params[r]["final_norm"]), xs)
+        return sp, sp.full_seq(xs), toks
+
+    def _split_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        return layers.softcap(_unembed(x, params["unembed"]), self.cfg.final_softcap)
+
+    def _split_embed(self, sp: _Split, params: list, inp: list) -> list:
+        c = self.cfg
+        lay = sp.lay
+        if sp.split["embed"]:
+            def part(r, tok):
+                v0, v1 = sp.cols("embed", r % sp.m)
+                tok = tok.long()
+                here = (tok >= v0) & (tok < v1)
+                rows = params[r]["embed"][torch.clamp(tok - v0, 0, v1 - v0 - 1)].to(c.dtype)
+                return torch.where(here[..., None], rows,
+                                   torch.zeros((), dtype=c.dtype, device=rows.device))
+
+            xs = sp.settle(lay.each(part, inp), partial=True)  # one nonzero term: exact
+        else:
+            def own(r, tok):
+                lo, hi = lay.seq_piece(r % sp.m)
+                return params[r]["embed"][tok[:, lo:hi].long()].to(c.dtype)
+
+            xs = lay.each(own, inp)
+        if c.scale_embed:
+            xs = lay.each(lambda r, x: _embed_scale(x, c.d_model), xs)
+        return xs
+
+    def _split_block(self, sp: _Split, xs: list, lps: list, is_local, pos: list) -> list:
+        """One layer of ``split_loss`` (``_block``'s train path)."""
+        c = self.cfg
+        each = sp.lay.each
+        hs = each(lambda r, x, lp: layers.rms_norm(x, lp["attn_norm"]), xs, lps)
+        o = self._split_attention(sp, sp.full_seq(hs), lps, is_local, pos)
+        o = sp.settle(o, partial=sp.split["wo"])
+        if c.post_norms:
+            o = each(lambda r, y, lp: layers.rms_norm(y, lp["attn_post_norm"]), o, lps)
+        xs = each(lambda r, x, y: x + y, xs, o)
+        hs = each(lambda r, x, lp: layers.rms_norm(x, lp["mlp_norm"]), xs, lps)
+        if c.is_moe:
+            t = sum(b1 - b0 for b0, b1 in sp.lay.rows) * sp.lay.seq_len
+            mo, _aux = layers.moe_block_split(
+                hs, *[[lp[k] for lp in lps] for k in ("router", "moe_gate", "moe_up",
+                                                       "moe_down")],
+                layers.MoEDims(c.moe_experts, c.moe_top_k, self._capacity(t), c.expert_axis,
+                               token_axes=c.batch_axes),
+                sp.lay, sp.split["moe_gate"])
+            if c.n_shared_experts:
+                sh = each(lambda r, h, lp: layers.swiglu(h, lp["shared_gate"], lp["shared_up"],
+                                                         lp["shared_down"]),
+                          sp.full_seq(hs), lps)
+                mo = each(lambda r, a, b: a + b, mo, sp.settle(sh, sp.split["shared_down"]))
+        else:
+            mo = each(lambda r, h, lp: layers.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]),
+                      sp.full_seq(hs), lps)
+            mo = sp.settle(mo, partial=sp.split["w_down"])
+        if c.post_norms:
+            mo = each(lambda r, y, lp: layers.rms_norm(y, lp["mlp_post_norm"]), mo, lps)
+        return each(lambda r, x, y: x + y, xs, mo)
+
+    def _split_attention(self, sp: _Split, hf: list, lps: list, is_local, pos: list) -> list:
+        """Each model shard's heads, whole sequence: its part of ``wo``'s
+        product (a partial sum where ``wo`` is split)."""
+        c = self.cfg
+        dh, g = c.dh, c.n_heads // c.n_kv_heads
+        lay = sp.lay
+        m = sp.m
+        each = lay.each
+        q = each(lambda r, h, lp: layers._matmul(h, lp["wq"]), hf, lps)
+        k = each(lambda r, h, lp: layers._matmul(h, lp["wk"]), hf, lps)
+        v = each(lambda r, h, lp: layers._matmul(h, lp["wv"]), hf, lps)
+        qcols = [sp.cols("wq", j) or (0, c.n_heads * dh) for j in range(m)]
+        heads = [(lo // dh, -(-hi // dh)) for lo, hi in qcols]
+        if any(lo % dh or hi % dh for lo, hi in qcols):
+            # a q block that splits a head: every shard takes whole heads
+            q = each(lambda r, x: x[..., heads[r % m][0] * dh:heads[r % m][1] * dh],
+                     lay.over_model(coll.all_gather, q, -1))
+        kv = [(h0 // g, -(-h1 // g)) for h0, h1 in heads]
+        kcols = [sp.cols("wk", j) or (0, c.n_kv_heads * dh) for j in range(m)]
+        off = [lo for lo, _ in kcols]
+        if any(k0 * dh < lo or k1 * dh > hi for (k0, k1), (lo, hi) in zip(kv, kcols)):
+            # a q head reads a KV head another shard's block holds (or
+            # splits): every shard gathers K and V whole
+            k = lay.over_model(coll.all_gather, k, -1)
+            v = lay.over_model(coll.all_gather, v, -1)
+            off = [0] * m
+        if c.local_global_alternate and c.sliding_window:
+            window = c.sliding_window if is_local else 2**30
+        else:
+            window = c.sliding_window
+
+        def attend(r, qr, kr, vr, p, lp):
+            j = r % m
+            (h0, h1), (k0, k1), (b, t) = heads[j], kv[j], qr.shape[:2]
+            qr = qr.reshape(b, t, h1 - h0, dh)
+            kr = kr[..., k0 * dh - off[j]:k1 * dh - off[j]].reshape(b, t, k1 - k0, dh)
+            vr = vr[..., k0 * dh - off[j]:k1 * dh - off[j]].reshape(b, t, k1 - k0, dh)
+            if not (h0 % g == 0 and h1 % g == 0) and k1 - k0 > 1:
+                # q heads that straddle KV groups: one KV head per q head
+                which = torch.arange(h0, h1, device=kr.device) // g - k0
+                kr, vr = kr[:, :, which], vr[:, :, which]
+            qr = layers.rope(qr, p, c.rope_theta)
+            kr = layers.rope(kr, p, c.rope_theta)
+            if c.attn_q_chunk:
+                o = layers.gqa_attention_qchunked(qr, kr, vr, p, p, None, window=window,
+                                                  attn_softcap=c.attn_softcap,
+                                                  chunk=c.attn_q_chunk)
+            else:
+                o = layers.gqa_attention(qr, kr, vr, p, p, None, window=window,
+                                         attn_softcap=c.attn_softcap)
+            o = o.reshape(b, t, (h1 - h0) * dh)
+            lo, hi = qcols[j]
+            return layers._matmul(o[..., lo - h0 * dh:hi - h0 * dh], lp["wo"])
+
+        return each(attend, q, k, v, pos, lps)
+
+    def _split_ce(self, sp: _Split, params: list, xf: list, tgt: list) -> list:
+        """Each rank's per-token cross-entropy (B_s, S), the whole on each
+        model shard: vocab-parallel where the unembedding is split (the row
+        max and the sum of exponentials all-reduced in float32, the
+        target's logit from the shard that holds it)."""
+        c = self.cfg
+        lay = sp.lay
+        each = lay.each
+        logits = each(lambda r, x: self._split_logits(params[r], x), xf)
+        if not sp.split["unembed"]:
+            return each(lambda r, lg, t: torch.logsumexp(lg, dim=-1)
+                        - torch.gather(lg, -1, t.long()[..., None])[..., 0], logits, tgt)
+        top = lay.over_model(coll.all_reduce_max,
+                             each(lambda r, lg: lg.amax(dim=-1, keepdim=True), logits))
+        z = lay.over_model(coll.all_reduce,
+                           each(lambda r, lg, t: torch.sum(torch.exp(lg - t), dim=-1),
+                                logits, top))
+
+        def gold(r, lg, t):
+            v0, v1 = sp.cols("unembed", r % sp.m)
+            t = t.long()
+            here = (t >= v0) & (t < v1)
+            got = torch.gather(lg, -1, torch.clamp(t - v0, 0, v1 - v0 - 1)[..., None])[..., 0]
+            return torch.where(here, got, torch.zeros((), device=lg.device))
+
+        gg = lay.over_model(coll.all_reduce, each(gold, logits, tgt))
+        return each(lambda r, t, zz, g_: t[..., 0] + torch.log(zz) - g_, top, z, gg)
 
     # ------------------------------------------------------------------ decode
 

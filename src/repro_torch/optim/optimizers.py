@@ -33,7 +33,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.parallel.sharding import P
+from repro_torch.parallel.sharding import P, ShardedTensor
 from repro_torch.pytree import leaves, leaves_upto, tree_map, unflatten
 
 __all__ = [
@@ -134,9 +134,11 @@ def cosine_schedule(peak: float, warmup: int, total: int, floor: float = 0.1):
 def _clip_scale(grads, max_norm: float) -> tuple[torch.Tensor, torch.Tensor]:
     """(the factor that scales ``grads`` to a global norm of at most
     ``max_norm``, the norm).  The leaves' squared norms are summed in JAX's
-    leaf order."""
+    leaf order; a leaf in pieces (a ``ShardedTensor``) sums its pieces'
+    own squares in piece order."""
     flat = leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in flat))
+    gnorm = torch.sqrt(sum(g.sum_sq() if isinstance(g, ShardedTensor) else
+                           torch.sum(g.float() ** 2) for g in flat))
     scale = torch.clamp_max(
         torch.div(_f32(max_norm, gnorm), torch.clamp_min(gnorm, 1e-9)), 1.0)
     return scale, gnorm

@@ -10,47 +10,58 @@ so this module keeps that rule by hand:
   :class:`~repro_torch.parallel.sharding.ShardedTensor`: the pieces its
   spec names, each on its own device (``state_specs``: the parameters'
   specs, the optimizer's ``state_specs`` of them, ``P()`` for a count).
-* **Gathered exactly for compute.**  Each parameter is gathered whole
-  onto each compute device (a copy, no arithmetic; once a step per
-  distinct device, so shards of one card read one copy); each shard runs
-  the one-device loss and backward on its rows over it.
-  A layer's compute is not split over ``"model"``: the model axis shards
-  storage only (see ROADMAP for the tensor-parallel compute left open).
 * **Rows** (``rows=``), per family (``plan_for``):
 
-  - ``"split"`` — the loss is a mean of independent per-row terms (a dense
-    LM's token cross-entropy, the CTR models' BCE): the batch's rows are
-    split over the data axes, shard ``s`` on ``shard_devices(mesh)[s]``,
-    and the loss and gradients are ``sum_s (rows_s / rows) * x_s``,
-    summed in shard order 0 … S−1 in float32 (float64 for a float64 copy)
-    on the lead device, the gradients then cast to their parameter's
-    dtype.
+  - ``"model"`` — every LM, dense or MoE: the reference's FSDP + TP plan.
+    Mesh device ``r`` (``"model"`` the mesh's last axis) is data shard
+    ``r // m`` and model shard ``r % m``.  Each parameter is gathered over
+    the data axes its spec splits it over (the FSDP split), each device
+    keeping its ``"model"`` piece (``ShardedTensor.model_region``): no
+    leaf the spec splits over ``"model"`` is gathered whole.  The batch is
+    cut into microbatches of consecutive rows, as on one device, and each
+    microbatch's rows are split over the data shards; ``split`` (the
+    model's ``split_loss``) runs every mesh device's part of the forward
+    at once, its layers split over ``"model"`` with the collectives of
+    ``parallel.collectives`` (and the MoE's routing over the whole
+    microbatch), and one backward gives each device's gradient of its
+    pieces.  Those are summed over the devices that hold a piece's region
+    in mesh order 0 … R−1 in float32 (float64 for a float64 copy; the
+    reduce-scatter over the data axes, plus the model shards' partial
+    sums of a leaf the spec keeps whole over ``"model"``) and cast: the
+    gradient comes back as ``ShardedTensor``s in the parameters' pieces.
+  - ``"split"`` — the loss is a mean of independent per-row terms (the CTR
+    models' BCE): the batch's rows are split over the data axes, shard
+    ``s`` on ``shard_devices(mesh)[s]``; each shard gathers every
+    parameter whole (a copy, no arithmetic; once a step per distinct
+    device) and runs the one-device loss and backward on its rows, and
+    the loss and gradients are ``sum_s (rows_s / rows) * x_s``, summed in
+    shard order 0 … S−1 in float32 (float64 for a float64 copy) on the
+    lead device, the gradients then cast to their parameter's dtype.
   - ``"in_batch"`` — the two-tower loss is an in-batch softmax over a
     (B, B) logit matrix, so rows interact through the item column: each
     shard embeds its rows, the item rows are all-gathered (float32, in
     shard order), each shard takes its rows' softmax over every column,
     the item rows' gradients are summed over the shards in shard order in
     float32 (the reduce-scatter), and each shard runs its towers' backward.
-  - ``"lead"`` — rows interact beyond that: PNA's message passing crosses
-    node shards, and an MoE LM counts expert capacity over a (micro)batch
-    of tokens, so a split would drop other tokens.  The whole batch runs on
-    the lead device; the state stays in pieces.
+  - ``"lead"`` — PNA: its message passing crosses node shards, so the whole
+    batch runs on the lead device over whole parameters; the state stays
+    in pieces.
 
-  With one compute shard (a mesh whose data axes are 1, or ``"lead"``) the
-  loss and gradients are that shard's own: storage-only sharding gives the
-  one-device step's bits.
+  With one compute shard (``"split"`` on a mesh whose data axes are 1, or
+  ``"lead"``) the loss and gradients are that shard's own: storage-only
+  sharding gives the one-device step's bits.
 * **Updated in place, piece by piece** (the port's counterpart of
   ``donate_argnums=(0,)``).  The optimizer's ``prepare`` runs once over the
   whole gradient tree on the lead device (the step count, the learning
-  rate, AdamW's global-norm clip: one sum per leaf, as on one device).  An
-  elementwise optimizer (AdamW) then updates each piece on its own device
-  from its slice of the gradient and the step's scalars; Adafactor's row
-  and column means, the mean of ``vr`` and the RMS clip reach over whole
-  dims, so its leaf is gathered onto the lead device, updated by the same
-  ``leaf`` code and written back into its pieces.  Either way each element
-  goes through the one-device operations.  The int8 residual is one scale
-  per whole leaf, so it is gathered, updated and written back the same
-  way.
+  rate, AdamW's global-norm clip: one sum per leaf, a leaf in pieces
+  summing its pieces' squares in piece order).  An elementwise optimizer
+  (AdamW) then updates each piece on its own device from its piece of the
+  gradient and the step's scalars; Adafactor's row and column means, the
+  mean of ``vr`` and the RMS clip reach over whole dims, so its leaf is
+  gathered onto the lead device, updated by the same ``leaf`` code and
+  written back into its pieces.  Either way each element goes through the
+  one-device operations.  The int8 residual is one scale per whole leaf,
+  so it is gathered, updated and written back the same way.
 
 Nothing here reads a value to the host; on a CUDA mesh nothing runs on the
 CPU.
@@ -87,7 +98,7 @@ __all__ = [
     "sharded_step_for",
 ]
 
-ROWS = ("split", "in_batch", "lead")
+ROWS = ("model", "split", "in_batch", "lead")
 
 
 def state_specs(optimizer: Optimizer, param_specs, compression: bool = False) -> dict:
@@ -105,15 +116,20 @@ def shard_state(state, placements):
 
 
 def gather_state(state, device):
-    """A tree of ``ShardedTensor``s as whole tensors on ``device``."""
-    return tree_map(lambda s: s.gather(device), state)
+    """A tree of ``ShardedTensor``s (or whole tensors) as whole tensors on
+    ``device``."""
+    return tree_map(lambda s: _whole(s, device), state)
+
+
+def _whole(x, device) -> torch.Tensor:
+    return x.gather(device) if isinstance(x, ShardedTensor) else x.to(device)
 
 
 def plan_for(family: str, model) -> dict:
     """How a model of ``family`` splits its rows (see the module note):
     ``rows`` and, for the in-batch softmax, ``towers`` and ``head``."""
     if family == "lm":
-        return {"rows": "lead" if model.cfg.is_moe else "split"}
+        return {"rows": "model", "split": model.split_loss}
     if family == "gnn":
         return {"rows": "lead"}
     if model.cfg.kind == "two_tower":
@@ -150,6 +166,8 @@ class ShardedTrainStep:
     rows: str = "split"
     towers: Callable | None = None  # in_batch: towers(params, batch) -> (u, i)
     head: Callable | None = None    # in_batch: head(u, items, first) -> row terms
+    # model: split(params per mesh device, rows per data shard, mesh, specs)
+    split: Callable | None = None
     microbatches: int = 1
     compression: bool = False
 
@@ -158,12 +176,17 @@ class ShardedTrainStep:
             raise ValueError(f"rows must be one of {ROWS}, got {self.rows!r}")
         if self.rows == "in_batch" and (self.towers is None or self.head is None):
             raise ValueError("rows='in_batch' needs towers and head")
+        if self.rows == "model" and self.split is None:
+            raise ValueError("rows='model' needs split")
         if not dp_axes(self.mesh):
             raise ValueError(f"mesh {self.mesh.axis_names} has no data axis")
         if self.mesh.lead.type == "meta":
             raise ValueError("a meta mesh holds nothing: it is for the dry run")
         self.placements = shard_tree(
             self.mesh, state_specs(self.optimizer, self.param_specs, self.compression))
+        # under "model": the parameter bytes each mesh device computes with
+        # (its "model" pieces, whole over the data axes), set by each step
+        self.compute_bytes: list | None = None
 
     # ------------------------------------------------------------------ state
 
@@ -210,8 +233,14 @@ class ShardedTrainStep:
     # ----------------------------------------------------------------- grads
 
     def grads(self, state, batch: dict) -> tuple[torch.Tensor, Any]:
-        """(loss, whole gradients) on the lead device, each gradient in its
-        parameter's dtype."""
+        """(loss on the lead device, gradients): under ``"model"`` a tree of
+        ``ShardedTensor``s in the parameters' pieces (``gather_state`` makes
+        them whole), else whole tensors on the lead device; each in its
+        parameter's dtype (float32 means over several microbatches under
+        ``"model"``, as ``TrainStep`` gives them)."""
+        if self.rows == "model":
+            with active_mesh(self.mesh):
+                return self._model_grads(state, batch)
         shards = self._row_shards(batch)
         with active_mesh(self.mesh):
             if self.rows == "in_batch" and len(shards) > 1:
@@ -239,6 +268,90 @@ class ShardedTrainStep:
             loss = l.to(lead) * w if loss is None else loss + l.to(lead) * w
         dts = [s.dtype for s in leaves(state["params"])]
         return loss, unflatten(state["params"], [a.to(dt) for a, dt in zip(acc, dts)])
+
+    def _model_grads(self, state, batch: dict) -> tuple[torch.Tensor, Any]:
+        """The ``"model"`` plan (module note): (loss on the lead device, the
+        gradient as ``ShardedTensor``s in the parameters' pieces)."""
+        mesh, lead = self.mesh, self.mesh.lead
+        d_shards = n_shards(mesh)
+        flat = leaves(state["params"])
+        regions = [[s.model_region(i) for s in flat] for i in range(mesh.n_devices)]
+        # each device's pieces, gathered over the data axes once per
+        # (device, region): the devices of one card read one copy, and each
+        # device's leaves are its own autograd leaves
+        cache: dict = {}
+        live, self.compute_bytes = [], []
+        for i, dev in enumerate(mesh.devices):
+            row, held = [], 0
+            for li, s in enumerate(flat):
+                key = (dev, li, regions[i][li])
+                if key not in cache:
+                    cache[key] = s.gather_region(regions[i][li], dev)
+                t = cache[key]
+                held += t.numel() * t.element_size()
+                row.append(t.detach().requires_grad_(True))
+            live.append(row)
+            self.compute_bytes.append(held)
+        del cache
+        rows = batch["tokens"].shape[0]
+        mbs = self.microbatches
+        if rows % mbs:
+            raise ValueError(f"batch size {rows} not divisible by microbatches {mbs}")
+        per = rows // mbs
+        every = [t for row in live for t in row]
+        n_leaves = len(flat)
+        # for each leaf, each piece: the mesh devices whose region holds it
+        # and the piece's slice of their gradient
+        parts_of = []
+        for li, s in enumerate(flat):
+            per_piece = {}
+            for piece in s.pieces:
+                b = s.placement.bounds(s.shape, piece)
+                per_piece[piece] = [
+                    (i, tuple(slice(x.start - lo, x.stop - lo) for x, (lo, _) in zip(b, reg)))
+                    for i, reg in ((i, regions[i][li]) for i in range(mesh.n_devices))
+                    if all(x.start >= lo and x.stop <= hi for x, (lo, hi) in zip(b, reg))]
+            parts_of.append(per_piece)
+        acc: list = [{} for _ in flat]
+        loss = None
+        step = -(-per // d_shards)  # the last shards shorter or empty
+        for mb in range(mbs):
+            tokens = batch["tokens"][mb * per:(mb + 1) * per]
+            shards = [tokens[min(per, s * step):min(per, (s + 1) * step)]
+                      for s in range(d_shards)]
+            with torch.enable_grad():
+                l = self.split([unflatten(state["params"], row) for row in live], shards,
+                               mesh, self.param_specs)
+                g = torch.autograd.grad(l, every, allow_unused=True, materialize_grads=True)
+            l = l.detach()
+            loss = l if loss is None else loss + l
+            # the piece's sum over the devices that hold its region, in mesh
+            # order, in the wide dtype (then over the microbatches)
+            for li, s in enumerate(flat):
+                for piece, by_dev in s.pieces.items():
+                    dev0 = next(iter(by_dev))
+                    total = None
+                    for i, rel in parts_of[li][piece]:
+                        x = _wide(g[i * n_leaves + li][rel].to(dev0))
+                        total = x if total is None else total + x
+                    prev = acc[li].get(piece)
+                    acc[li][piece] = total if prev is None else prev + total
+            del g
+        out = []
+        for li, s in enumerate(flat):
+            # one microbatch: the parameter's dtype, as on one device; more:
+            # the float32 mean of the microbatches, as ``TrainStep`` gives it
+            dt = s.dtype if mbs == 1 else torch.promote_types(s.dtype, torch.float32)
+            pieces = {}
+            for piece, by_dev in s.pieces.items():
+                total = acc[li][piece]
+                total = (total if mbs == 1 else total / mbs).to(dt)
+                pieces[piece] = {d: total if j == 0 else total.to(d, copy=True)
+                                 for j, d in enumerate(by_dev)}
+            out.append(ShardedTensor(s.placement, s.shape, dt, pieces))
+        if mbs > 1:
+            loss = loss / mbs
+        return loss.to(lead), unflatten(state["params"], out)
 
     def _in_batch_grads(self, state, shards) -> tuple[torch.Tensor, Any]:
         lead = self.mesh.lead
@@ -291,7 +404,7 @@ class ShardedTrainStep:
         if self.compression:
             out = []
             for g, r in zip(leaves(grads), leaves(state["residual"])):
-                deq, new_r = int8_error_feedback([g], [r.gather(lead)])
+                deq, new_r = int8_error_feedback([_whole(g, lead)], [r.gather(lead)])
                 r.scatter_(new_r[0])
                 out.append(deq[0])
             grads = unflatten(grads, out)
@@ -301,7 +414,7 @@ class ShardedTrainStep:
             if opt.elementwise:
                 self._pieces_(p, g, s, sc)
             else:
-                new_p, new_s = opt.leaf(p.gather(lead), g,
+                new_p, new_s = opt.leaf(p.gather(lead), _whole(g, lead),
                                         {k: v.gather(lead) for k, v in s.items()}, sc)
                 p.scatter_(new_p)
                 for k, v in new_s.items():
@@ -310,13 +423,14 @@ class ShardedTrainStep:
         state["step"].scatter_(state["step"].gather(lead) + 1)
         return state
 
-    def _pieces_(self, p: ShardedTensor, g: torch.Tensor, s: dict, sc: dict) -> None:
-        """One elementwise update of every piece of ``p`` on its device."""
+    def _pieces_(self, p: ShardedTensor, g, s: dict, sc: dict) -> None:
+        """One elementwise update of every piece of ``p`` on its device, from
+        the gradient's piece (``g`` whole, or in ``p``'s pieces)."""
         for piece, by_dev in p.pieces.items():
             b = p.placement.bounds(p.shape, piece)
             for dev, pt in by_dev.items():
-                self.optimizer.leaf_(pt, g[b].to(dev), {k: v.pieces[piece][dev]
-                                                        for k, v in s.items()},
+                gp = g.pieces[piece][dev] if isinstance(g, ShardedTensor) else g[b].to(dev)
+                self.optimizer.leaf_(pt, gp, {k: v.pieces[piece][dev] for k, v in s.items()},
                                      {k: v.to(dev) for k, v in sc.items()})
 
     def step_(self, state, batch: dict) -> tuple[dict, dict]:
@@ -327,14 +441,15 @@ class ShardedTrainStep:
 def make_sharded_train_step(loss_fn: Callable, optimizer: Optimizer, mesh: ShardMesh,
                             param_specs, batch_spec=None, **kw) -> ShardedTrainStep:
     """The sharded step of ``loss_fn(params, batch)``; ``kw``: ``rows``,
-    ``towers``, ``head`` (``plan_for``), ``microbatches``, ``compression``."""
+    ``towers``, ``head``, ``split`` (``plan_for``), ``microbatches``,
+    ``compression``."""
     return ShardedTrainStep(loss_fn, optimizer, mesh, param_specs, batch_spec, **kw)
 
 
 def sharded_step_for(family: str, model, optimizer: Optimizer, mesh: ShardMesh,
                      **kw) -> ShardedTrainStep:
     """``make_sharded_train_step`` for a port model of ``family``: its loss,
-    its ``param_specs(mesh)`` and its row plan (``plan_for``)."""
+    its ``param_specs(mesh)`` and its plan (``plan_for``)."""
     from repro_torch.configs.common import loss_for
     from repro_torch.train.step import functional_loss
 

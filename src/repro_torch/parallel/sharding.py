@@ -393,6 +393,45 @@ class ShardedTensor:
         for b, dev, t in self.local():
             t.copy_(full[b])
 
+    def model_region(self, i: int) -> tuple[tuple[int, int], ...]:
+        """``(start, stop)`` per dim of mesh device ``i``'s piece over the
+        axes that are not data axes: what a model shard computes with, whole
+        over the data axes (the FSDP split) and split as the spec splits it
+        over ``"model"``."""
+        dp = set(dp_axes(self.placement.mesh))
+        parts = []
+        for ax in self.placement.spec.axes(self.ndim):
+            keep = tuple(a for a in ax if a not in dp)
+            if keep and len(keep) != len(ax):
+                raise ValueError(f"spec {self.placement.spec!r} splits one dim over data "
+                                 "and model axes at once")
+            parts.append(keep or None)
+        pl = Placement(self.placement.mesh, P(*parts))
+        return tuple((b.start, b.stop) for b in pl.bounds(self.shape, pl.piece_of(i, self.ndim)))
+
+    def gather_region(self, region: tuple[tuple[int, int], ...], device) -> torch.Tensor:
+        """The ``region`` (``model_region``) on ``device``, each piece inside
+        it copied exactly: a gather over the data axes only."""
+        device = torch.device(device)
+        out = torch.empty(tuple(hi - lo for lo, hi in region), dtype=self.dtype, device=device)
+        for piece, by_dev in self.pieces.items():
+            b = self.placement.bounds(self.shape, piece)
+            if all(s.start >= lo and s.stop <= hi for s, (lo, hi) in zip(b, region)):
+                rel = tuple(slice(s.start - lo, s.stop - lo) for s, (lo, _) in zip(b, region))
+                out[rel] = by_dev.get(device, next(iter(by_dev.values())))
+        return out
+
+    def sum_sq(self, device=None) -> torch.Tensor:
+        """The float32 sum of the squared elements, each piece's own sum
+        added in piece order on ``device`` (the mesh's lead by default)."""
+        device = torch.device(device) if device is not None else self.placement.mesh.lead
+        total = None
+        for by_dev in self.pieces.values():
+            t = next(iter(by_dev.values()))
+            part = torch.sum(t.float() ** 2).to(device)
+            total = part if total is None else total + part
+        return total
+
     def device_bytes(self) -> int:
         """One mesh device's share, as its spec reckons it."""
         return self.placement.device_bytes(self.shape, self.dtype)

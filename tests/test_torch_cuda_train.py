@@ -1,7 +1,10 @@
 """Two-tower training on the card: the reduced train step on the card
 against the CPU port, two runs of the same steps bit-equal, crash and
 resume bit-exact, and a checkpoint saved from the card restored onto the
-CPU and onto the card bit for bit, bfloat16 leaves included.
+CPU and onto the card bit for bit, bfloat16 leaves included.  The sharded
+step of each family on mesh devices of the card, and the LM's compute
+split over "model" (the collectives, the split step of every LM arch,
+the expert-parallel MoE's routing) against one device on the card.
 
 The file imports no jax; on the card it runs as
 
@@ -11,6 +14,7 @@ The file imports no jax; on the card it runs as
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -20,7 +24,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import common
 from repro_torch.configs.recsys_archs import TWO_TOWER
 from repro_torch.configs.registry import get_arch
-from repro_torch.data.pipeline import ClickStream
+from repro_torch.data.pipeline import ClickStream, TokenStream
 from repro_torch.kernels import _build
 from repro_torch.models import recsys as R
 from repro_torch.optim import adamw
@@ -186,10 +190,11 @@ def test_sharded_step_on_card_matches_the_one_device_step(card, arch, data,
                                                           model_parallel):
     """``parallel.sharded_step`` over ``make_local_mesh`` on the card (the
     mesh devices are ``cuda:0`` reused) against the one-device step on the
-    card from the same state: bit for bit where no rows are split (a data
-    axis of 1, PNA's ``"lead"`` plan); within the training bound (loss 1e-5
-    relative, a parameter within 2 * lr, at most 1% of a leaf beyond 1e-5)
-    where they are."""
+    card from the same state: bit for bit where one shard computes it all
+    (PNA's ``"lead"`` plan, or a data axis of 1 under ``"split"``); within
+    the training bound (loss 1e-5 relative, a parameter within 2 * lr, at
+    most 1% of a leaf beyond 1e-5) where rows are split or an LM's layers
+    are split over "model" (the ``"model"`` plan)."""
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.parallel.sharded_step import gather_state, plan_for, sharded_step_for
 
@@ -215,7 +220,8 @@ def test_sharded_step_on_card_matches_the_one_device_step(card, arch, data,
     got, gm = step.step_(step.shard(init_state(clone(), opt)), batch)
     assert all(t.is_cuda for s in leaves(got) for _, _, t in s.local())
     whole = gather_state(got, card)
-    if data == 1 or plan_for(bundle.family, model)["rows"] == "lead":
+    rows = plan_for(bundle.family, model)["rows"]
+    if rows == "lead" or (rows != "model" and data == 1):
         assert _equal_bits(gm["loss"], wm["loss"])
         assert all(_equal_bits(x, y) for x, y in zip(leaves(whole), leaves(want)))
         return
@@ -223,3 +229,105 @@ def test_sharded_step_on_card_matches_the_one_device_step(card, arch, data,
     for x, y in zip(leaves(whole["params"]), leaves(want["params"])):
         d = (x.float() - y.float()).abs()
         assert float(d.max()) <= 2 * LR and float((d > 1e-5).float().mean()) <= 0.01
+
+
+def _split_model(arch: str, card, **changes):
+    model, cfg, _ = get_arch(arch).make_reduced()
+    model = type(model)(dataclasses.replace(cfg, vocab=256, seq_shard_activations=True,
+                                            **changes))
+    return model.init_params(torch.Generator(card).manual_seed(0), device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["model", "data"])
+def test_collectives_on_card_are_ordered_sums_and_transposes(card, axis):
+    """``parallel.collectives`` over a (2, 2) mesh of the card's devices:
+    reduce-scatter and all-reduce give the float32 sum in member order
+    bit for bit, all-gather the concatenation, and each backward its
+    transpose."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import collectives as coll
+
+    mesh = make_local_mesh(2, n_devices=4)
+    gen = torch.Generator(card).manual_seed(0)
+    xs = [torch.randn(3, 8, 5, generator=gen, device=card).to(torch.bfloat16)
+          .requires_grad_(True) for _ in range(4)]
+    out = coll.reduce_scatter(xs, mesh, axis, 1)
+    up = [torch.randn(3, 4, 5, generator=gen, device=card).to(torch.bfloat16) for _ in range(4)]
+    gx = torch.autograd.grad(out, xs, up)
+    for g in coll.groups(mesh, axis):
+        total = (xs[g[0]].float() + xs[g[1]].float()).to(torch.bfloat16)
+        for a, i in enumerate(g):
+            assert _equal_bits(out[i], total[:, 4 * a:4 * a + 4])
+            assert _equal_bits(gx[i], torch.cat([up[q] for q in g], 1))
+    red = coll.all_reduce([x.detach() for x in xs], mesh, axis)
+    for g in coll.groups(mesh, axis):
+        for i in g:
+            assert _equal_bits(red[i], (xs[g[0]].float() + xs[g[1]].float()).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2)], ids=["1x2", "1x4", "2x2"])
+@pytest.mark.parametrize("arch,changes", [
+    ("llama3.2-1b", {}), ("gemma2-9b", {}),
+    ("kimi-k2-1t-a32b", {"expert_axis": "model"}),
+    ("phi3.5-moe-42b-a6.6b", {"expert_axis": "model"})], ids=["llama", "gemma2", "kimi", "phi"])
+def test_model_split_on_card_matches_one_device(card, arch, changes, shape):
+    """The ``"model"`` plan on the card (float32 reduced models, the
+    vocabulary split, the residual stream sequence-sharded): the loss within
+    1e-5 relative and each gradient leaf within 1e-4 of its largest of the
+    one-device step on the card; the gradient twice bit for bit; no host
+    sync under the audit's watch (RoPE's float64 angles are allowed)."""
+    from repro_torch.analysis.audit import watch_call
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel.sharded_step import gather_state, sharded_step_for
+
+    model = _split_model(arch, card, **changes)
+    batch = to_device(TokenStream(vocab=256, batch=8, seq=16, seed=0).next(), card)
+    one = make_train_step(functional_loss(model, model.loss_fn), adamw(lr=LR))
+    loss, grads = one.grads(model.param_tree(), batch)
+    step = sharded_step_for("lm", model, adamw(lr=LR),
+                            make_local_mesh(shape[1], n_devices=shape[0] * shape[1]))
+    state = step.shard(init_state(tree_map(lambda t: t.clone(), model.param_tree()),
+                                  adamw(lr=LR)))
+    step.grads(state, batch)  # RoPE's frequency table is made once per device
+    with warnings.catch_warnings():
+        # the first switch to sync debug mode in a process warns that the
+        # mode is a prototype, which the watch would count as a sync
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode(0)
+    (l_sh, g_sh), problems = watch_call("split_grads", step.grads, state, batch)
+    assert [p for p in problems if p.check != "f64"] == []  # no host sync
+    l_again, g_again = step.grads(state, batch)
+    assert _equal_bits(l_sh, l_again)
+    assert abs(float(l_sh) - float(loss)) <= LOSS_REL * abs(float(loss))
+    g_sh, g_again = gather_state(g_sh, card), gather_state(g_again, card)
+    for k, g in grads.items():
+        assert _equal_bits(g_sh[k], g_again[k]), k
+        assert float((g_sh[k] - g).abs().max()) <= 1e-4 * float(g.abs().max()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_expert_parallel_routing_on_card_equals_one_device(card, shape):
+    """The reduced Phi's MoE block (bf16, a capacity that binds) expert-
+    parallel over the card's mesh devices: expert ids, capacity, pairs kept
+    and dropped per expert equal to one device's, the output bit for bit."""
+    import pathlib
+    import sys
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    model = _split_model("phi3.5-moe-42b-a6.6b", card, expert_axis="model",
+                         dtype=torch.bfloat16, moe_capacity_factor=0.5)
+    tokens = torch.randint(0, 256, (4, 32), generator=torch.Generator(card).manual_seed(0),
+                           device=card)
+    got = chip_smoke.moe_split_against_one(
+        torch, model, tokens, make_local_mesh(shape[1], n_devices=shape[0] * shape[1]))
+    assert got["capacity_equal"] and got["ids_equal"] and got["loads_equal"]
+    assert got["drops_equal"] and sum(got["drops"]) > 0
+    assert got["out_bits_equal"], got

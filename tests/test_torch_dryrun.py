@@ -106,7 +106,8 @@ def test_train_cells_reckon_on_the_multi_pod_mesh(reference):
 def test_per_device_bytes_of_llama_train_4k():
     """Llama-3.2-1B's ``train_4k`` on 16 x 16 by hand: its AdamW moments
     are twice its parameters in float32 (each leaf's piece); remat keeps
-    at least every layer's (16 rows x 4,096 x 2,048) bf16 input."""
+    at least every layer's input, (16 rows x 4,096 x 2,048) bf16 over the
+    16 model shards of the sequence-sharded residual stream."""
     rec = dryrun.reckon_cell("llama3.2-1b", "train_4k", make_production_mesh())
     mem = rec["per_device_bytes"]
     mesh = make_production_mesh()
@@ -116,11 +117,35 @@ def test_per_device_bytes_of_llama_train_4k():
                   for n, _, (shape, _) in model._leaves())
     assert mem["opt_state"] == moments + 4  # m, v and the int32 step
     assert rec["plan"]["remat"] and rec["plan"]["input_split"] == {"tokens": 16}
-    assert mem["activations"] >= 16 * 16 * 4096 * 2048 * 2
+    assert mem["activations"] >= 16 * 16 * 4096 * 2048 * 2 / 16
     coll = rec["collective_bytes"]
     assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
-    assert math.isclose(coll["total"], coll["all-gather"] + coll["reduce-scatter"]
-                        + coll["all-reduce"])
+    assert math.isclose(coll["total"], sum(v for k, v in coll.items() if k != "total"))
+
+
+def test_llama_train_4k_fits_a_device_under_the_model_split():
+    """The model split (the port's ``"model"`` plan) reckons Llama
+    ``train_4k`` on 16 x 16 under 80 GB a device, where gathering each
+    layer whole reckoned 157.7 GB: each model shard keeps its 2 of 32
+    heads' scores, a sixteenth of the vocabulary's logits and a sixteenth
+    of each layer's input.  The tensor-parallel activation collectives
+    are counted (the sequence's all-gather before each column-parallel
+    product, the reduce-scatter after each row-parallel one, the loss's
+    all-reduces), the whole-leaf gather is gone, and the FLOPs a device
+    does are its share of the model's (within the attention and the remat
+    recompute)."""
+    mesh = make_production_mesh()
+    rec = dryrun.reckon_cell("llama3.2-1b", "train_4k", mesh)
+    mem = rec["per_device_bytes"]
+    assert mem["total"] < 80e9 and mem["activations"] < 20e9
+    coll = rec["collective_bytes"]
+    for key in ("all-gather (activations)", "reduce-scatter (activations)",
+                "all-reduce (activations)"):
+        assert coll[key] > 0, key
+    assert "all-gather (port step)" not in coll
+    assert rec["plan"]["port_step_rows"] == "model"
+    share = rec["model_flops"] / mesh.n_devices
+    assert share < rec["device_flops"] < 2 * share
 
 
 def test_cli_reckons_every_cell_on_16x16(reference, tmp_path, capsys):

@@ -69,6 +69,15 @@ def test_no_jax_or_reference_import(relpath):
             assert name.split(".")[0] not in FORBIDDEN + ("ml_dtypes",), (relpath, name)
 
 
+def test_the_scan_covers_the_model_split():
+    """The AST scan above reads the collectives of the model split and the
+    modules that call them."""
+    for rel in ("src/repro_torch/parallel/collectives.py",
+                "src/repro_torch/parallel/sharded_step.py",
+                "src/repro_torch/models/transformer.py", "src/repro_torch/models/layers.py"):
+        assert rel in PORT_FILES, rel
+
+
 def test_recsys_modules_load_no_jax():
     """The recsys family's model, registry and launcher, imported alone (the
     registry holds every family's names: 5 LM, PNA, 4 recsys)."""
@@ -158,9 +167,10 @@ def test_training_modules_and_a_step_load_no_jax():
 def test_sharded_engine_runs_with_jax_absent():
     """``repro_torch.parallel`` imports, a mesh-built index answers on CPU
     shards, the sharded train step steps the reduced Llama on a simulated
-    (2, 2) mesh (``launch.simdevices``), ``launch.mesh`` lays out the
-    production mesh and ``launch.dryrun`` reckons a cell on it, in a process
-    where importing jax or ``repro`` fails."""
+    (2, 2) mesh (``launch.simdevices``) with its layers split over "model"
+    (``parallel.collectives``), ``launch.mesh`` lays out the production
+    mesh and ``launch.dryrun`` reckons a serving and a train cell on it, in
+    a process where importing jax or ``repro`` fails."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -190,9 +200,12 @@ def test_sharded_engine_runs_with_jax_absent():
         "    4, (2, 2), ('data', 'model')))\n"
         "state, m = step.step_(step.shard(init_state(model.param_tree(), adamw())),\n"
         "                      batch_fn(torch.Generator().manual_seed(1)))\n"
-        "assert torch.isfinite(m['loss'])\n"
-        "rec = dryrun.reckon_cell('llama3.2-1b', 'decode_32k', mesh.make_production_mesh())\n"
-        "assert rec['status'] == 'reckoned' and rec['n_devices'] == 256\n"
+        "assert torch.isfinite(m['loss']) and step.rows == 'model'\n"
+        "import repro_torch.parallel.collectives\n"
+        "for shape in ('decode_32k', 'train_4k'):\n"
+        "    rec = dryrun.reckon_cell('llama3.2-1b', shape, mesh.make_production_mesh())\n"
+        "    assert rec['status'] == 'reckoned' and rec['n_devices'] == 256\n"
+        "assert rec['collective_bytes']['all-gather (activations)'] > 0\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -24,7 +24,8 @@ optimizer, with and without compression, bit for bit), the sharded train
 step of each family on simulated meshes against the one-device step, the
 reference's four-device step mirrored, the port's sharded step held to the
 reference's own jit step on its simulated 4-device mesh (a subprocess,
-~20 s), and the launcher over a mesh (these ~40 s of the file's time).
+~40 s: the reduced Llama and the expert-parallel Phi split over "model"),
+and the launcher over a mesh (these ~60 s of the file's time).
 """
 
 from __future__ import annotations
@@ -258,10 +259,12 @@ def _family_batch(bundle, model):
 def test_sharded_step_matches_the_one_device_step(arch, shape, names):
     """Two steps of ``parallel.sharded_step`` on a simulated mesh against
     the one-device step from the same state: bit for bit in loss,
-    parameters and moments where no rows are split (data axes of 1, or the
-    ``"lead"`` plan of an MoE LM and PNA); loss within 1e-5 relative and
-    each parameter within 2 * lr a step, at most 1% of a leaf beyond 1e-5,
-    where they are."""
+    parameters and moments where one shard computes it all (data axes of 1
+    under the ``"split"`` plan, or PNA's ``"lead"``); loss within 1e-5
+    relative and each parameter within 2 * lr a step, at most 1% of a leaf
+    beyond 1e-5, where rows are split or an LM's layers are split over
+    ``"model"`` (the ``"model"`` plan sums partial products in another
+    order)."""
     from repro_torch.launch.simdevices import simulated_mesh
     from repro_torch.parallel.sharded_step import gather_state, plan_for, sharded_step_for
 
@@ -277,7 +280,8 @@ def test_sharded_step_matches_the_one_device_step(arch, shape, names):
     step = sharded_step_for(bundle.family, model, opt, mesh)
     want = init_state(_clone(model.param_tree()), opt)
     got = step.shard(init_state(_clone(model.param_tree()), opt))
-    exact = mesh.size("data") == 1 or plan_for(bundle.family, model)["rows"] == "lead"
+    rows = plan_for(bundle.family, model)["rows"]
+    exact = rows == "lead" or (rows != "model" and mesh.size("data") == 1)
     for i in range(2):
         want, wm = one(want, batch)
         got, gm = step.step_(got, batch)
@@ -322,10 +326,17 @@ def test_the_reference_four_device_step_mirrored():
 
 # the reference's sharded step on its simulated 4-device host mesh: the
 # reduced Llama (batch_axes=("data",)) on (4,) with everything replicated,
-# as tests/test_multidevice.py runs it, and on (2, 2) with the model's
-# param_specs and the batch's rows over "data"; each writes the loss, the
-# gradients (jit of jax.grad over the same sharded inputs) and the new
+# as tests/test_multidevice.py runs it, and on (2, 2) and (1, 4) with the
+# model's param_specs and the batch's rows over "data"; the reduced Phi with
+# expert_axis="model" on (2, 2) and (1, 4) likewise; each writes the loss,
+# the gradients (jit of jax.grad over the same sharded inputs) and the new
 # parameters of one AdamW step
+_SHARDED_CASES = (
+    ("llama3.2-1b", {}, (("4", (4,), ("data",)), ("2x2", (2, 2), ("data", "model")),
+                         ("1x4", (1, 4), ("data", "model")))),
+    ("phi3.5-moe-42b-a6.6b", {"expert_axis": "model"},
+     (("2x2", (2, 2), ("data", "model")), ("1x4", (1, 4), ("data", "model")))),
+)
 _JAX_SHARDED_STEP = """
     import dataclasses
     import numpy as np
@@ -335,81 +346,130 @@ _JAX_SHARDED_STEP = """
     from repro.optim import adamw
     from repro.train.step import init_state, make_train_step
 
-    model, cfg, batch_fn = registry()["llama3.2-1b"].make_reduced()
-    model = type(model)(dataclasses.replace(cfg, batch_axes=("data",)))
-    params = model.init_params(jax.random.PRNGKey(0))
-    batch = batch_fn(jax.random.PRNGKey(1))
-    loss_fn = common.loss_for("lm", model)
-    out = {"tokens": np.asarray(batch["tokens"])}
-    out.update({"init/" + k: np.asarray(v) for k, v in params.items()})
-    for name, shape, axes in (("4", (4,), ("data",)), ("2x2", (2, 2), ("data", "model"))):
-        # Mesh, not make_mesh: newer jax makes explicit-axis meshes, whose
-        # row-split gather needs an out_sharding the reference never gives
-        mesh = Mesh(np.array(jax.devices()[:4]).reshape(shape), axes)
-        if name == "4":
-            specs, bspec = {k: P() for k in params}, P(None, None)
-        else:
-            specs, bspec = model.param_specs(mesh), P("data", None)
-        with mesh:
-            p = jax.device_put(params, {k: NamedSharding(mesh, s) for k, s in specs.items()})
-            b = jax.device_put(batch, {"tokens": NamedSharding(mesh, bspec)})
-            grads = jax.jit(jax.grad(loss_fn))(p, b)
-            step = jax.jit(make_train_step(loss_fn, adamw(lr=1e-3)), donate_argnums=(0,))
-            state, metrics = step(init_state(p, adamw(lr=1e-3)), b)
-        out[name + "/loss"] = np.asarray(metrics["loss"])
-        out.update({name + "/grad/" + k: np.asarray(v) for k, v in grads.items()})
-        out.update({name + "/param/" + k: np.asarray(v) for k, v in state["params"].items()})
+    out = {}
+    for arch, changes, cases in %r:
+        model, cfg, batch_fn = registry()[arch].make_reduced()
+        model = type(model)(dataclasses.replace(cfg, batch_axes=("data",), **changes))
+        params = model.init_params(jax.random.PRNGKey(0))
+        batch = batch_fn(jax.random.PRNGKey(1))
+        loss_fn = common.loss_for("lm", model)
+        out[arch + "/tokens"] = np.asarray(batch["tokens"])
+        out.update({arch + "/init/" + k: np.asarray(v) for k, v in params.items()})
+        for name, shape, axes in cases:
+            # Mesh, not make_mesh: newer jax makes explicit-axis meshes,
+            # whose row-split gather needs an out_sharding the reference
+            # never gives
+            mesh = Mesh(np.array(jax.devices()[:4]).reshape(shape), axes)
+            if name == "4":
+                specs, bspec = {k: P() for k in params}, P(None, None)
+            else:
+                specs, bspec = model.param_specs(mesh), P("data", None)
+            with mesh:
+                p = jax.device_put(params, {k: NamedSharding(mesh, s)
+                                            for k, s in specs.items()})
+                b = jax.device_put(batch, {"tokens": NamedSharding(mesh, bspec)})
+                grads = jax.jit(jax.grad(loss_fn))(p, b)
+                step = jax.jit(make_train_step(loss_fn, adamw(lr=1e-3)), donate_argnums=(0,))
+                state, metrics = step(init_state(p, adamw(lr=1e-3)), b)
+            key = arch + "/" + name
+            out[key + "/loss"] = np.asarray(metrics["loss"])
+            out.update({key + "/grad/" + k: np.asarray(v) for k, v in grads.items()})
+            out.update({key + "/param/" + k: np.asarray(v) for k, v in state["params"].items()})
     np.savez(sys.argv[1], **out)
     print("JAX_SHARDED_OK")
-"""
+""" % (_SHARDED_CASES,)
+
+
+def _held_to_reference(loss, grads, params, ref: dict, key: str) -> list:
+    """What a port step's loss, gradients (whole) and new parameters miss of
+    the reference's: the loss within 1e-5 relative, each gradient leaf
+    within 1e-4 of its largest |value|, each new parameter within 2 lr, at
+    most 1% of a leaf beyond 1e-5."""
+    from repro_torch.pytree import leaves_with_paths, path_key
+
+    out = []
+    want = float(ref[key + "/loss"])
+    if abs(float(loss) - want) > LOSS_REL * abs(want):
+        out.append((key, "loss"))
+    for p, g in leaves_with_paths(grads):
+        jg = torch.from_numpy(ref[f"{key}/grad/{path_key(p)}"])
+        if float((g - jg).abs().max()) > 1e-4 * float(jg.abs().max()):
+            out.append((key, "grad", path_key(p)))
+    for p, x in leaves_with_paths(params):
+        d = (x - torch.from_numpy(ref[f"{key}/param/{path_key(p)}"])).abs()
+        if float(d.max()) > 2 * 1e-3 or float((d > 1e-5).float().mean()) > 0.01:
+            out.append((key, "param", path_key(p)))
+    return out
 
 
 def test_sharded_step_holds_to_the_reference_four_device_step(tmp_path):
     """The port's sharded step against the reference's jit step on its
-    simulated 4-device mesh (one subprocess, ~20 s), over JAX's own
-    parameters and batch: on (4,), everything replicated (the reference's
-    ``tests/test_multidevice.py``), and on (2, 2) with ``param_specs`` and
-    the rows split over ``"data"``.  The loss within 1e-5 relative, each
-    gradient leaf within 1e-4 of its largest |value|, each new parameter
-    within 2 lr, at most 1% of a leaf beyond 1e-5."""
+    simulated 4-device mesh (one subprocess, ~40 s), over JAX's own
+    parameters and batch: the reduced Llama on (4,), everything replicated
+    (the reference's ``tests/test_multidevice.py``), and on (2, 2) and
+    (1, 4) with ``param_specs`` and the rows split over ``"data"``; the
+    reduced Phi with ``expert_axis="model"`` on (2, 2) and (1, 4).  On the
+    (data, model) meshes the port runs its ``"model"`` plan (the layers
+    split over "model", the MoE expert-parallel with its capacity over the
+    whole batch), as GSPMD partitions the reference's.  The loss within
+    1e-5 relative, each gradient leaf within 1e-4 of its largest |value|,
+    each new parameter within 2 lr, at most 1% of a leaf beyond 1e-5.  A
+    copy of one gradient with 0.1% more on the piece one shard holds (the
+    piece with the leaf's largest value) must fail those checks."""
     from multidevice_shim import run_simulated_mesh
 
     from repro_torch.launch.simdevices import simulated_mesh
     from repro_torch.models.params import load_jax_params
-    from repro_torch.parallel.sharded_step import gather_state, make_sharded_train_step
-    from repro_torch.parallel.sharding import P
-    from repro_torch.pytree import leaves_with_paths, path_key
+    from repro_torch.parallel.sharded_step import (
+        gather_state,
+        make_sharded_train_step,
+        plan_for,
+    )
+    from repro_torch.parallel.sharding import P, ShardedTensor
 
     path = tmp_path / "jax_sharded.npz"
     run = run_simulated_mesh(_JAX_SHARDED_STEP, 4, str(path))
     assert "JAX_SHARDED_OK" in run.stdout, run.stdout + "\n" + run.stderr
     ref = dict(np.load(path))
-    model, cfg, _ = registry()["llama3.2-1b"].make_reduced()
-    model = type(model)(dataclasses.replace(cfg, batch_axes=("data",)))
-    load_jax_params(model, {k[5:]: v for k, v in ref.items() if k.startswith("init/")},
-                    device="cpu")
-    batch = {"tokens": torch.from_numpy(ref["tokens"]).long()}
     opt = adamw(lr=1e-3)
-    loss_fn = functional_loss(model, common.loss_for("lm", model))
-    for name, shape, axes in (("4", (4,), ("data",)), ("2x2", (2, 2), ("data", "model"))):
-        mesh = simulated_mesh(4, shape, axes)
-        if name == "4":
-            specs, bspec = tree_map(lambda _: P(), model.param_tree()), {"tokens": P(None, None)}
-        else:
-            specs, bspec = model.param_specs(mesh), {"tokens": P("data", None)}
-        step = make_sharded_train_step(loss_fn, opt, mesh, specs, bspec)
-        state = step.shard(init_state(_clone(model.param_tree()), opt))
-        loss, grads = step.grads(state, batch)
-        want = float(ref[name + "/loss"])
-        assert abs(float(loss) - want) <= LOSS_REL * abs(want), name
-        for p, g in leaves_with_paths(grads):
-            jg = torch.from_numpy(ref[f"{name}/grad/{path_key(p)}"])
-            assert float((g - jg).abs().max()) <= 1e-4 * float(jg.abs().max()), (name, p)
-        whole = gather_state(step.apply_(state, grads), "cpu")
-        for p, x in leaves_with_paths(whole["params"]):
-            d = (x - torch.from_numpy(ref[f"{name}/param/{path_key(p)}"])).abs()
-            assert float(d.max()) <= 2 * 1e-3, (name, p)
-            assert float((d > 1e-5).float().mean()) <= 0.01, (name, p)
+    mutated = 0
+    for arch, changes, cases in _SHARDED_CASES:
+        model, cfg, _ = registry()[arch].make_reduced()
+        model = type(model)(dataclasses.replace(cfg, batch_axes=("data",), **changes))
+        init = f"{arch}/init/"
+        load_jax_params(model, {k[len(init):]: v for k, v in ref.items() if k.startswith(init)},
+                        device="cpu")
+        batch = {"tokens": torch.from_numpy(ref[arch + "/tokens"]).long()}
+        loss_fn = functional_loss(model, common.loss_for("lm", model))
+        for name, shape, axes in cases:
+            mesh = simulated_mesh(4, shape, axes)
+            if name == "4":
+                step = make_sharded_train_step(
+                    loss_fn, opt, mesh, tree_map(lambda _: P(), model.param_tree()),
+                    {"tokens": P(None, None)})
+            else:
+                step = make_sharded_train_step(loss_fn, opt, mesh, model.param_specs(mesh),
+                                               {"tokens": P("data", None)},
+                                               **plan_for("lm", model))
+                assert step.rows == "model"
+            state = step.shard(init_state(_clone(model.param_tree()), opt))
+            loss, grads = step.grads(state, batch)
+            whole = gather_state(grads, "cpu")
+            if name != "4" and not mutated:
+                # the mutated copy: one shard's piece of wq's gradient off by 0.1%
+                g = grads["wq"]
+                top = max(g.pieces, key=lambda pc: float(next(iter(
+                    g.pieces[pc].values())).abs().max()))
+                bad = ShardedTensor(g.placement, g.shape, g.dtype, {
+                    pc: {d: t * (1.001 if pc == top else 1.0) for d, t in by.items()}
+                    for pc, by in g.pieces.items()})
+                off = dict(whole, wq=bad.gather("cpu"))
+                assert ((f"{arch}/{name}", "grad", "wq")
+                        in _held_to_reference(loss, off, {}, ref, f"{arch}/{name}"))
+                mutated += 1
+            params = gather_state(step.apply_(state, grads), "cpu")["params"]
+            assert _held_to_reference(loss, whole, params, ref, f"{arch}/{name}") == []
+    assert mutated == 1
 
 
 def test_launcher_trains_over_a_mesh_and_resumes_under_another(tmp_path, capsys):
@@ -429,10 +489,10 @@ def test_launcher_trains_over_a_mesh_and_resumes_under_another(tmp_path, capsys)
 @pytest.mark.parametrize("opt_kind", ["adamw", "adafactor"])
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
 def test_sharded_step_with_microbatches_and_compression(opt_kind, shape):
-    """The reduced Llama (float32) with 2 microbatches a shard and int8
+    """The reduced Llama (float32) with 2 microbatches and int8
     compression, AdamW or Adafactor (whose leaves are gathered onto the
-    lead device for their whole-dim means), two steps: bit for bit on
-    (1, 2), within the bounds of the test above on (2, 2)."""
+    lead device for their whole-dim means), two steps under the model
+    split, within the bounds of the test above on (1, 2) and (2, 2)."""
     from repro_torch.launch.simdevices import simulated_mesh
     from repro_torch.parallel.sharded_step import gather_state, sharded_step_for
 
@@ -451,10 +511,7 @@ def test_sharded_step_with_microbatches_and_compression(opt_kind, shape):
         got, gm = step.step_(got, batch)
     whole = gather_state(got, "cpu")
     assert sorted(whole) == sorted(want) == ["opt", "params", "residual", "step"]
-    if shape[0] == 1:
-        assert _bits_equal(gm["loss"], wm["loss"])
-        assert all(_bits_equal(x, y) for x, y in zip(leaves(whole), leaves(want)))
-        return
+    assert int(whole["step"]) == int(want["step"]) == 2
     assert abs(float(gm["loss"]) - float(wm["loss"])) <= LOSS_REL * abs(float(wm["loss"]))
     for x, y in zip(leaves(whole["params"]), leaves(want["params"])):
         d = (x.float() - y.float()).abs()
