@@ -295,12 +295,17 @@ phase prints its seconds):
    (2, 2); Phi-3.5-MoE at full width, 1 layer, 4 microbatches of 512
    tokens, expert-parallel on (1, 2) and (2, 2) (its MoE block's routing
    and output against one device's); the full two-tower config at
-   B = 32,768 on S = 2 and 4; PNA's ``minibatch_lg`` on S = 2; one-shard
-   meshes bit for bit; the rest by the loss, each gradient leaf against a
-   wider copy's (no worse than twice the one-device step's own gap to
-   it), and the training bound on float32 Llama and Phi copies and a
-   float64 two-tower copy; each mesh's gradient computed twice, bit for
-   bit; ms a step, peak memory and the bytes each mesh device holds.
+   B = 32,768 on S = 2 and 4 and, its tables split over "model", on
+   (1, 2) and (2, 2); DLRM-RM2 at full width (vocabulary cut to 500,000)
+   at B = 65,536 on (1, 2) and (2, 2); PNA's ``minibatch_lg`` over node
+   shards on (2, 1) and (2, 2), and a well-conditioned graph; one-data-
+   shard meshes bit for bit; the rest by the loss, each gradient leaf
+   against a wider copy's (no worse than twice the one-device step's own
+   gap to it), and the training bound on float32 Llama, Phi and DLRM
+   copies and float64 two-tower and PNA copies; split lookups bit for
+   bit with one device's; each mesh's gradient computed twice, bit for
+   bit; ms a step, peak memory, the bytes each mesh device holds and
+   computes with, the bytes its collectives move (PNA's halo).
 24c. Dry run: per-device bytes, FLOPs and collectives of three cells that
    do not fit one card on the 16 x 16 meta mesh (``launch.dryrun``).
 25. One JSON line with every kernel's numbers (``launches`` from the range
@@ -1073,10 +1078,16 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
     ops_per, rate = (1, CARD["sfu_rate"]) if metric in PROB else (2, FP32_PEAK)
     live_share = 0.0
 
-    def oracle(t):
+    # the float64 oracle: the first ORACLE_QUERIES queries' distances to
+    # every row, once for the three thresholds and the kNN phase's brute
+    # force (``oracle_d``); a threshold's hits in the index's storage
+    # order, as ``flat_index.bss_query`` lists them
+    stored = index.perm[np.nonzero(index.perm >= 0)[0]]
+
+    def oracle():
         t0 = time.perf_counter()
-        return flat_index.bss_query(index, queries[:ORACLE_QUERIES], t)[0], \
-            time.perf_counter() - t0
+        d = oracle_distances(np, pairwise_np, metric, queries32[:ORACLE_QUERIES], corpus32)
+        return d, time.perf_counter() - t0
 
     # the plain backend's timed runs first, with nothing beside them
     plain_runs = []
@@ -1086,12 +1097,12 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
         p_hits, _ = run_queries(flat_index, EngineOpts, index, queries, t, "torch")
         torch.cuda.synchronize()
         plain_runs.append((p_hits, time.perf_counter() - t0))
-    # then the float64 oracle of each threshold in a thread of its own,
-    # beside the untimed comparisons (numpy's loops release the lock)
-    pool = ThreadPoolExecutor(len(ts))
-    oracles = [pool.submit(oracle, t) for t in ts]
-    for t, sel, ((hits, stats), secs), (p_hits, plain_secs), o_run in zip(
-            ts, cfg.selectivities, cuda_runs, plain_runs, oracles):
+    # then the float64 oracle in a thread of its own, beside the untimed
+    # comparisons (numpy's loops release the lock)
+    pool = ThreadPoolExecutor(1)
+    o_run = pool.submit(oracle)
+    for t, sel, ((hits, stats), secs), (p_hits, plain_secs) in zip(
+            ts, cfg.selectivities, cuda_runs, plain_runs):
         dists, excl = per_query(stats, "per_query_dists"), per_query(stats, "excluded")
         tiles = [st["tiles_computed"] for st in stats]
         alive_c, alive_p = lb[backend] <= np.float32(t), lb["torch"] <= np.float32(t)
@@ -1099,7 +1110,8 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
         bad_alive = int((np.abs(lb["torch"][alive_diff] - t) > BAND).sum())
         n_hit_diff, bad_hits = boundary_hit_diffs(
             np, pairwise_np, metric, corpus32, queries32, hits, p_hits, t)
-        o_hits, oracle_secs = o_run.result()
+        d64, oracle_secs = o_run.result()
+        o_hits = [stored[row[stored] <= t].tolist() for row in d64]
         n_or_diff, bad_or = boundary_hit_diffs(
             np, pairwise_np, metric, corpus32, queries32, hits[:ORACLE_QUERIES], o_hits, t)
         n_hits = sum(len(h) for h in hits)
@@ -1156,7 +1168,7 @@ def range_path(torch, np, failures: list, record: dict, dev, corpus, queries, me
     if metric == "l2":
         cosine_index = cosine_batch(np, failures, record, dev, corpus, queries32, cfg, backend)
     return dict(counts=counts, live_share=live_share, index=index, ts=ts,
-                cosine_index=cosine_index,
+                cosine_index=cosine_index, oracle_d=o_run.result()[0],
                 fp32={t: run for t, (run, _) in zip(ts, cuda_runs)},
                 fp32_secs={t: secs for t, (_, secs) in zip(ts, cuda_runs)},
                 lb=lb[backend])
@@ -1418,12 +1430,13 @@ def brute_force_knn(np, pairwise_np, metric, corpus, queries, k):
 
 def knn_path(torch, np, failures: list, record: dict, index, corpus, queries, metric: str,
              backend: str = "cuda", n_queries: int | None = None,
-             plain_batches: int | None = None) -> dict:
+             plain_batches: int | None = None, oracle_d=None) -> dict:
     """Phase 5 for one metric: kNN (k = 10) over the queries in 512-query
     batches on the cuda backend, on the metric's range-path ``index``, held
     to the torch backend (on its first ``plain_batches`` batches, or all)
-    and a float64 brute force.  Returns the metric's launch counts, index
-    and the cuda run's results."""
+    and a float64 brute force (over ``oracle_d``, the range path's float64
+    distances of the first ORACLE_QUERIES queries, where given).  Returns
+    the metric's launch counts, index and the cuda run's results."""
     from repro_torch.core import flat_index
     from repro_torch.core.backends import EngineOpts
     from repro_torch.core.npdist import pairwise_np
@@ -1472,7 +1485,8 @@ def knn_path(torch, np, failures: list, record: dict, index, corpus, queries, me
     bad_counts = [int(i) for i in count_diff
                   if abs(kth[i] - p_kth[i]) > BAND * max(1.0, float(p_kth[i]))]
     t0 = time.perf_counter()
-    truth = brute_force_knn(np, pairwise_np, space, corpus32, queries32[:ORACLE_QUERIES], KNN_K)
+    truth = (oracle_top_k(np, oracle_d, KNN_K) if oracle_d is not None else
+             brute_force_knn(np, pairwise_np, space, corpus32, queries32[:ORACLE_QUERIES], KNN_K))
     n_or_diff, bad_or = knn_id_diffs(np, pairwise_np, space, corpus32, queries32,
                                      ids[:ORACLE_QUERIES], truth)
     row = dict(
@@ -1793,19 +1807,30 @@ def living_corpus(torch, np, failures: list, record: dict, dev, corpus, queries,
                                   opts.backend, opts.precision)
         return hits, per_query(stats, "per_query_dists"), stats
 
-    def check(index, label):
+    def check(index, label, oracle=None):
         # the float64 oracle in a thread of its own, beside the card's runs
-        # (the device mirror is built first, by this thread alone)
+        # (the device mirror is built first, by this thread alone); a
+        # generation over the live rows of an earlier one takes its oracle,
+        # each query's hits put in this index's storage order
         _ = index.device
+
+        def run_oracle():
+            if oracle is None:
+                return flat_index.bss_query(index, queries32[:ORACLE_QUERIES], t)[0]
+            rank = np.zeros(n, np.int64)
+            at = np.nonzero(index.perm >= 0)[0]
+            rank[index.perm[at]] = at
+            return [sorted(h, key=lambda i: rank[i]) for h in oracle]
+
         with ThreadPoolExecutor(1) as pool:
-            o_run = pool.submit(flat_index.bss_query, index, queries32[:ORACLE_QUERIES], t)
+            o_run = pool.submit(run_oracle)
             h32, d32, _ = range_hits(index, fp32)
             h16, d16, s16 = range_hits(index, bf16)
             k32 = [flat_index.bss_knn_batched(index, queries32[s:s + BATCH], KNN_K, opts=fp32)
                    for s in (0, BATCH)]
             k16 = [flat_index.bss_knn_batched(index, queries32[s:s + BATCH], KNN_K, opts=bf16)
                    for s in (0, BATCH)]
-            o_hits, _ = o_run.result()
+            o_hits = o_run.result()
         n_or, bad_or = boundary_hit_diffs(np, pairwise_np, metric, corpus32, queries32,
                                           h32[:ORACLE_QUERIES], o_hits, t)
         knn_same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
@@ -1824,7 +1849,7 @@ def living_corpus(torch, np, failures: list, record: dict, dev, corpus, queries,
         log(f"living corpus {metric} " + json.dumps(gen))
         if not (gen["bf16_range_equal"] and knn_same) or bad_or or stale or not gen["hits"]:
             failures.append(f"living corpus {metric} {label}: {gen}, oracle faults {bad_or[:10]}")
-        return h32
+        return h32, o_hits
 
     idx0, row["build_seconds"] = timed(lambda: flat_index.build_bss(
         metric, corpus32[:n0], cfg.n_pivots, cfg.n_pairs, cfg.block, device=dev))
@@ -1839,10 +1864,12 @@ def living_corpus(torch, np, failures: list, record: dict, dev, corpus, queries,
     (idx2, ms), row["delete_seconds"] = timed(lambda: delete(idx1, dead.tolist()))
     row["delete"] = dataclasses.asdict(ms)
     untouched = bool(torch.equal(idx1._device.valid, old_valid))
-    check(idx2, "deleted 1%")
+    _, o_live = check(idx2, "deleted 1%")
     (idx3, ms), row["compact_seconds"] = timed(lambda: compact(idx2, refresh_pivots=True))
     row["compact"] = dataclasses.asdict(ms)
-    h3 = check(idx3, "compacted")
+    # the compacted index holds the deleted generation's live rows: the
+    # float64 oracle of the same queries over the same rows is that one's
+    h3, _ = check(idx3, "compacted", oracle=o_live)
     live_pos = np.nonzero(idx2.valid)[0]
     ids = np.sort(idx2.perm[live_pos])
     fresh = flat_index.build_bss(metric, corpus32[ids], cfg.n_pivots, cfg.n_pairs, cfg.block,
@@ -2041,12 +2068,14 @@ def check_served(np, snapshots: dict, queries, reqs, results) -> dict:
 
 
 def serving(torch, np, failures: list, record: dict, corpus, queries, metric: str, cfg,
-            ts: list, n_requests: int | None = None, mutate: bool = True) -> dict:
+            ts: list, n_requests: int | None = None, mutate: bool = True, built=None) -> dict:
     """Phase 10 for one metric: ``RetrievalServer`` on the card with the
     configuration's settings and its ``async_front`` (default ladder,
     ``max_delay_s=0.002``, ``cache_size=4096``); waves of one request per
     query from SERVE_CLIENTS threads; every result checked against a
-    direct ``"cuda"`` call on the generation it names."""
+    direct ``"cuda"`` call on the generation it names.  ``built``: the
+    range path's index over the whole corpus (``mutate=False``), served
+    as it is rather than built a second time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2059,8 +2088,10 @@ def serving(torch, np, failures: list, record: dict, corpus, queries, metric: st
     # phase appends from); the first wave's front appends them back
     n0 = len(corpus32) - len(corpus32) // 100 if mutate else len(corpus32)
     t0 = time.perf_counter()
+    if built is not None and mutate:
+        raise ValueError("a mutating wave builds its server on part of the corpus")
     server = RetrievalServer(corpus32[:n0], metric=metric, n_pivots=cfg.n_pivots,
-                             n_pairs=cfg.n_pairs, block=cfg.block)
+                             n_pairs=cfg.n_pairs, block=cfg.block, built=built)
     row = dict(metric=metric, built_on=n0, build_seconds=time.perf_counter() - t0,
                thresholds=ts, clients=SERVE_CLIENTS, waves=[])
     errors: list = []
@@ -5084,11 +5115,14 @@ def gnn_cell(torch, np, failures: list, cell: str, model, data: tuple, dev,
 
 
 def gnn_train(torch, np, failures: list, record: dict, dev, sizes=GNN_TRAIN,
-              cells=GNN_CELLS, ckpt_dir: Path = ROOT / "build" / "gnn_ckpt") -> None:
+              cells=GNN_CELLS, ckpt_dir: Path = ROOT / "build" / "gnn_ckpt",
+              layouts: dict | None = None) -> None:
     """Phase 24: GNN training on the card, each cell of ``cells`` at its
     padded shape (every cell's batch made on the host before the first
     step; the CPU references after the last, so nothing runs beside a
-    timed step); ogb_products reckoned, not run."""
+    timed step); ogb_products reckoned, not run.  ``layouts`` receives
+    each cell's ``gnn_layouts`` (the sharded phase steps the same batch)."""
+    layouts = {} if layouts is None else layouts
     from repro_torch.configs.common import GNN_SHAPES
     from repro_torch.configs.registry import get_arch
 
@@ -5101,6 +5135,7 @@ def gnn_train(torch, np, failures: list, record: dict, dev, sizes=GNN_TRAIN,
         data = {cell: pool.submit(timed, gnn_layouts, np, cell, bundle.cells[cell].inputs(),
                                   sizes["seed"], sizes) for cell in cells}
         data = {cell: f.result() for cell, f in data.items()}
+    layouts.update({cell: d[0] for cell, d in data.items()})
     done = []
     for cell in cells:
         model = bundle.model_for(cell).init_params(
@@ -5146,9 +5181,22 @@ def gnn_train(torch, np, failures: list, record: dict, dev, sizes=GNN_TRAIN,
 # rows x phi_seq tokens, expert-parallel over (1, 2) and (2, 2), its MoE
 # block's routing (loads and drops per expert) held to one device's
 # exactly and its output compared bit for bit; the full two-tower config at
-# B = 32,768 over S = 2 and 4; PNA's minibatch_lg over S = 2.  A mesh whose
-# one shard computes it all (data axes of 1 under the "split" plan, or PNA
-# on the lead device) is held bit for bit in loss, parameters and moments.
+# B = 32,768 over S = 2 and 4 and, its tables in "model" pieces (the lookups
+# combined over "model", bit for bit with one device's), over (1, 2) and
+# (2, 2) (the float64 copy, which holds the meshes that are not bit for
+# bit, not on (1, 2): its one-device state beside the mesh's and the
+# (B, B) float64 softmax pass 80 GB there); DLRM-RM2 at full width (26
+# tables, B = 65,536, the reference's
+# train_batch), its vocabulary cut to dlrm_vocab rows (the float32 copy's
+# states and their comparisons at 10^6 rows pass 80 GB: PERF.md §4), over
+# (1, 2) and (2, 2) with a float32 copy; PNA's minibatch_lg in the
+# dst-partitioned layout over node shards (the "node" plan: (2, 1) and
+# (2, 2)), its gradients held on a float64 copy (its float32 gradient is
+# ill-conditioned: PERF.md §2; the float32 one's gap is recorded), and the
+# reduced PNA on a well-conditioned graph (in-degree 8, 512 nodes in 16
+# blocks) in float32.  A mesh whose one data shard computes it all (a
+# data axis of 1 under "split" or "in_batch") is held bit for bit in loss,
+# parameters and moments.
 # Any other mesh is held to the loss within SHARDED_LOSS_REL relative, and
 # each parameter within 2 lr of the one-device step's (plus one rounding
 # for bf16: AdamW's first step moves an element by at most lr, so this
@@ -5174,9 +5222,16 @@ SHARDED_TRAIN = dict(seed=0, llama_layers=2, llama_batch=2, llama_seq=4096, llam
                      llama_f32_meshes=((2, 1), (1, 4), (2, 2)),
                      phi_layers=1, phi_batch=8, phi_seq=256, phi_microbatches=4, phi_lr=3e-4,
                      phi_meshes=((1, 2), (2, 2)),
-                     tt_batch=32_768, tt_lr=3e-3, tt_shards=(2, 4),
-                     gnn_cell="minibatch_lg",
-                     gnn_lr=3e-4, gnn_shards=2, split_loss_rel=1e-5)
+                     tt_batch=32_768, tt_lr=3e-3, tt_meshes=((2, 1), (4, 1), (1, 2), (2, 2)),
+                     tt_f64_meshes=((2, 1), (4, 1), (2, 2)),
+                     dlrm_batch=65_536, dlrm_vocab=500_000, dlrm_lr=3e-3,
+                     dlrm_meshes=((1, 2), (2, 2)),
+                     gnn_cell="minibatch_lg", gnn_lr=3e-4, gnn_meshes=((2, 1), (2, 2)),
+                     conditioned_nodes=512, conditioned_degree=8, conditioned_blocks=16,
+                     split_loss_rel=1e-5)
+# the reduced PNA of the well-conditioned case (tests/test_torch_cuda_gnn.py)
+CONDITIONED_PNA = dict(name="pna-conditioned", n_layers=2, d_hidden=16, d_feat=8,
+                       n_classes=3)
 SHARDED_LOSS_REL = 1e-5
 SHARDED_GRAD_REL = 1e-4
 SHARDED_NO_WORSE = 2.0
@@ -5274,6 +5329,57 @@ def reference_gaps(torch, got, one, ref, shards: int) -> dict:
     return out
 
 
+def conditioned_graph(np, seed: int, n: int, deg: int, blocks: int) -> dict:
+    """A graph whose float32 PNA gradient is well conditioned (ROADMAP
+    Queue 3 item 16): every node receives ``deg`` edges from other nodes
+    and the 8 features are spread (standard deviation 2), in the
+    dst-partitioned layout of ``blocks`` blocks."""
+    from repro_torch.models.gnn import PNAModel
+
+    rng = np.random.default_rng(seed)
+    dst = np.repeat(np.arange(n), deg)
+    src = (dst + rng.integers(1, n, dst.size)) % n
+    ps, pd, pv = PNAModel.partition_edges(src, dst, n, blocks)
+    return {"x": (rng.normal(size=(n, 8)) * 2.0).astype(np.float32),
+            "edge_src": ps, "edge_dst_local": pd, "edge_valid": pv,
+            "labels": rng.integers(0, 3, n).astype(np.int32),
+            "label_mask": (rng.random(n) < 0.7).astype(np.float32)}
+
+
+def split_lookups_equal(torch, model, batch: dict, mesh) -> dict:
+    """Each lookup of a recsys model's ``split_loss`` on ``mesh`` (the
+    tables in their "model" pieces, combined over "model") against the
+    one-device lookup of each data shard's rows: ``{lookup: bit for bit on
+    every mesh device}``."""
+    from repro_torch.models.recsys import embedding_lookup
+    from repro_torch.parallel.sharding import Placement, ShardedTensor, n_shards
+    from repro_torch.pytree import tree_map
+
+    specs = model.param_specs(mesh)
+    placed = tree_map(lambda sp, t: ShardedTensor.place(t, Placement(mesh, sp)), specs,
+                      model.param_tree())
+    params = [tree_map(lambda st: st.gather_region(st.model_region(i), d), placed)
+              for i, d in enumerate(mesh.devices)]
+    del placed
+    d = n_shards(mesh)
+    rows = next(iter(batch.values())).shape[0]
+    step = -(-rows // d)
+    shards = [{k: v[s * step:(s + 1) * step] for k, v in batch.items()} for s in range(d)]
+    with torch.no_grad():
+        got = model.split_lookups(params, shards, mesh, specs)
+    m = mesh.n_devices // d
+    out = {}
+    for name, (key, ids) in model._lookup_ids().items():
+        table = getattr(model, key).detach()
+        ok = True
+        for r, t in enumerate(got[name]):
+            i = ids(shards[r // m])
+            want = embedding_lookup(table, i) if table.ndim == 3 else table[i.long()]
+            ok = ok and bool(torch.equal(int_bits(torch, t), int_bits(torch, want)))
+        out[name] = ok
+    return out
+
+
 def model_split(mesh) -> bool:
     """The mesh splits compute over more than one "model" shard."""
     return "model" in mesh.axis_names and mesh.size("model") > 1
@@ -5306,7 +5412,8 @@ def sharded_against_one(torch, np, failures: list, tag: str, family: str, model,
                         reference=None, microbatches: int = 1,
                         reference_loss: float | None = None,
                         split_loss_rel: float = SHARDED_LOSS_REL,
-                        reckon: bool = False) -> tuple[dict, object]:
+                        reckon: bool = False,
+                        hold_reference: bool = True) -> tuple[dict, object]:
     """One family's sharded step on each mesh of ``meshes`` ((label, mesh))
     against the one-device step from the same state (the model's
     parameters): ms a step by CUDA events after an untimed forward +
@@ -5315,16 +5422,20 @@ def sharded_against_one(torch, np, failures: list, tag: str, family: str, model,
     bytes held on the card, the parameter bytes each mesh device computes
     with (``compute_bytes``: its "model" pieces, whole over the data axes),
     with ``reckon``, an LM's per-device bytes as the dry run reckons the
-    same step (``reckoned_bytes``), and the comparison (``SHARDED_TRAIN``'s note; a mesh that is not one
-    shard computing it all: ``strict``, PERF.md §2's training bound and
-    every gradient leaf within SHARDED_GRAD_REL of its largest; else
-    ``reference``, a wider copy's one-device gradients,
-    ``reference_gaps``; the loss within SHARDED_LOSS_REL of the one-device
-    loss, or ``split_loss_rel`` on a mesh split over "model"; with
+    same step (``reckoned_bytes``), the bytes one device's collectives move
+    in the timed step (``collectives``; a node split's ``halo_bytes``: its
+    all-gathers of ``h``), and the comparison (``SHARDED_TRAIN``'s note; a
+    mesh that is not one data shard computing it all: ``strict``, PERF.md
+    §2's training bound and every gradient leaf within SHARDED_GRAD_REL of
+    its largest; else ``reference``, a wider copy's one-device gradients,
+    ``reference_gaps``, recorded and, with ``hold_reference``, held; the
+    loss within SHARDED_LOSS_REL of the one-device loss, or
+    ``split_loss_rel`` on an LM split over "model"; with
     ``reference_loss``, that copy's loss, each loss's gap to it is recorded
-    beside the one-device gap).  Returns
-    the row and the one-device step's gradients and loss."""
+    beside the one-device gap).  Returns the row and the one-device step's
+    gradients and loss."""
     from repro_torch.configs.common import loss_for
+    from repro_torch.parallel.collectives import tally
     from repro_torch.parallel.sharded_step import gather_state, plan_for, sharded_step_for
     from repro_torch.pytree import leaves
     from repro_torch.train.step import functional_loss, init_state, make_train_step
@@ -5350,7 +5461,9 @@ def sharded_against_one(torch, np, failures: list, tag: str, family: str, model,
     one.apply_(ref, grads)
     stamps.mark()
     ms = stamps.ms()
-    exact_of = {label: rows == "lead" or (rows != "model" and mesh.size("data") == 1)
+    # one data shard of a row plan: the step's own bits (each table row has
+    # one owner, the replicated weights' other copies add nothing)
+    exact_of = {label: rows in ("split", "in_batch") and mesh.size("data") == 1
                 for label, mesh in meshes}
     row["one_device"] = dict(ms=ms[0] + ms[2], ms_forward_backward=ms[0],
                              ms_apply_in_place=ms[2], loss=float(loss),
@@ -5375,7 +5488,8 @@ def sharded_against_one(torch, np, failures: list, tag: str, family: str, model,
             torch.cuda.reset_peak_memory_stats()
         stamps = Stamps(torch, dev)
         stamps.mark()
-        l_sh, g_sh = step.grads(state, batch)
+        with tally() as moved:
+            l_sh, g_sh = step.grads(state, batch)
         step.apply_(state, g_sh)
         stamps.mark()
         repeated = (piece_digests(torch, g_sh) == first[0]
@@ -5395,7 +5509,10 @@ def sharded_against_one(torch, np, failures: list, tag: str, family: str, model,
                  device_bytes=device_bytes, held_bytes=held, exact=exact,
                  repeated_bit_for_bit=repeated,
                  compute_bytes=max(step.compute_bytes) if step.compute_bytes else None,
+                 collectives=dict(moved),
                  max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None)
+        if rows == "node":
+            m["halo_bytes"] = moved.get("all-gather", 0.0)
         if reckon:
             # one mesh device's bytes as the dry run reckons this step (the
             # activations of one model shard); the card holds every device's
@@ -5421,7 +5538,8 @@ def sharded_against_one(torch, np, failures: list, tag: str, family: str, model,
                                      "reference gradient")
                 m["against_reference"] = reference_gaps(torch, g_sh, grads, reference,
                                                         mesh.n_devices)
-            m["loss_bound"] = split_loss_rel if model_split(mesh) else SHARDED_LOSS_REL
+            m["loss_bound"] = (split_loss_rel if model_split(mesh) and rows == "model"
+                               else SHARDED_LOSS_REL)
             if reference_loss is not None:
                 # read beside the one-device gap, not held
                 top = abs(reference_loss)
@@ -5431,8 +5549,9 @@ def sharded_against_one(torch, np, failures: list, tag: str, family: str, model,
             ok = m["loss_rel"] <= m["loss_bound"] and all(
                 r["param_over_bound"] <= 1.0 and (not strict or (
                     r["grad_rel"] <= SHARDED_GRAD_REL and r["share_beyond"] <= 0.01))
-                for r in m["leaves"].values()) and all(
-                r["sharded"] <= r["bound"] for r in m.get("against_reference", {}).values())
+                for r in m["leaves"].values()) and (not hold_reference or all(
+                r["sharded"] <= r["bound"] for r in m.get("against_reference", {}).values()))
+            m["reference_held"] = hold_reference and "against_reference" in m
         del g_sh
         m["ok"] = ok = ok and repeated
         row[label] = m
@@ -5491,18 +5610,21 @@ def moe_split_against_one(torch, model, tokens, mesh) -> dict:
 
 def sharded_train(torch, np, failures: list, record: dict, dev, sizes=SHARDED_TRAIN,
                   llama_cfg=None, tt_cfg=None, gnn_cell: str | None = None,
-                  mesh_fn=None, phi_cfg=None) -> None:
+                  mesh_fn=None, phi_cfg=None, dlrm_cfg=None,
+                  gnn_layouts_of: dict | None = None) -> None:
     """The sharded train phase (``SHARDED_TRAIN``'s note).  ``llama_cfg`` /
-    ``phi_cfg`` / ``tt_cfg`` / ``gnn_cell`` / ``mesh_fn`` / ``dev`` shrink
-    it for the CPU tests (``mesh_fn(data, model)`` builds a mesh;
-    ``make_local_mesh`` on the card)."""
+    ``phi_cfg`` / ``tt_cfg`` / ``dlrm_cfg`` / ``gnn_cell`` / ``mesh_fn`` /
+    ``dev`` shrink it for the CPU tests (``mesh_fn(data, model)`` builds a
+    mesh; ``make_local_mesh`` on the card); ``gnn_layouts_of``: the GNN
+    phase's ``gnn_layouts`` by cell, whose batch PNA steps here."""
     from repro_torch.configs.lm_archs import LLAMA32_1B, PHI35_MOE
-    from repro_torch.configs.recsys_archs import TWO_TOWER
+    from repro_torch.configs.recsys_archs import DLRM, TWO_TOWER
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import ClickStream, TokenStream
     from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.gnn import PNAConfig, PNAModel
     from repro_torch.models.params import cast_model, check_ids
-    from repro_torch.models.recsys import TwoTowerModel
+    from repro_torch.models.recsys import DLRMModel, TwoTowerModel
     from repro_torch.models.transformer import LMModel
     from repro_torch.optim import adamw
     from repro_torch.train.step import to_device
@@ -5518,6 +5640,16 @@ def sharded_train(torch, np, failures: list, record: dict, dev, sizes=SHARDED_TR
 
     def meshes(shapes):
         return [(mesh_label(sh), mesh_fn(*sh)) for sh in shapes]
+
+    def lookups_split(row, model, batch, labelled):
+        # each model-split mesh's lookups against one device's, bit for bit
+        for label, mesh in labelled:
+            if model_split(mesh):
+                eq = split_lookups_equal(torch, model, batch, mesh)
+                row[label]["lookups_bit_for_bit"] = eq
+                if not all(eq.values()):
+                    failures.append(f"sharded train {model.cfg.name} {label}: split lookups "
+                                    f"differ from one device's: {eq}")
 
     t0 = time.perf_counter()
     cfg = llama_cfg or dataclasses.replace(LLAMA32_1B, n_layers=sizes["llama_layers"])
@@ -5589,7 +5721,7 @@ def sharded_train(torch, np, failures: list, record: dict, dev, sizes=SHARDED_TR
     cfg = tt_cfg or TWO_TOWER
     model = TwoTowerModel(cfg).init_params(gen(), device=dev)
     batch = to_device(ClickStream(cfg, batch=sizes["tt_batch"], seed=sizes["seed"]).next(), dev)
-    tt_meshes = meshes([(s, 1) for s in sizes["tt_shards"]])
+    tt_meshes = meshes(sizes["tt_meshes"])
     # the towers' gradient at the initial weights is mostly the logits'
     # rounding in float32 (the cone: PERF.md §2), so the training bound is
     # held on a float64 copy, whose (B, B) product runs in float64, over the
@@ -5598,7 +5730,7 @@ def sharded_train(torch, np, failures: list, record: dict, dev, sizes=SHARDED_TR
     copy = cast_model(model, torch.float64, dev)
     row, ref64, _ = sharded_against_one(
         torch, np, failures, "two tower float64", "recsys", copy, adamw(lr=sizes["tt_lr"]),
-        batch, tt_meshes, dev, sizes["tt_lr"], strict=True)
+        batch, meshes(sizes["tt_f64_meshes"]), dev, sizes["tt_lr"], strict=True)
     record["sharded train two tower float64"] = row
     log("sharded train two tower float64 " + json.dumps(row))
     copy.to_empty(device="meta")
@@ -5613,6 +5745,7 @@ def sharded_train(torch, np, failures: list, record: dict, dev, sizes=SHARDED_TR
         torch, np, failures, "two tower", "recsys", model, adamw(lr=sizes["tt_lr"]), batch,
         tt_meshes, dev, sizes["tt_lr"], reference=ref64)
     row.update(config=cfg.name, vocab=cfg.vocab)
+    lookups_split(row, model, batch, tt_meshes)
     record["sharded train two tower"] = row
     log("sharded train two tower " + json.dumps(row))
     model.to_empty(device="meta")
@@ -5620,16 +5753,64 @@ def sharded_train(torch, np, failures: list, record: dict, dev, sizes=SHARDED_TR
     seconds["two_tower"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    cfg = dlrm_cfg or dataclasses.replace(DLRM, vocab=sizes["dlrm_vocab"])
+    model = DLRMModel(cfg).init_params(gen(), device=dev)
+    batch = to_device(ClickStream(cfg, batch=sizes["dlrm_batch"], seed=sizes["seed"]).next(),
+                      dev)
+    dl_meshes = meshes(sizes["dlrm_meshes"])
+    copy = cast_model(model, torch.float32, dev)
+    row, ref32, _ = sharded_against_one(
+        torch, np, failures, "dlrm float32", "recsys", copy, adamw(lr=sizes["dlrm_lr"]), batch,
+        dl_meshes, dev, sizes["dlrm_lr"], strict=True)
+    record["sharded train dlrm float32"] = row
+    log("sharded train dlrm float32 " + json.dumps(row))
+    copy.to_empty(device="meta")
+    row, _, _ = sharded_against_one(
+        torch, np, failures, "dlrm", "recsys", model, adamw(lr=sizes["dlrm_lr"]), batch,
+        dl_meshes, dev, sizes["dlrm_lr"], reference=ref32)
+    row.update(config=cfg.name, vocab=cfg.vocab, tables=cfg.n_sparse)
+    lookups_split(row, model, batch, dl_meshes)
+    record["sharded train dlrm"] = row
+    log("sharded train dlrm " + json.dumps(row))
+    model.to_empty(device="meta")
+    del ref32, batch
+    seconds["dlrm"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     cell = gnn_cell or sizes["gnn_cell"]
     bundle = get_arch("pna")
-    flat = gnn_cell_batch(np, cell, bundle.cells[cell].inputs(), sizes["seed"])
+    if gnn_layouts_of and cell in gnn_layouts_of:
+        part = gnn_layouts_of[cell][1]
+    else:
+        _, part, _ = gnn_layouts(np, cell, bundle.cells[cell].inputs(), sizes["seed"])
+    batch = to_device(part, dev)
     model = bundle.model_for(cell).init_params(gen(), device=dev)
+    pna_meshes = meshes(sizes["gnn_meshes"])
+    # the float64 copy first: its one-device gradient is the float32 run's
+    # reference, recorded and not held (PERF.md §2)
+    copy = cast_model(model, torch.float64, dev)
+    row, ref64, _ = sharded_against_one(
+        torch, np, failures, "pna float64", "gnn", copy, adamw(lr=sizes["gnn_lr"]), batch,
+        pna_meshes, dev, sizes["gnn_lr"], strict=True)
+    record["sharded train pna float64"] = row
+    log("sharded train pna float64 " + json.dumps(row))
+    copy.to_empty(device="meta")
     row, _, _ = sharded_against_one(
-        torch, np, failures, "pna", "gnn", model, adamw(lr=sizes["gnn_lr"]),
-        to_device(flat, dev), meshes([(sizes["gnn_shards"], 1)]), dev, sizes["gnn_lr"])
-    row.update(cell=cell)
+        torch, np, failures, "pna", "gnn", model, adamw(lr=sizes["gnn_lr"]), batch,
+        pna_meshes, dev, sizes["gnn_lr"], reference=ref64, hold_reference=False)
+    row.update(cell=cell, blocks=list(part["edge_src"].shape), nodes=int(part["x"].shape[0]))
     record["sharded train pna"] = row
     log("sharded train pna " + json.dumps(row))
+    model.to_empty(device="meta")
+    del ref64, batch
+    small = PNAModel(PNAConfig(**CONDITIONED_PNA)).init_params(gen(), device=dev)
+    graph = conditioned_graph(np, sizes["seed"], sizes["conditioned_nodes"],
+                              sizes["conditioned_degree"], sizes["conditioned_blocks"])
+    row, _, _ = sharded_against_one(
+        torch, np, failures, "pna conditioned", "gnn", small, adamw(lr=sizes["gnn_lr"]),
+        to_device(graph, dev), pna_meshes, dev, sizes["gnn_lr"], strict=True)
+    record["sharded train pna conditioned"] = row
+    log("sharded train pna conditioned " + json.dumps(row))
     seconds["pna"] = time.perf_counter() - t0
     log("sharded train seconds " + json.dumps(seconds))
 
@@ -5761,7 +5942,8 @@ def main() -> int:
         for metric in ("l2", "jsd", "triangular"):
             knns[metric] = knn_path(
                 torch, np, failures, record, paths[metric]["index"], *data["colors"], metric,
-                plain_batches=None if metric == "l2" else PLAIN_KNN_BATCHES)
+                plain_batches=None if metric == "l2" else PLAIN_KNN_BATCHES,
+                oracle_d=paths[metric]["oracle_d"])
         knn_path(torch, np, failures, record, paths["l2"]["cosine_index"], *data["colors"],
                  "cosine", n_queries=BATCH)
 
@@ -5803,7 +5985,8 @@ def main() -> int:
             paths["l2"]["ts"]))),
         ("serving jsd", lambda: serving_counts.update(jsd=serving(
             torch, np, failures, record, *data["colors"], "jsd", SISAP_COLORS,
-            paths["jsd"]["ts"], n_requests=4 * BATCH, mutate=False))),
+            paths["jsd"]["ts"], n_requests=4 * BATCH, mutate=False,
+            built=paths["jsd"]["index"]))),
         ("forest l2", forest_l2_phase),
         ("forest bf16", lambda: forest_phase(forest_bf16(
             torch, np, failures, record, data["colors"][1], SISAP_COLORS, forest["l2"]))),
@@ -5855,8 +6038,10 @@ def main() -> int:
             torch, np, failures, record, dev, data["trained"]))),
         ("lm", lambda: lm_run.update(lm(torch, np, failures, record, dev))),
         ("lm train", lambda: lm_train(torch, np, failures, record, dev)),
-        ("gnn train", lambda: gnn_train(torch, np, failures, record, dev)),
-        ("sharded train", lambda: sharded_train(torch, np, failures, record, dev)),
+        ("gnn train", lambda: gnn_train(torch, np, failures, record, dev,
+                                        layouts=data.setdefault("gnn layouts", {}))),
+        ("sharded train", lambda: sharded_train(torch, np, failures, record, dev,
+                                                gnn_layouts_of=data.get("gnn layouts"))),
         ("dryrun", lambda: dryrun_line(record)),
     )
     for phase, fn in phases:

@@ -21,9 +21,18 @@ the production mesh's axes with every data axis 1 and the same
 and sequence share for every model shard (``probe``): its FLOPs, saved
 bytes and the collectives it calls (``parallel.collectives.tally``) are
 one device's.  The MoE's capacity is then
-counted over one data shard's microbatch, the slots a device owns.  PNA's
-step keeps its rows on the lead device (``plan.port_step_rows``); the dry
-run reckons the production plan that cell needs to fit.
+counted over one data shard's microbatch, the slots a device owns.  A PNA
+train cell runs the ``"node"`` plan: ``PNAModel.split_loss`` over the
+whole production mesh, device 0 computing its node rows and edge blocks
+(the nodes and the 512 blocks split over every device) for every device,
+with ``h`` all-gathered a layer (the halo: its all-gather and, in the
+backward pass, its reduce-scatter are tallied per layer under ``halo``,
+beside the readout's all-reduces).  A recsys train cell runs its model's
+``split_loss`` on the production mesh likewise: each table at its
+``"model"`` piece (``plan.compute_param_bytes``: the parameter bytes the
+device computes with), the lookups' combine over ``"model"`` and the two
+tower's item all-gather over the data axes tallied as activation
+collectives.
 An LM is traced at 2 and 4 layers and extrapolated to its depth (the
 reference's own probe scheme, ``probe_lm_cell``), so a 61-layer cell
 traces in about a second.  Per cell it emits JSON with the
@@ -50,7 +59,9 @@ reference's keys where they mean the same (``arch``, ``shape``, ``kind``,
   column-parallel product, the reduce-scatter after each row-parallel one
   and their transposes in the backward pass, once more for the remat
   recompute; the embedding's and the loss's; ``all-to-all (MoE tokens)``:
-  the dispatch and the combine, forward and backward).
+  the dispatch and the combine, forward and backward); a PNA train cell's
+  halo and readout, a recsys train cell's lookup combines and item
+  gather, likewise.
 
 ``model_flops`` is the reference's ``_model_flops`` (``dryrun.py:90-131``)
 line for line, its quirks kept: a GNN cell counts ``edge_src.shape[0]``,
@@ -93,7 +104,7 @@ from repro_torch.parallel.sharding import (
     shard_tree,
 )
 from repro_torch.parallel.sharded_step import plan_for
-from repro_torch.pytree import leaves_with_paths
+from repro_torch.pytree import leaves, leaves_with_paths, tree_map
 from repro_torch.serve.queue import now
 
 __all__ = ["model_flops", "reckon_cell", "reckon_lm_step", "main"]
@@ -235,23 +246,47 @@ def _probe_mesh(mesh: ShardMesh) -> ShardMesh:
     return ShardMesh((torch.device("meta"),) * math.prod(shape), mesh.axis_names, shape)
 
 
+def _device_tree(m, mesh: ShardMesh, specs) -> tuple[dict, list]:
+    """Mesh device 0's parameter tree on meta, each leaf its piece over the
+    axes that are not data axes (whole over the data axes: what it computes
+    with), and the tree's leaves."""
+    dp = set(dp_axes(mesh))
+
+    def piece(spec, a):
+        axes = P(*spec).axes(a.ndim)
+        pl = Placement(mesh, P(*[tuple(x for x in ax if x not in dp) or None for ax in axes]))
+        b = pl.bounds(tuple(a.shape), pl.piece_of(0, a.ndim))
+        return torch.empty(tuple(x.stop - x.start for x in b), dtype=a.dtype, device="meta",
+                           requires_grad=True)
+
+    tree = tree_map(piece, specs, m.abstract_params())
+    return tree, leaves(tree)
+
+
 def _split_probe(m, mesh: ShardMesh, specs: dict, batch: dict) -> dict:
     """``m.split_loss`` traced on ``_probe_mesh(mesh)`` over one data
     shard's microbatch, device 0 standing for every model shard
     (``split_loss(probe=True)``): one device's FLOPs, saved bytes and
     collectives."""
     probe = _probe_mesh(mesh)
-    dp = set(dp_axes(mesh))
-    tree = {}
-    for k, (shape, dt) in m.param_shapes().items():
-        axes = P(*specs[k]).axes(len(shape))
-        pl = Placement(probe, P(*[tuple(a for a in ax if a not in dp) or None for ax in axes]))
-        piece = pl.bounds(shape, pl.piece_of(0, len(shape)))
-        tree[k] = torch.empty(tuple(b.stop - b.start for b in piece), dtype=dt, device="meta",
-                              requires_grad=True)
+    tree, flat = _device_tree(m, probe, specs)
     return _trace(m, lambda: m.split_loss([tree] * probe.n_devices, [batch["tokens"]], probe,
                                           specs, probe=True),
-                  grad=True, params=list(tree.values()))
+                  grad=True, params=flat)
+
+
+def _mesh_probe(model, mesh: ShardMesh, batch) -> dict:
+    """A PNA or recsys train cell's ``split_loss`` traced on the production
+    mesh, device 0 standing for every device (``probe``): ``batch`` the
+    whole graph (PNA) or each data shard's rows (recsys).  One device's
+    FLOPs, saved bytes and collectives, and the parameter bytes it
+    computes with."""
+    specs = model.param_specs(mesh)
+    tree, flat = _device_tree(model, mesh, specs)
+    out = _trace(model, lambda: model.split_loss([tree] * mesh.n_devices, batch, mesh, specs,
+                                                 probe=True), grad=True, params=flat)
+    out["compute_param_bytes"] = sum(t.numel() * t.element_size() for t in flat)
+    return out
 
 
 def _lm_probe(model, cell, batch: dict, mb: int, mesh: ShardMesh) -> dict:
@@ -366,12 +401,28 @@ def reckon_cell(arch: str, shape_name: str, mesh: ShardMesh) -> dict:
     batch = {k: torch.empty(((rows[k] // mb,) + tuple(s.shape[1:])) if k in rows else (),
                             dtype=s.dtype, device="meta") for k, s in inputs.items()}
 
+    extra: dict = {}
     if bundle.family == "lm":
         traced = _lm_probe(model, cell, batch, mb, mesh)
     elif cell.kind == "train":
-        loss = common.loss_for(bundle.family, model)
-        t = _trace(model, lambda: loss(batch), grad=True)
-        traced = {"flops": mb * t["total"], "saved": t["saved"], "remat": False}
+        if bundle.family == "gnn":
+            # the node plan reads the whole graph and splits it itself
+            mb, shards = 1, {k: torch.empty(tuple(s.shape), dtype=s.dtype, device="meta")
+                             for k, s in inputs.items()}
+        else:  # every data shard's rows alike: one data shard's
+            shards = [batch] * _dp_size(mesh)
+        t = _mesh_probe(model, mesh, shards)
+        moved = {k[6:]: mb * v for k, v in t.items() if k.startswith("moved ")}
+        traced = {"flops": mb * t["total"], "saved": t["saved"], "remat": False,
+                  "moved": moved}
+        extra["compute_param_bytes"] = t["compute_param_bytes"]
+        if bundle.family == "gnn":
+            layers = model.cfg.n_layers
+            extra["halo"] = {
+                "all-gather per layer": moved.get("all-gather", 0.0) / layers,
+                "reduce-scatter per layer": moved.get("reduce-scatter", 0.0) / layers,
+                "all-reduce (readout)": moved.get("all-reduce", 0.0),
+                "total": sum(moved.values())}
     else:
         t = _trace(model, lambda: model.forward(batch), grad=False)
         traced = {"flops": t["total"], "saved": 0.0, "remat": False}
@@ -398,7 +449,7 @@ def reckon_cell(arch: str, shape_name: str, mesh: ShardMesh) -> dict:
         "note": cell.note,
         "plan": {"input_split": split, "microbatches": mb, "remat": traced["remat"],
                  "port_step_rows": (plan_for(bundle.family, model)["rows"]
-                                    if cell.kind == "train" else None)},
+                                    if cell.kind == "train" else None), **extra},
         "per_device_bytes": mem,
         "device_flops": traced["flops"],
         "collective_bytes": _collectives(mesh, params, train=train,

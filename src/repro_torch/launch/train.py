@@ -26,7 +26,11 @@ model, whose loss cannot pair its node logits with graph labels and raises.
 ``--mesh DxM`` runs the loop over a ``("data", "model")`` mesh of D × M
 devices (``launch.mesh.make_local_mesh``; CPU devices with ``--device
 cpu``, ``launch.simdevices.simulated_mesh``): the state in pieces by the
-model's ``param_specs``, the sharded step of ``parallel.sharded_step``.
+model's ``param_specs``, the sharded step of ``parallel.sharded_step``
+with the family's plan (an LM's layers over "model", PNA's nodes over
+every device, a recsys model's tables in their "model" pieces).  PNA's
+molecule batches then come in the dst-partitioned layout, the 80 nodes in
+16 blocks (``PNAModel.partition_edges``), so D × M must divide 16.
 
 A run resumes from the latest checkpoint in ``--checkpoint-dir``, under
 whatever mesh saved it.
@@ -62,14 +66,23 @@ class MoleculeStream:
     edges), batch ``i`` drawn from ``default_rng(i)``, as the reference's
     GNN stream."""
 
-    def __init__(self, d_feat: int, n_classes: int):
+    def __init__(self, d_feat: int, n_classes: int, blocks: int | None = None):
         self.d_feat, self.n_classes = d_feat, n_classes
+        self.blocks = blocks  # the dst-partitioned layout's blocks, or flat
         self.step = 0
 
     def next(self) -> dict:
         rng = np.random.default_rng(self.step)
         self.step += 1
-        return batched_molecules(rng, 8, 10, 20, self.d_feat, self.n_classes)
+        batch = batched_molecules(rng, 8, 10, 20, self.d_feat, self.n_classes)
+        if self.blocks is None:
+            return batch
+        from repro_torch.models.gnn import PNAModel
+
+        src, dstl, valid = PNAModel.partition_edges(batch.pop("edge_src"), batch.pop("edge_dst"),
+                                                    batch["x"].shape[0], self.blocks)
+        batch.update(edge_src=src, edge_dst_local=dstl, edge_valid=valid)
+        return batch
 
     def state(self) -> dict:
         return {"step": self.step}
@@ -94,7 +107,7 @@ def train_model(bundle: common.ArchBundle, reduced: bool):
     return bundle.model, bundle.cfg
 
 
-def make_stream(family: str, model, cfg, reduced: bool):
+def make_stream(family: str, model, cfg, reduced: bool, mesh: bool = False):
     if family == "lm":
         if reduced:
             return TokenStream(vocab=model.cfg.vocab, batch=8, seq=32)
@@ -102,7 +115,7 @@ def make_stream(family: str, model, cfg, reduced: bool):
     if family == "recsys":
         batch = 16 if reduced else common.RECSYS_SHAPES["train_batch"]["batch"]
         return ClickStream(model.cfg, batch=batch)
-    return MoleculeStream(model.cfg.d_feat, model.cfg.n_classes)
+    return MoleculeStream(model.cfg.d_feat, model.cfg.n_classes, 16 if mesh else None)
 
 
 def parse_mesh(text: str, device: torch.device):
@@ -147,7 +160,7 @@ def main(argv=None) -> None:
         sharded = sharded_step_for(bundle.family, model, opt, parse_mesh(args.mesh, dev),
                                    microbatches=microbatches, compression=args.compression)
     loop = TrainLoop(
-        loss_fn, opt, make_stream(bundle.family, model, cfg, args.reduced),
+        loss_fn, opt, make_stream(bundle.family, model, cfg, args.reduced, bool(args.mesh)),
         TrainLoopConfig(
             total_steps=args.steps,
             checkpoint_every=args.checkpoint_every,

@@ -46,6 +46,24 @@ pins the node and edge rows, which ``maybe_constrain`` checks inside a
 sharded step.
 ``partition_edges`` is a host (numpy) function, a copy of the reference's
 (``tests/test_torch_copies.py`` pins it).
+
+**Over node shards** (``split_loss`` / ``split_forward``, the sharded
+step's ``"node"`` plan): the counterpart of the reference's partitioned
+forward under ``Cell.partition``, which splits the nodes and the edge
+blocks over every mesh axis.  The node shards are the mesh devices in mesh
+order, R of them; device ``r`` holds node rows ``[r N / R, (r + 1) N /
+R)`` and edge blocks ``[r S / R, (r + 1) S / R)``.  A block holds every
+edge into its nodes, so the degrees, the scalers and the segment ops are
+the device's own, over its blocks' edges in the one-device order.  Each
+layer all-gathers ``h`` over every axis (the halo, ``parallel.collectives``;
+its transpose reduce-scatters the gradient in mesh order), gathers ``hs``
+from it and ``hd`` from the device's rows, and updates the device's rows.
+The readout's sums go through ``all_reduce``: the masked loss's sum and
+count (node level), the pooled ``(G, d)`` sums and counts (graph level: a
+graph's nodes may span shards).  The weights are replicated, so each
+device's gradient of them is a partial.  R must divide the blocks and the
+nodes, and a flat batch splits over one node shard only: otherwise it
+raises (``partition_edges`` makes the layout).
 """
 
 from __future__ import annotations
@@ -57,6 +75,7 @@ import torch
 
 from repro_torch.core.distances import check_ieee_fp32
 from repro_torch.models.params import ParamModule
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import P, maybe_constrain
 
 __all__ = ["PNAConfig", "PNAModel"]
@@ -207,7 +226,7 @@ class PNAModel(ParamModule):
         s_att = torch.div(avg, torch.clamp_min(logd, 1e-2))
         return s_amp, s_att
 
-    def _update(self, h, layer, s_cnt, s_sum, a_max, a_min, sq, s_amp, s_att):
+    def _update(self, h, w_upd, b_upd, s_cnt, s_sum, a_max, a_min, sq, s_amp, s_att):
         a_mean = s_sum / s_cnt
         a_max = _finite_or_zero(a_max)
         a_min = _finite_or_zero(a_min)
@@ -221,7 +240,7 @@ class PNAModel(ParamModule):
         mixed = [h] + [t for a in (a_mean, a_max, a_min, a_std)
                        for t in (a, a * s_amp, a * s_att)]
         z = torch.cat(mixed, dim=-1)  # (N, 13d)
-        return torch.relu(_mm(z, self.w_upd[layer]) + self.b_upd[layer]) + h
+        return torch.relu(_mm(z, w_upd) + b_upd) + h
 
     def _readout(self, h: torch.Tensor, batch: dict) -> torch.Tensor:
         if self.cfg.graph_level:
@@ -247,7 +266,8 @@ class PNAModel(ParamModule):
             m_in = torch.cat([self._rows(take_rows(h, src)), self._rows(take_rows(h, dst))],
                              dim=-1)
             m = torch.relu(_mm(m_in, self.w_msg[layer]) + self.b_msg[layer])  # (E, d)
-            h = self._update(h, layer, s_cnt, segment_sum(m, dst, n), segment_max(m, dst, n),
+            h = self._update(h, self.w_upd[layer], self.b_upd[layer], s_cnt,
+                             segment_sum(m, dst, n), segment_max(m, dst, n),
                              segment_min(m, dst, n), segment_sum(m * m, dst, n), s_amp, s_att)
         return self._readout(h, batch)
 
@@ -269,23 +289,130 @@ class PNAModel(ParamModule):
         deg = segment_sum(valid.to(c.dtype).reshape(-1), dst, n)
         s_amp, s_att = self._scalers(deg)
         s_cnt = torch.clamp_min(deg[:, None], 1.0)
-        neg = _const(float("-inf"), vmask)
-        pos = _const(float("inf"), vmask)
-
+        p = self._p()
         h = _mm(x, self.w_in)
         for layer in range(c.n_layers):
             hs = take_rows(h, src_flat).reshape(s_blocks, e_loc, -1)  # halo gather
             hd = take_rows(h, dst).reshape(s_blocks, e_loc, -1)
-            m_in = torch.cat([hs, hd], dim=-1)
-            m = torch.relu(_mm(m_in, self.w_msg[layer]) + self.b_msg[layer]) * vmask
-            live = vmask > 0
-            flat = m.reshape(s_blocks * e_loc, -1)
-            h = self._update(
-                h, layer, s_cnt, segment_sum(flat, dst, n),
-                segment_max(torch.where(live, m, neg).reshape(flat.shape), dst, n),
-                segment_min(torch.where(live, m, pos).reshape(flat.shape), dst, n),
-                segment_sum(flat * flat, dst, n), s_amp, s_att)
+            h = self._block_layer(h, hs, hd, vmask, dst, self._layer_params(p, layer),
+                                  s_cnt, s_amp, s_att)
         return self._readout(h, batch)
+
+    @staticmethod
+    def _layer_params(p: dict, layer: int) -> tuple:
+        return p["w_msg"][layer], p["b_msg"][layer], p["w_upd"][layer], p["b_upd"][layer]
+
+    def _block_layer(self, h, hs, hd, vmask, dst, lp, s_cnt, s_amp, s_att):
+        """One layer of the partitioned forward over blocks (S, E_loc):
+        messages from the gathered rows ``hs`` / ``hd``, the segment ops
+        over ``dst`` (ids into ``h``'s rows), ``h``'s rows updated."""
+        w_msg, b_msg, w_upd, b_upd = lp
+        n = h.shape[0]
+        s_blocks, e_loc = vmask.shape[:2]
+        m_in = torch.cat([hs, hd], dim=-1)
+        m = torch.relu(_mm(m_in, w_msg) + b_msg) * vmask
+        live = vmask > 0
+        flat = m.reshape(s_blocks * e_loc, -1)
+        return self._update(
+            h, w_upd, b_upd, s_cnt, segment_sum(flat, dst, n),
+            segment_max(torch.where(live, m, _const(float("-inf"), vmask)).reshape(flat.shape),
+                        dst, n),
+            segment_min(torch.where(live, m, _const(float("inf"), vmask)).reshape(flat.shape),
+                        dst, n),
+            segment_sum(flat * flat, dst, n), s_amp, s_att)
+
+    # ------------------------------------------------------- over node shards
+
+    def split_forward(self, params: list, batch: dict, mesh, specs=None,
+                      probe: bool = False) -> list:
+        """``forward`` over node shards (the module note): each mesh
+        device's logits, its node rows' (N / R, C) at node level, the
+        graphs' (G, C) at graph level (the all-reduced pooling; read on
+        device 0, ``None`` on the others).  ``params[r]``: device r's tree
+        (every leaf whole: the specs replicate it); ``probe`` (meta only:
+        the dry run) computes mesh device 0 alone."""
+        return self._split_logits(params, batch, mesh, probe)[1]
+
+    def _split_logits(self, params: list, batch: dict, mesh, probe: bool):
+        sh, hs = self._split_trunk(params, batch, mesh, probe)
+        if not self.cfg.graph_level:
+            return sh, sh.each(lambda r, p, h: _mm(h, p["w_out"]).float(), params, hs)
+        g = batch["labels"].shape[0]
+
+        def pool(r, h, gid):
+            ones = torch.ones((h.shape[0], 1), dtype=h.dtype, device=h.device)
+            return torch.cat([segment_sum(h, gid, g), segment_sum(ones, gid, g)], dim=-1)
+
+        pooled = sh.over_all(coll.all_reduce, sh.each(pool, hs, sh.node("graph_id")))
+        out = [None] * sh.R
+        tot = pooled[0]
+        h = tot[:, :-1] / torch.clamp_min(tot[:, -1:], 1.0)
+        out[0] = _mm(h, params[0]["w_out"]).float()
+        return sh, out
+
+    def split_loss(self, params: list, batch: dict, mesh, specs=None,
+                   probe: bool = False) -> torch.Tensor:
+        """``loss_fn`` over node shards (the module note), on the mesh's lead
+        device: node level, each device's masked sum and count of its rows'
+        cross-entropies all-reduced, then divided; graph level, the mean
+        over the graphs of the pooled logits."""
+        if "edge_valid" not in batch and mesh.n_devices > 1:
+            raise ValueError(
+                f"a flat edge list cannot be split over {mesh.n_devices} node shards: "
+                "give the dst-partitioned layout (PNAModel.partition_edges)")
+        if "edge_valid" not in batch:
+            from repro_torch.train.step import functional_loss
+
+            return functional_loss(self, self.loss_fn)(params[0], batch).to(mesh.lead)
+        sh, logits = self._split_logits(params, batch, mesh, probe)
+        if self.cfg.graph_level:
+            return _nll_mean(logits[0], batch["labels"].to(logits[0].device), None).to(mesh.lead)
+        labels = sh.node("labels")
+        mask = sh.node("label_mask") if "label_mask" in batch else None
+
+        def sums(r, lg, lab, mk):
+            nll = _nll(lg, lab)
+            if mk is None:
+                return torch.stack([torch.sum(nll), _const(float(nll.shape[0]), nll)])
+            return torch.stack([torch.sum(nll * mk), torch.sum(mk).to(nll.dtype)])
+
+        tot = sh.over_all(coll.all_reduce, sh.each(
+            sums, logits, labels, mask if mask is not None else [None] * sh.R))[0]
+        return (tot[0] / torch.clamp_min(tot[1], 1.0)).to(mesh.lead)
+
+    def _split_trunk(self, params: list, batch: dict, mesh, probe: bool):
+        """The embedding and the layers over node shards: the layout and
+        each device's final rows (N / R, d)."""
+        c = self.cfg
+        sh = _NodeSplit(batch, mesh, probe)
+        x = sh.node("x")
+        src = sh.block("edge_src")
+        dstl = sh.block("edge_dst_local")
+        valid = sh.block("edge_valid")
+
+        def local(r, x_r, dl, v):
+            s_r, _ = dl.shape
+            dst = (dl.long() + (torch.arange(s_r, device=dl.device) * sh.n_loc)[:, None]
+                   ).reshape(-1)
+            deg = segment_sum(v.to(c.dtype).reshape(-1), dst, x_r.shape[0])
+            s_amp, s_att = self._scalers(deg)
+            return dst, v.to(c.dtype)[..., None], torch.clamp_min(deg[:, None], 1.0), s_amp, s_att
+
+        loc = sh.each(local, x, dstl, valid)
+        hs = sh.each(lambda r, p, x_r: _mm(x_r.to(c.dtype), p["w_in"]), params, x)
+        for layer in range(c.n_layers):
+            whole = sh.over_all(coll.all_gather, hs, 0)  # the halo
+
+            def step(r, p, h, hw, s_r, lc):
+                dst, vmask, s_cnt, s_amp, s_att = lc
+                s_b, e_loc = vmask.shape[:2]
+                h_s = take_rows(hw, s_r.long().reshape(-1)).reshape(s_b, e_loc, -1)
+                h_d = take_rows(h, dst).reshape(s_b, e_loc, -1)
+                return self._block_layer(h, h_s, h_d, vmask, dst, self._layer_params(p, layer),
+                                         s_cnt, s_amp, s_att)
+
+            hs = sh.each(step, params, hs, whole, src, loc)
+        return sh, hs
 
     @staticmethod
     def partition_edges(src, dst, n_pad: int, s_blocks: int = 512,
@@ -321,12 +448,57 @@ class PNAModel(ParamModule):
     def loss_fn(self, batch: dict) -> torch.Tensor:
         """Cross-entropy of the logits, over the nodes ``label_mask`` keeps
         (all nodes, or all graphs, without one)."""
-        logits = self.forward(batch)
-        labels = batch["labels"]
-        mask = batch.get("label_mask")
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
-        nll = logz - gold
-        if mask is not None:
-            return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
-        return torch.mean(nll)
+        return _nll_mean(self.forward(batch), batch["labels"], batch.get("label_mask"))
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
+    return logz - gold
+
+
+def _nll_mean(logits: torch.Tensor, labels: torch.Tensor, mask) -> torch.Tensor:
+    nll = _nll(logits, labels)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+class _NodeSplit:
+    """Where a node-shard step computes (the module note): R node shards,
+    the mesh devices in mesh order, and each one's rows of a batch."""
+
+    def __init__(self, batch: dict, mesh, probe: bool = False):
+        self.mesh, self.batch, self.probe = mesh, batch, probe
+        self.R = R = mesh.n_devices
+        self.N = n = batch["x"].shape[0]
+        self.S = s = batch["edge_src"].shape[0]
+        if s % R or n % R or n % s:
+            raise ValueError(
+                f"{R} node shards must divide the {s} edge blocks and the {n} nodes, and "
+                f"the blocks the nodes (PNAModel.partition_edges lays them out)")
+        self.n_loc = n // s
+        self.axes = tuple(mesh.axis_names)
+
+    def each(self, fn, *lists) -> list:
+        """``[fn(r, *(l[r] for l in lists))]``; under ``probe`` rank 0's
+        result stands for every rank's."""
+        if self.probe:
+            return [fn(0, *(lst[0] for lst in lists))] * self.R
+        return [fn(r, *(lst[r] for lst in lists)) for r in range(self.R)]
+
+    def _rows(self, key: str, total: int) -> list:
+        k = total // self.R
+        return self.each(lambda r: self.batch[key][r * k:(r + 1) * k].to(self.mesh.devices[r]))
+
+    def node(self, key: str) -> list:
+        """Each device's node rows of ``batch[key]``."""
+        return self._rows(key, self.N)
+
+    def block(self, key: str) -> list:
+        """Each device's edge blocks of ``batch[key]``."""
+        return self._rows(key, self.S)
+
+    def over_all(self, fn, xs: list, *args) -> list:
+        """The collective ``fn`` over every mesh axis (one group, mesh order)."""
+        return fn(xs, self.mesh, self.axes, *args, probe=self.probe)

@@ -111,6 +111,11 @@ class ParamModule(nn.Module):
             del w  # a bf16 leaf's float32 draw goes before the next draw
         return self
 
+    def _p(self) -> dict:
+        """The live parameters under the tree's names (what a model's
+        blocks take, as a split step gives each mesh device its tree)."""
+        return {k: getattr(self, k) for k in self.param_shapes()}
+
     def param_tree(self) -> dict:
         """The parameters as the reference's tree (the dict, its lists),
         detached tensors sharing the parameters' storage: what the train

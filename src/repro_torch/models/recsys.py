@@ -22,6 +22,29 @@ serves exactly (the ``retrieval_cand`` cell scores 1M candidates).  Float32
 products run in IEEE float32 (``check_ieee_fp32``): TF32 would move a score
 by ~1e-3.  Ids index the tables unchecked inside a pass, as in the
 reference: check ids from outside with ``check_ids`` where they are made.
+
+**Over a mesh** (``split_loss``, the sharded step's ``"split"`` and
+``"in_batch"`` plans on a mesh whose ``"model"`` axis is larger than 1):
+mesh device ``r`` is data shard ``r // m`` and model shard ``r % m``
+(``layers.SplitLayout``), and holds rows ``[j V / m, (j + 1) V / m)`` of
+each table its spec splits over ``"model"`` (pieces of ``ceil(V / m)``):
+the stacked tables, and a single table of at least 65,536 rows (DIN's
+``item_table``, Wide&Deep's ``wide``).  A lookup on model shard ``j``
+reads the ids in its range and gives ``-0.0`` rows for the rest
+(``take_piece``); the pieces are combined over ``"model"`` by
+``parallel.collectives.all_reduce``.  Each row has one owner, and
+``x + (-0.0)`` is ``x`` for every ``x`` (a ``-0.0`` row included, where
+a ``+0.0`` filler would give ``+0.0``), so the combined rows equal one
+device's lookup bit for bit in any order.  The MLPs, DIN's attention and
+DLRM's interaction run on each data shard's rows over replicated weights
+(the specs keep them ``P(None, ...)``), once, on the data shard's model
+shard 0, where the loss is read (its other model shards would compute the
+same values; ``_TableSplit.heads``).  The backward pass adds a piece's gradient rows on the
+device that holds it, in batch order (``index_put_(accumulate=True)``, as a
+one-device lookup's backward adds them), so no table gradient is formed
+whole.  The two tower's item rows are then
+all-gathered over the data axes for the in-batch softmax, as the
+one-device-per-shard plan gathers them.
 """
 
 from __future__ import annotations
@@ -33,7 +56,9 @@ import torch
 from torch import nn
 
 from repro_torch.core.distances import check_ieee_fp32
+from repro_torch.models import layers
 from repro_torch.models.params import ParamModule, _is_leaf, cast_model, check_ids, load_jax_params
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import P, maybe_constrain
 
 __all__ = [
@@ -45,6 +70,8 @@ __all__ = [
     "bce_loss",
     "embedding_lookup",
     "embedding_bag",
+    "take_piece",
+    "bce_terms",
     "check_ids",
     "load_jax_params",
     "cast_model",
@@ -73,6 +100,52 @@ def embedding_bag(
         denom = torch.tensor(idx.shape[1], dtype=e.dtype, device=e.device)
     s = e.sum(dim=1)
     return s / denom if combine == "mean" else s
+
+
+class _PieceRows(torch.autograd.Function):
+    """Rows ``flat`` of a (n, D) table piece, ``-0.0`` where ``flat`` is past
+    the piece (a drop row of its own for each such id); the backward adds
+    each row's gradients into the piece in batch order by
+    ``index_put_(accumulate=True)``, the op of a one-device lookup's
+    backward (sorted by id, each run of equal ids added in order, on the
+    card; on the CPU as ordered as the one-device lookup's own, serial in
+    one thread), the drop rows discarded.  One drop row for all would be
+    one run of every other shard's ids, added by one thread on the card."""
+
+    @staticmethod
+    def forward(ctx, table, flat):
+        n = table.shape[0]
+        ctx.save_for_backward(flat)
+        ctx.n = n
+        rows = table[torch.clamp_max(flat, n - 1)]
+        neg0 = torch.full((), -0.0, dtype=table.dtype, device=table.device)
+        return torch.where((flat < n)[..., None], rows, neg0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (flat,) = ctx.saved_tensors
+        d = grad.shape[-1]
+        out = torch.zeros((ctx.n + flat.numel(), d), dtype=grad.dtype, device=grad.device)
+        out.index_put_((flat.reshape(-1),), grad.reshape(-1, d), accumulate=True)
+        return out[:ctx.n], None
+
+
+def take_piece(piece: torch.Tensor, ids: torch.Tensor, v0: int) -> torch.Tensor:
+    """The rows of ``ids`` that lie in a table's row piece ``[v0, v0 + Vp)``,
+    ``-0.0`` rows for the others: ``piece`` (Vp, D) with ids of any shape,
+    or a stacked piece (T, Vp, D) with ids (B, T), one per field (the
+    module note).  With the whole table (``v0 = 0``) it is the lookup of
+    ``embedding_lookup`` / ``table[ids]``, bit for bit."""
+    vp, d = piece.shape[-2], piece.shape[-1]
+    local = ids.long() - v0
+    here = (local >= 0) & (local < vp)
+    n = vp
+    if piece.ndim == 3:
+        n = piece.shape[0] * vp
+        local = local + torch.arange(piece.shape[0], device=ids.device) * vp
+    drop = n + torch.arange(local.numel(), device=ids.device).reshape(local.shape)
+    flat = torch.where(here, local, drop)
+    return _PieceRows.apply(piece.reshape(n, d), flat)
 
 
 def _mlp_shapes(dims: Sequence[int], dtype) -> list:
@@ -148,6 +221,118 @@ class _RecsysModule(ParamModule):
         return {k: spec(v) if _is_leaf(v) else [spec(x) for x in v]
                 for k, v in self.param_shapes().items()}
 
+    def split_loss(self, params: list, batches: list, mesh, specs: dict,
+                   probe: bool = False) -> torch.Tensor:
+        """``bce_loss`` over a mesh (the module note): ``params[r]`` mesh
+        device r's tree (each table its "model" piece, the rest whole),
+        ``batches[s]`` data shard s's rows.  Returns ``sum_s (B_s / B)
+        loss_s`` on the mesh's lead device (one data shard: its loss);
+        ``probe`` (meta only: the dry run) computes mesh device 0 alone."""
+        ts = _TableSplit(self, params, batches, mesh, specs, probe)
+        logits = self._split_logits(ts)
+        means = ts.heads(lambda r, lg, b: torch.mean(bce_terms(lg, b["label"].float())),
+                         logits, ts.batch)
+        return ts.weighted(means)
+
+    def split_forward(self, params: list, batches: list, mesh, specs: dict) -> list:
+        """``forward`` over a mesh: each mesh device's logits of its data
+        shard's rows."""
+        return self._split_logits(_TableSplit(self, params, batches, mesh, specs))
+
+    def split_lookups(self, params: list, batches: list, mesh, specs: dict) -> dict:
+        """Each table's rows as every mesh device reads them for its data
+        shard (``{lookup: [rows per mesh device]}``, ``_lookup_ids``'s
+        names), combined over ``"model"``: the lookups of ``split_loss``."""
+        ts = _TableSplit(self, params, batches, mesh, specs)
+        return {name: ts.read(self, name) for name in self._lookup_ids()}
+
+
+class _TableSplit:
+    """Where a recsys ``split_loss`` computes (the module note): the layout
+    (``layers.SplitLayout``; no sequence), each mesh device's tree and its
+    data shard's batch on its device, and the row count ``V`` of each table
+    the specs split over ``"model"``."""
+
+    def __init__(self, model, params: list, batches: list, mesh, specs: dict,
+                 probe: bool = False):
+        m = mesh.size("model") if "model" in mesh.axis_names else 1
+        if "model" in mesh.axis_names and mesh.axis_names[-1] != "model":
+            raise ValueError(f"the model axis must be the mesh's last, got {mesh.axis_names}")
+        self.n = [next(iter(b.values())).shape[0] for b in batches]
+        starts = [sum(self.n[:s]) for s in range(len(batches))]
+        self.lay = lay = layers.SplitLayout(
+            mesh, m, tuple((b0, b0 + k) for b0, k in zip(starts, self.n)), 1, False, probe)
+        if lay.D != len(batches):
+            raise ValueError(f"{len(batches)} row shards for {lay.D} data shards")
+        self.params = params
+        self.batch = lay.each(lambda r: {k: v.to(lay.device(r))
+                                         for k, v in batches[r // m].items()})
+        self.batch_axes = model.cfg.batch_axes
+        self.rows: dict = {}
+        for key, (shape, _) in ((k, v) for k, v in model.param_shapes().items() if _is_leaf(v)):
+            axes = P(*specs[key]).axes(len(shape))
+            at = [i for i, ax in enumerate(axes) if "model" in ax]
+            if at and (at != [len(shape) - 2] or axes[at[0]] != ("model",)):
+                raise NotImplementedError(f"a recsys table splits over 'model' by its rows "
+                                          f"only, not {key} by {specs[key]!r}")
+            if at and m > 1:
+                self.rows[key] = shape[-2]
+        for key, v in model.param_shapes().items():
+            if not _is_leaf(v) and any("model" in P(*sp).names() for sp in specs[key]):
+                raise NotImplementedError(f"{key} is replicated over 'model' in the "
+                                          f"reference's specs, not {specs[key]!r}")
+
+    def first(self, r: int) -> int:
+        """The batch row where mesh device r's data shard starts."""
+        return self.lay.rows[r // self.lay.m][0]
+
+    def lookup(self, key: str, ids: list) -> list:
+        """Each mesh device's rows of table ``key`` for ``ids[r]``: a table
+        split over "model" read piece by piece and combined (the module
+        note), another read whole on each device as on one."""
+        lay = self.lay
+
+        def whole(r, p, i):
+            t = p[key]
+            return embedding_lookup(t, i) if t.ndim == 3 else t[i.long()]
+
+        if key not in self.rows:
+            return lay.each(whole, self.params, ids)
+        v = self.rows[key]
+        parts = lay.each(lambda r, p, i: take_piece(
+            p[key], i, coll.piece_bounds(v, lay.m, r % lay.m)[0]), self.params, ids)
+        return lay.over_model(coll.all_reduce, parts)
+
+    def read(self, model, name: str) -> list:
+        """The lookup ``name`` of ``model._lookup_ids()`` on every device."""
+        key, ids = model._lookup_ids()[name]
+        return self.lookup(key, [ids(b) for b in self.batch])
+
+    def heads(self, fn, *lists) -> list:
+        """``fn(r, ...)`` on each data shard's model shard 0, where the loss
+        is read; the data shard's other model shards hold that result (their
+        replicated weights would compute the same values)."""
+        m = self.lay.m
+        out = self.lay.each(lambda r, *a: fn(r, *a) if r % m == 0 else None, *lists)
+        return [out[r - r % m] for r in range(self.lay.R)]
+
+    def constrain(self, xs: list) -> list:
+        return [_constrain_rows(x, self.batch_axes) for x in xs]
+
+    def weighted(self, means: list) -> torch.Tensor:
+        """``sum_s (B_s / B) means_s`` on the lead device in shard order
+        (float32, as the row split sums), read on each data shard's model
+        shard 0; one data shard: its own value."""
+        lay, lead = self.lay, self.lay.mesh.lead
+        if lay.D == 1:
+            return means[0].to(lead)
+        total, loss = sum(self.n), None
+        for s in (s for s in range(lay.D) if self.n[s]):
+            w = torch.full((), self.n[s] / total, dtype=torch.float32, device=lead)
+            part = means[s * lay.m].to(lead) * w
+            loss = part if loss is None else loss + part
+        return loss
+
 
 class WideDeepModel(_RecsysModule):
     """Wide&Deep (arXiv:1606.07792): wide hashed-linear + deep MLP on field
@@ -168,9 +353,22 @@ class WideDeepModel(_RecsysModule):
         c = self.cfg
         idx = batch["sparse_ids"]  # (B, T)
         emb = _constrain_rows(embedding_lookup(self.tables, idx), c.batch_axes)
-        deep = _mlp_apply(emb.reshape(emb.shape[0], -1), self.mlp_w, self.mlp_b)
-        wide = self.wide[idx.long() % c.vocab][..., 0].sum(dim=-1, keepdim=True)
-        return (deep + wide).float()[:, 0]
+        return _wide_deep_head(emb, self.wide[idx.long() % c.vocab], self._p())
+
+    def _lookup_ids(self) -> dict:
+        return {"tables": ("tables", lambda b: b["sparse_ids"]),
+                "wide": ("wide", lambda b: b["sparse_ids"].long() % self.cfg.vocab)}
+
+    def _split_logits(self, ts: _TableSplit) -> list:
+        emb = ts.constrain(ts.read(self, "tables"))
+        return ts.heads(lambda r, p, e, w: _wide_deep_head(e, w, p), ts.params, emb,
+                        ts.read(self, "wide"))
+
+
+def _wide_deep_head(emb: torch.Tensor, wide_rows: torch.Tensor, p: dict) -> torch.Tensor:
+    deep = _mlp_apply(emb.reshape(emb.shape[0], -1), p["mlp_w"], p["mlp_b"])
+    wide = wide_rows[..., 0].sum(dim=-1, keepdim=True)
+    return (deep + wide).float()[:, 0]
 
 
 class DINModel(_RecsysModule):
@@ -195,17 +393,34 @@ class DINModel(_RecsysModule):
         target = batch["target_id"].long()   # (B,)
         valid = batch.get("hist_valid")      # (B, L) bool
         eh = _constrain_rows(self.item_table[hist], self.cfg.batch_axes)
-        et = _constrain_rows(self.item_table[target], self.cfg.batch_axes)[:, None, :]
-        etb = et.expand_as(eh)
-        a_in = torch.cat([eh, etb, eh - etb, eh * etb], dim=-1)
-        w = _mlp_apply(a_in, self.attn_w, self.attn_b)[..., 0]  # (B, L)
-        if valid is not None:
-            w = torch.where(valid, w, -1e9)
-        # softmax in float32, cast back, as the reference
-        w = torch.softmax(w.float(), dim=-1).to(eh.dtype)
-        user = torch.einsum("bl,bld->bd", w, eh)
-        z = torch.cat([user, et[:, 0]], dim=-1)
-        return _mlp_apply(z, self.mlp_w, self.mlp_b).float()[:, 0]
+        et = _constrain_rows(self.item_table[target], self.cfg.batch_axes)
+        return _din_head(eh, et, valid, self._p())
+
+    def _lookup_ids(self) -> dict:
+        return {"history": ("item_table", lambda b: b["hist_ids"]),
+                "target": ("item_table", lambda b: b["target_id"])}
+
+    def _split_logits(self, ts: _TableSplit) -> list:
+        eh = ts.constrain(ts.read(self, "history"))
+        et = ts.constrain(ts.read(self, "target"))
+        return ts.heads(lambda r, p, h, t, b: _din_head(h, t, b.get("hist_valid"), p),
+                        ts.params, eh, et, ts.batch)
+
+
+def _din_head(eh: torch.Tensor, et: torch.Tensor, valid, p: dict) -> torch.Tensor:
+    """DIN's target attention and MLP over the looked-up rows: ``eh`` (B,
+    L, D) the history's, ``et`` (B, D) the target's."""
+    et = et[:, None, :]
+    etb = et.expand_as(eh)
+    a_in = torch.cat([eh, etb, eh - etb, eh * etb], dim=-1)
+    w = _mlp_apply(a_in, p["attn_w"], p["attn_b"])[..., 0]  # (B, L)
+    if valid is not None:
+        w = torch.where(valid, w, -1e9)
+    # softmax in float32, cast back, as the reference
+    w = torch.softmax(w.float(), dim=-1).to(eh.dtype)
+    user = torch.einsum("bl,bld->bd", w, eh)
+    z = torch.cat([user, et[:, 0]], dim=-1)
+    return _mlp_apply(z, p["mlp_w"], p["mlp_b"]).float()[:, 0]
 
 
 class TwoTowerModel(_RecsysModule):
@@ -229,9 +444,38 @@ class TwoTowerModel(_RecsysModule):
         }
 
     def _tower(self, tables, ws, bs, ids):
-        e = _constrain_rows(embedding_lookup(tables, ids), self.cfg.batch_axes)
-        z = _mlp_apply(e.reshape(e.shape[0], -1), ws, bs)
-        return z / torch.clamp_min(torch.linalg.norm(z, dim=-1, keepdim=True), 1e-6)
+        return _tower_head(_constrain_rows(embedding_lookup(tables, ids), self.cfg.batch_axes),
+                           ws, bs)
+
+    def _lookup_ids(self) -> dict:
+        return {"user_tables": ("user_tables", lambda b: b["user_ids"]),
+                "item_tables": ("item_tables", lambda b: b["item_ids"])}
+
+    def split_loss(self, params: list, batches: list, mesh, specs: dict,
+                   probe: bool = False) -> torch.Tensor:
+        """``loss_fn`` over a mesh (the module note): each device's towers
+        over its data shard's rows with split lookups, the item rows
+        all-gathered over the data axes in float32 (float64 for a float64
+        copy), each device's rows' in-batch terms against every item.
+        Returns ``sum_s sum(terms_s) / B`` on the lead device in shard order
+        (one data shard: the mean of its terms, as on one device)."""
+        ts = _TableSplit(self, params, batches, mesh, specs, probe)
+        lay = ts.lay
+        u = ts.heads(lambda r, p, e: _tower_head(e, p["user_w"], p["user_b"]), ts.params,
+                     ts.constrain(ts.read(self, "user_tables")))
+        i = ts.heads(lambda r, p, e: _tower_head(e, p["item_w"], p["item_b"]), ts.params,
+                     ts.constrain(ts.read(self, "item_tables")))
+        wide = ts.heads(lambda r, x: x.to(torch.promote_types(x.dtype, torch.float32)), i)
+        items = lay.over_data(coll.all_gather, wide, 0)
+        terms = ts.heads(lambda r, ur, it: self.in_batch_terms(ur, it, ts.first(r)), u, items)
+        lead = mesh.lead
+        if lay.D == 1:
+            return torch.mean(terms[0]).to(lead)
+        total, loss = sum(ts.n), None
+        for s in (s for s in range(lay.D) if ts.n[s]):
+            part = (torch.sum(terms[s * lay.m]) / total).to(lead)
+            loss = part if loss is None else loss + part
+        return loss
 
     def user_embed(self, user_ids: torch.Tensor) -> torch.Tensor:
         return self._tower(self.user_tables, self.user_w, self.user_b, user_ids)
@@ -305,6 +549,12 @@ class TwoTowerModel(_RecsysModule):
         return scores, rows
 
 
+def _tower_head(e: torch.Tensor, ws, bs) -> torch.Tensor:
+    """A tower's MLP over its looked-up rows ``e`` (B, F, D), normalised."""
+    z = _mlp_apply(e.reshape(e.shape[0], -1), ws, bs)
+    return z / torch.clamp_min(torch.linalg.norm(z, dim=-1, keepdim=True), 1e-6)
+
+
 def pruned_block_keys(uf: torch.Tensor, piv: torch.Tensor, pairs: torch.Tensor,
                       deltas: torch.Tensor, boxes: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -366,25 +616,38 @@ class DLRMModel(_RecsysModule):
         }
 
     def forward(self, batch: dict) -> torch.Tensor:
-        dense = batch["dense"].to(self.cfg.dtype)  # (B, 13)
-        idx = batch["sparse_ids"]  # (B, 26)
-        z0 = _mlp_apply(dense, self.bot_w, self.bot_b, final_act=True)
         emb = _constrain_rows(
-            embedding_lookup(self.tables, idx), self.cfg.batch_axes
+            embedding_lookup(self.tables, batch["sparse_ids"]), self.cfg.batch_axes
         )  # (B, 26, D)
-        z = torch.cat([z0[:, None, :], emb], dim=1)  # (B, 27, D)
-        if z.dtype == torch.float32:
-            check_ieee_fp32(z)
-        inter = torch.einsum("bnd,bmd->bnm", z, z)  # (B, 27, 27)
-        # row-major upper triangle, as jnp.triu_indices
-        iu, ju = torch.triu_indices(z.shape[1], z.shape[1], offset=1, device=z.device)
-        feat = torch.cat([inter[:, iu, ju], z0], dim=-1)
-        return _mlp_apply(feat, self.top_w, self.top_b).float()[:, 0]
+        return _dlrm_head(batch["dense"].to(self.cfg.dtype), emb, self._p())
+
+    def _lookup_ids(self) -> dict:
+        return {"tables": ("tables", lambda b: b["sparse_ids"])}
+
+    def _split_logits(self, ts: _TableSplit) -> list:
+        dt = self.cfg.dtype
+        return ts.heads(lambda r, p, e, b: _dlrm_head(b["dense"].to(dt), e, p), ts.params,
+                        ts.constrain(ts.read(self, "tables")), ts.batch)
+
+
+def _dlrm_head(dense: torch.Tensor, emb: torch.Tensor, p: dict) -> torch.Tensor:
+    """DLRM's bottom MLP on ``dense`` (B, 13), the dot interaction with the
+    looked-up rows ``emb`` (B, 26, D) and the top MLP."""
+    z0 = _mlp_apply(dense, p["bot_w"], p["bot_b"], final_act=True)
+    z = torch.cat([z0[:, None, :], emb], dim=1)  # (B, 27, D)
+    if z.dtype == torch.float32:
+        check_ieee_fp32(z)
+    inter = torch.einsum("bnd,bmd->bnm", z, z)  # (B, 27, 27)
+    # row-major upper triangle, as jnp.triu_indices
+    iu, ju = torch.triu_indices(z.shape[1], z.shape[1], offset=1, device=z.device)
+    feat = torch.cat([inter[:, iu, ju], z0], dim=-1)
+    return _mlp_apply(feat, p["top_w"], p["top_b"]).float()[:, 0]
+
+
+def bce_terms(logit: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Each row's binary cross-entropy of ``logit`` against ``y``."""
+    return torch.clamp_min(logit, 0) - logit * y + torch.log1p(torch.exp(-torch.abs(logit)))
 
 
 def bce_loss(model, batch: dict) -> torch.Tensor:
-    logit = model.forward(batch)
-    y = batch["label"].float()
-    return torch.mean(
-        torch.clamp_min(logit, 0) - logit * y + torch.log1p(torch.exp(-torch.abs(logit)))
-    )
+    return torch.mean(bce_terms(model.forward(batch), batch["label"].float()))

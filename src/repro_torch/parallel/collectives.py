@@ -32,14 +32,16 @@ member and gives every other a tensor of its shape.  ``tally()`` counts
 what they would move for one device, ring-reckoned (a group of k moves
 (k − 1) / k of the whole, an all-reduce twice that), so the dry run reads
 the activation collectives off a traced step: a recompute under remat and
-the backward pass count again.
+the backward pass count again (into the tally that was open at the
+forward, whatever thread runs the backward: on a card, autograd's device
+thread).
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Iterator, Sequence
+from typing import ContextManager, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -61,19 +63,30 @@ __all__ = [
 _TALLY = threading.local()
 
 
-@contextlib.contextmanager
-def tally() -> Iterator[dict]:
+def tally() -> ContextManager[dict]:
     """Bytes one device moves by kind while the block runs (module note)."""
-    prev = getattr(_TALLY, "counts", None)
-    _TALLY.counts = counts = {}
+    return _counting({})
+
+
+@contextlib.contextmanager
+def _counting(counts: dict | None) -> Iterator[dict | None]:
+    """``counts`` the tally open in this thread while the block runs (a
+    backward pass counts into its forward's)."""
+    prev = _open()
+    _TALLY.counts = counts
     try:
         yield counts
     finally:
         _TALLY.counts = prev
 
 
+def _open():
+    """The tally open in this thread, or None."""
+    return getattr(_TALLY, "counts", None)
+
+
 def tally_add(kind: str, nbytes: float) -> None:
-    counts = getattr(_TALLY, "counts", None)
+    counts = _open()
     if counts is not None:
         counts[kind] = counts.get(kind, 0.0) + float(nbytes)
 
@@ -174,18 +187,20 @@ def _reduce(xs, mesh, axis, probe=False):
 
 
 def _back(ctx, gs, fn, *args):
-    """A transpose in the backward pass; under a probe the one computed
-    member's gradient alone (the others' inputs are its own)."""
-    if ctx.probe:
-        out = fn([gs[0]] * len(gs), *args, probe=True)
-        return [out[0]] + [None] * (len(out) - 1)
-    return fn(gs, *args)
+    """A transpose in the backward pass, tallied where the forward was;
+    under a probe the one computed member's gradient alone (the others'
+    inputs are its own)."""
+    with _counting(ctx.counts):
+        if ctx.probe:
+            out = fn([gs[0]] * len(gs), *args, probe=True)
+            return [out[0]] + [None] * (len(out) - 1)
+        return fn(gs, *args)
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, axis, dim, probe, *xs):
-        ctx.spec, ctx.probe = (mesh, axis, dim), probe
+        ctx.spec, ctx.probe, ctx.counts = (mesh, axis, dim), probe, _open()
         return tuple(_gather(xs, mesh, axis, dim, probe))
 
     @staticmethod
@@ -196,7 +211,7 @@ class _AllGather(torch.autograd.Function):
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, axis, dim, probe, *xs):
-        ctx.spec, ctx.probe = (mesh, axis, dim), probe
+        ctx.spec, ctx.probe, ctx.counts = (mesh, axis, dim), probe, _open()
         return tuple(_scatter(xs, mesh, axis, dim, probe))
 
     @staticmethod
@@ -207,7 +222,7 @@ class _ReduceScatter(torch.autograd.Function):
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, axis, probe, *xs):
-        ctx.spec, ctx.probe = (mesh, axis), probe
+        ctx.spec, ctx.probe, ctx.counts = (mesh, axis), probe, _open()
         return tuple(_reduce(xs, mesh, axis, probe))
 
     @staticmethod
@@ -218,13 +233,14 @@ class _AllReduce(torch.autograd.Function):
 class _Moved(torch.autograd.Function):
     @staticmethod
     def forward(ctx, kind, nbytes, x):
-        ctx.spec = (kind, nbytes)
+        ctx.spec, ctx.counts = (kind, nbytes), _open()
         tally_add(kind, nbytes)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        tally_add(*ctx.spec)
+        with _counting(ctx.counts):
+            tally_add(*ctx.spec)
         return None, None, g
 
 
@@ -233,7 +249,7 @@ def moved(x: torch.Tensor, kind: str, nbytes: float) -> torch.Tensor:
     in the forward and again in the backward pass: the bytes of an
     exchange built from plain indexing (the MoE's all-to-all).  Outside a
     ``tally()`` it is ``x``, with no autograd node."""
-    if getattr(_TALLY, "counts", None) is None:
+    if _open() is None:
         return x
     return _Moved.apply(kind, float(nbytes), x)
 

@@ -27,10 +27,17 @@ so this module keeps that rule by hand:
     pieces.  Those are summed over the devices that hold a piece's region
     in mesh order 0 … R−1 in float32 (float64 for a float64 copy; the
     reduce-scatter over the data axes, plus the model shards' partial
-    sums of a leaf the spec keeps whole over ``"model"``) and cast: the
-    gradient comes back as ``ShardedTensor``s in the parameters' pieces.
+    sums of a leaf the spec keeps whole over ``"model"``; a device whose
+    copy the loss does not reach adds nothing) and cast: the gradient
+    comes back as ``ShardedTensor``s in the parameters' pieces.
   - ``"split"`` — the loss is a mean of independent per-row terms (the CTR
-    models' BCE): the batch's rows are split over the data axes, shard
+    models' BCE).  On a mesh whose ``"model"`` axis is larger than 1 the
+    tables compute in their ``"model"`` pieces: the model's
+    ``split_loss`` (``models.recsys``'s note: lookups piece by piece,
+    combined over ``"model"``), each leaf gathered over the data axes
+    only and the gradient summed and returned in pieces as under
+    ``"model"`` (no table, and no table gradient, is ever whole).
+    Otherwise the batch's rows are split over the data axes, shard
     ``s`` on ``shard_devices(mesh)[s]``; each shard gathers every
     parameter whole (a copy, no arithmetic; once a step per distinct
     device) and runs the one-device loss and backward on its rows, and
@@ -43,13 +50,19 @@ so this module keeps that rule by hand:
     shard order), each shard takes its rows' softmax over every column,
     the item rows' gradients are summed over the shards in shard order in
     float32 (the reduce-scatter), and each shard runs its towers' backward.
-  - ``"lead"`` — PNA: its message passing crosses node shards, so the whole
-    batch runs on the lead device over whole parameters; the state stays
-    in pieces.
+    On a mesh whose ``"model"`` axis is larger than 1, the towers' lookups
+    are split as ``"split"``'s, and the gather and its transpose are
+    ``parallel.collectives``' over the data axes.
+  - ``"node"`` — PNA: the nodes and the edge blocks of the partitioned
+    layout split over every mesh device (``PNAModel.split_loss``: the halo
+    all-gather of ``h`` a layer, block-local segment ops, the readout's
+    all-reduces), the replicated weights' partial gradients summed in mesh
+    order as under ``"model"``.
 
-  With one compute shard (``"split"`` on a mesh whose data axes are 1, or
-  ``"lead"``) the loss and gradients are that shard's own: storage-only
-  sharding gives the one-device step's bits.
+  With one compute shard (``"split"`` or ``"in_batch"`` on a mesh whose
+  data axes are 1 and whose ``"model"`` axis is 1 or absent) the loss and
+  gradients are that shard's own: storage-only sharding gives the
+  one-device step's bits.
 * **Updated in place, piece by piece** (the port's counterpart of
   ``donate_argnums=(0,)``).  The optimizer's ``prepare`` runs once over the
   whole gradient tree on the lead device (the step count, the learning
@@ -70,6 +83,7 @@ CPU.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -98,7 +112,7 @@ __all__ = [
     "sharded_step_for",
 ]
 
-ROWS = ("model", "split", "in_batch", "lead")
+ROWS = ("model", "split", "in_batch", "node")
 
 
 def state_specs(optimizer: Optimizer, param_specs, compression: bool = False) -> dict:
@@ -127,17 +141,18 @@ def _whole(x, device) -> torch.Tensor:
 
 def plan_for(family: str, model) -> dict:
     """How a model of ``family`` splits its rows (see the module note):
-    ``rows`` and, for the in-batch softmax, ``towers`` and ``head``."""
+    ``rows``, ``split`` (the model's loss over a mesh) and, for the
+    in-batch softmax, ``towers`` and ``head``."""
     if family == "lm":
         return {"rows": "model", "split": model.split_loss}
     if family == "gnn":
-        return {"rows": "lead"}
+        return {"rows": "node", "split": model.split_loss}
     if model.cfg.kind == "two_tower":
         from repro_torch.train.step import functional_loss
 
         return {"rows": "in_batch", "towers": functional_loss(model, model.towers),
-                "head": model.in_batch_terms}
-    return {"rows": "split"}
+                "head": model.in_batch_terms, "split": model.split_loss}
+    return {"rows": "split", "split": model.split_loss}
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -166,7 +181,9 @@ class ShardedTrainStep:
     rows: str = "split"
     towers: Callable | None = None  # in_batch: towers(params, batch) -> (u, i)
     head: Callable | None = None    # in_batch: head(u, items, first) -> row terms
-    # model: split(params per mesh device, rows per data shard, mesh, specs)
+    # the loss over a mesh: split(params per mesh device, rows per data shard
+    # (the batch under "node"), mesh, specs); "split" / "in_batch" use it on
+    # a mesh whose "model" axis is larger than 1
     split: Callable | None = None
     microbatches: int = 1
     compression: bool = False
@@ -176,16 +193,22 @@ class ShardedTrainStep:
             raise ValueError(f"rows must be one of {ROWS}, got {self.rows!r}")
         if self.rows == "in_batch" and (self.towers is None or self.head is None):
             raise ValueError("rows='in_batch' needs towers and head")
-        if self.rows == "model" and self.split is None:
-            raise ValueError("rows='model' needs split")
+        if self.rows in ("model", "node") and self.split is None:
+            raise ValueError(f"rows={self.rows!r} needs split")
+        if self.rows == "node" and self.microbatches != 1:
+            raise ValueError("rows='node' splits a graph's nodes, not its batch: "
+                             "microbatches must be 1")
+        if self._splits_model() and self.split is None:
+            raise ValueError(f"rows={self.rows!r} on a mesh split over 'model' needs split")
         if not dp_axes(self.mesh):
             raise ValueError(f"mesh {self.mesh.axis_names} has no data axis")
         if self.mesh.lead.type == "meta":
             raise ValueError("a meta mesh holds nothing: it is for the dry run")
         self.placements = shard_tree(
             self.mesh, state_specs(self.optimizer, self.param_specs, self.compression))
-        # under "model": the parameter bytes each mesh device computes with
-        # (its "model" pieces, whole over the data axes), set by each step
+        # the parameter bytes each mesh device computes with (its "model"
+        # pieces, whole over the data axes; under a row split, every leaf
+        # whole on each shard), set by each step
         self.compute_bytes: list | None = None
 
     # ------------------------------------------------------------------ state
@@ -201,9 +224,8 @@ class ShardedTrainStep:
         keys = list(batch)
         rows = batch[keys[0]].shape[0]
         spec = self.batch_spec
-        split = self.rows != "lead" and (
-            spec is None or (_splits_rows(spec) if not isinstance(spec, dict)
-                             else any(_splits_rows(spec[k]) for k in keys)))
+        split = spec is None or (_splits_rows(spec) if not isinstance(spec, dict)
+                                 else any(_splits_rows(spec[k]) for k in keys))
         if not split or n_shards(self.mesh) == 1:
             dev = self.mesh.lead if not split else shard_devices(self.mesh)[0]
             return [(dev, {k: v.to(dev) for k, v in batch.items()}, rows)]
@@ -232,13 +254,21 @@ class ShardedTrainStep:
 
     # ----------------------------------------------------------------- grads
 
+    def _splits_model(self) -> bool:
+        """The step computes in pieces (module note): ``"model"``, ``"node"``,
+        or a row plan on a mesh whose ``"model"`` axis is larger than 1."""
+        mesh = self.mesh
+        return self.rows in ("model", "node") or (
+            "model" in mesh.axis_names and mesh.size("model") > 1)
+
     def grads(self, state, batch: dict) -> tuple[torch.Tensor, Any]:
-        """(loss on the lead device, gradients): under ``"model"`` a tree of
-        ``ShardedTensor``s in the parameters' pieces (``gather_state`` makes
-        them whole), else whole tensors on the lead device; each in its
-        parameter's dtype (float32 means over several microbatches under
-        ``"model"``, as ``TrainStep`` gives them)."""
-        if self.rows == "model":
+        """(loss on the lead device, gradients): where the step computes in
+        pieces (``"model"``, ``"node"``, a row plan over a ``"model"`` axis
+        larger than 1) a tree of ``ShardedTensor``s in the parameters'
+        pieces (``gather_state`` makes them whole), else whole tensors on
+        the lead device; each in its parameter's dtype (float32 means over
+        several microbatches in pieces, as ``TrainStep`` gives them)."""
+        if self._splits_model():
             with active_mesh(self.mesh):
                 return self._model_grads(state, batch)
         shards = self._row_shards(batch)
@@ -250,6 +280,7 @@ class ShardedTrainStep:
     def _row_grads(self, state, shards) -> tuple[torch.Tensor, Any]:
         from repro_torch.train.step import TrainStep
 
+        self._whole_bytes(state, len(shards))
         lead = self.mesh.lead
         local = TrainStep(self.loss_fn, self.optimizer, self.microbatches)
         total = sum(n for _, _, n in shards)
@@ -269,16 +300,42 @@ class ShardedTrainStep:
         dts = [s.dtype for s in leaves(state["params"])]
         return loss, unflatten(state["params"], [a.to(dt) for a, dt in zip(acc, dts)])
 
+    def _microbatches(self, batch: dict) -> list:
+        """What ``split`` takes for each microbatch: under ``"node"`` the
+        batch itself; else the microbatch's rows (consecutive, as on one
+        device) cut over the data shards (the last shorter or empty), a
+        list of token tensors under ``"model"``, of batch dicts under a row
+        plan (a key whose spec keeps its rows whole goes whole)."""
+        if self.rows == "node":
+            return [batch]
+        keys = list(batch)
+        rows = batch[keys[0]].shape[0]
+        mbs = self.microbatches
+        if rows % mbs:
+            raise ValueError(f"batch size {rows} not divisible by microbatches {mbs}")
+        per = rows // mbs
+        d_shards = n_shards(self.mesh)
+        step = -(-per // d_shards)
+        out = []
+        for mb in range(mbs):
+            shards = []
+            for s in range(d_shards):
+                lo, hi = mb * per + min(per, s * step), mb * per + min(per, (s + 1) * step)
+                shards.append({k: self._piece(k, v, lo, hi) for k, v in batch.items()})
+            out.append([b["tokens"] for b in shards] if self.rows == "model" else shards)
+        return out
+
     def _model_grads(self, state, batch: dict) -> tuple[torch.Tensor, Any]:
-        """The ``"model"`` plan (module note): (loss on the lead device, the
-        gradient as ``ShardedTensor``s in the parameters' pieces)."""
+        """The plans that compute in pieces (module note): (loss on the lead
+        device, the gradient as ``ShardedTensor``s in the parameters'
+        pieces)."""
         mesh, lead = self.mesh, self.mesh.lead
-        d_shards = n_shards(mesh)
         flat = leaves(state["params"])
         regions = [[s.model_region(i) for s in flat] for i in range(mesh.n_devices)]
         # each device's pieces, gathered over the data axes once per
-        # (device, region): the devices of one card read one copy, and each
-        # device's leaves are its own autograd leaves
+        # (device, region) (a region that is one piece held on the device is
+        # that piece, uncopied): the devices of one card read one copy, and
+        # each device's leaves are its own autograd leaves
         cache: dict = {}
         live, self.compute_bytes = [], []
         for i, dev in enumerate(mesh.devices):
@@ -286,18 +343,13 @@ class ShardedTrainStep:
             for li, s in enumerate(flat):
                 key = (dev, li, regions[i][li])
                 if key not in cache:
-                    cache[key] = s.gather_region(regions[i][li], dev)
+                    cache[key] = s.region(regions[i][li], dev)
                 t = cache[key]
                 held += t.numel() * t.element_size()
                 row.append(t.detach().requires_grad_(True))
             live.append(row)
             self.compute_bytes.append(held)
         del cache
-        rows = batch["tokens"].shape[0]
-        mbs = self.microbatches
-        if rows % mbs:
-            raise ValueError(f"batch size {rows} not divisible by microbatches {mbs}")
-        per = rows // mbs
         every = [t for row in live for t in row]
         n_leaves = len(flat)
         # for each leaf, each piece: the mesh devices whose region holds it
@@ -314,26 +366,34 @@ class ShardedTrainStep:
             parts_of.append(per_piece)
         acc: list = [{} for _ in flat]
         loss = None
-        step = -(-per // d_shards)  # the last shards shorter or empty
-        for mb in range(mbs):
-            tokens = batch["tokens"][mb * per:(mb + 1) * per]
-            shards = [tokens[min(per, s * step):min(per, (s + 1) * step)]
-                      for s in range(d_shards)]
+        parts = self._microbatches(batch)
+        mbs = len(parts)
+        for shards in parts:
             with torch.enable_grad():
                 l = self.split([unflatten(state["params"], row) for row in live], shards,
                                mesh, self.param_specs)
-                g = torch.autograd.grad(l, every, allow_unused=True, materialize_grads=True)
+                g = torch.autograd.grad(l, every, allow_unused=True)
             l = l.detach()
             loss = l if loss is None else loss + l
             # the piece's sum over the devices that hold its region, in mesh
-            # order, in the wide dtype (then over the microbatches)
+            # order, in the wide dtype (then over the microbatches); a device
+            # whose copy the loss does not reach (a model shard past the
+            # first of a recsys head) adds nothing
             for li, s in enumerate(flat):
                 for piece, by_dev in s.pieces.items():
                     dev0 = next(iter(by_dev))
                     total = None
                     for i, rel in parts_of[li][piece]:
-                        x = _wide(g[i * n_leaves + li][rel].to(dev0))
+                        gi = g[i * n_leaves + li]
+                        if gi is None:
+                            continue
+                        x = _wide(gi[rel].to(dev0))
                         total = x if total is None else total + x
+                    if total is None:
+                        b = s.placement.bounds(s.shape, piece)
+                        total = torch.zeros(tuple(x.stop - x.start for x in b),
+                                            dtype=torch.promote_types(s.dtype, torch.float32),
+                                            device=dev0)
                     prev = acc[li].get(piece)
                     acc[li][piece] = total if prev is None else prev + total
             del g
@@ -353,7 +413,14 @@ class ShardedTrainStep:
             loss = loss / mbs
         return loss.to(lead), unflatten(state["params"], out)
 
+    def _whole_bytes(self, state, n: int) -> None:
+        """``compute_bytes`` of a row split: every leaf whole on each of
+        ``n`` compute shards."""
+        whole = sum(math.prod(s.shape) * s.dtype.itemsize for s in leaves(state["params"]))
+        self.compute_bytes = [whole] * n
+
     def _in_batch_grads(self, state, shards) -> tuple[torch.Tensor, Any]:
+        self._whole_bytes(state, len(shards))
         lead = self.mesh.lead
         total = sum(n for _, _, n in shards)
         fwd = []

@@ -421,6 +421,18 @@ class ShardedTensor:
                 out[rel] = by_dev.get(device, next(iter(by_dev.values())))
         return out
 
+    def region(self, region: tuple[tuple[int, int], ...], device) -> torch.Tensor:
+        """The ``region`` on ``device`` to compute with (read only): the
+        piece held there itself where one piece is the region, else
+        ``gather_region``'s copy."""
+        device = torch.device(device)
+        for piece, by_dev in self.pieces.items():
+            b = self.placement.bounds(self.shape, piece)
+            if device in by_dev and all(s.start == lo and s.stop == hi
+                                        for s, (lo, hi) in zip(b, region)):
+                return by_dev[device]
+        return self.gather_region(region, device)
+
     def sum_sq(self, device=None) -> torch.Tensor:
         """The float32 sum of the squared elements, each piece's own sum
         added in piece order on ``device`` (the mesh's lead by default)."""

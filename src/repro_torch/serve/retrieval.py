@@ -148,13 +148,19 @@ class RetrievalServer:
                  seed: int = 0, opts: EngineOpts | None = None,
                  index: str = "bss", forest_variant: str = "hpt_fft_log",
                  forest_mechanism: str = HILBERT, mesh=None,
-                 device=None):
+                 device=None, built=None):
         """``device`` is where the index lives (``None``: the CUDA device,
         raising without one; ``"cpu"`` for the plain backend; with ``mesh``
         the mesh's lead device).  ``mesh`` shards the BSS index (module
-        docstring)."""
+        docstring).  ``built``: a ``BSSIndex`` the caller already built over
+        ``corpus_embeddings`` with these settings, served as it is instead
+        of a second build."""
         if index not in ("bss", "forest"):
             raise ValueError(f"index must be bss|forest, got {index!r}")
+        if built is not None and (index != "bss" or mesh is not None or metric == "cosine"):
+            # a cosine server builds over its normalised copy of the corpus
+            raise ValueError("built= takes a single-device BSS index of a metric the "
+                             "server does not renormalise (not cosine)")
         if mesh is not None and index != "bss":
             raise ValueError(
                 "mesh= shards the BSS engine; forest serving is single-device"
@@ -182,6 +188,11 @@ class RetrievalServer:
                 seed=seed,
             )
             self.index = encode_tree(self.tree, device=device)
+        elif built is not None:
+            if built.metric_name != metric or built.n_valid != len(corpus):
+                raise ValueError(f"the built index ({built.metric_name}, {built.n_valid} "
+                                 f"rows) is not over this {metric} corpus of {len(corpus)}")
+            self.index = built
         else:
             self.index = flat_index.build_bss(
                 metric, corpus, n_pivots=n_pivots, n_pairs=n_pairs,

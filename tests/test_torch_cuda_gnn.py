@@ -222,3 +222,42 @@ def test_float32_gradient_within_1e4_on_a_well_conditioned_graph(card, seed):
     assert abs(float(lc) - float(l32)) <= LOSS_REL * abs(float(l32))
     for k in g32:
         assert rel(gc[k], g32[k]) <= 1e-4, (k, rel(gc[k], g32[k]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)], ids=["2x1", "2x2"])
+def test_pna_over_node_shards_on_card(card, shape):
+    """PNA's ``"node"`` plan on the card's mesh devices (the well-conditioned
+    graph above in the dst-partitioned layout, 512 nodes in 16 blocks):
+    the logits within 1e-5 of the largest and the float32 loss within 1e-5
+    relative of the one-device step on the card, each float32 gradient
+    leaf within 1e-4 of its largest, the halo's all-gather and
+    reduce-scatter counted, the gradient twice bit for bit."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharded_step import gather_state, sharded_step_for
+    from repro_torch.pytree import tree_map
+
+    model = PNAModel(PNAConfig(**SMALL)).init_params(torch.Generator(card).manual_seed(0),
+                                                     device=card)
+    batch = to_device(_partitioned(_conditioned_batch(0), 16), card)
+    mesh = make_local_mesh(shape[1], n_devices=shape[0] * shape[1])
+    with torch.no_grad():
+        want = model.forward(batch)
+        got = torch.cat(model.split_forward([model.param_tree()] * mesh.n_devices, batch, mesh))
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    one = make_train_step(functional_loss(model, model.loss_fn), adamw())
+    loss, grads = one.grads(model.param_tree(), batch)
+    step = sharded_step_for("gnn", model, adamw(), mesh)
+    state = step.shard(init_state(tree_map(lambda t: t.clone(), model.param_tree()), adamw()))
+    with coll.tally() as moved:
+        l_sh, g_sh = step.grads(state, batch)
+    halo = SMALL["n_layers"] * 512 * SMALL["d_hidden"] * 4 * (mesh.n_devices - 1) / mesh.n_devices
+    assert moved["all-gather"] == moved["reduce-scatter"] == halo
+    l_again, g_again = step.grads(state, batch)
+    assert torch.equal(_bits(l_sh), _bits(l_again))
+    assert abs(float(l_sh) - float(loss)) <= LOSS_REL * abs(float(loss))
+    g_sh, g_again = gather_state(g_sh, card), gather_state(g_again, card)
+    for k, g in grads.items():
+        assert torch.equal(_bits(g_sh[k]), _bits(g_again[k])), k
+        assert float((g_sh[k] - g).abs().max()) <= 1e-4 * float(g.abs().max()), k

@@ -190,11 +190,13 @@ def test_sharded_step_on_card_matches_the_one_device_step(card, arch, data,
                                                           model_parallel):
     """``parallel.sharded_step`` over ``make_local_mesh`` on the card (the
     mesh devices are ``cuda:0`` reused) against the one-device step on the
-    card from the same state: bit for bit where one shard computes it all
-    (PNA's ``"lead"`` plan, or a data axis of 1 under ``"split"``); within
-    the training bound (loss 1e-5 relative, a parameter within 2 * lr, at
-    most 1% of a leaf beyond 1e-5) where rows are split or an LM's layers
-    are split over "model" (the ``"model"`` plan)."""
+    card from the same state: bit for bit where one data shard computes it
+    all (a data axis of 1 under ``"split"`` / ``"in_batch"``, the tables in
+    "model" pieces on (1, 2)); within the training bound (loss 1e-5
+    relative, a parameter within 2 * lr, at most 1% of a leaf beyond 1e-5)
+    where rows are split, an LM's layers are split over "model" (the
+    ``"model"`` plan) or PNA's nodes over every device (``"node"``, the
+    molecules in the dst-partitioned layout)."""
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.parallel.sharded_step import gather_state, plan_for, sharded_step_for
 
@@ -205,12 +207,12 @@ def test_sharded_step_on_card_matches_the_one_device_step(card, arch, data,
         to_device(ClickStream(cfg, batch=64, seed=0).next(), card)
         if bundle.family == "recsys" else None)
     if batch is None:
-        from repro_torch.data.pipeline import batched_molecules
+        from repro_torch.launch.train import MoleculeStream
 
         model = type(model)(dataclasses.replace(cfg, graph_level=True))
         model.init_params(torch.Generator(card).manual_seed(0), device=card)
-        batch = to_device(batched_molecules(np.random.default_rng(0), 8, 10, 20,
-                                            model.cfg.d_feat, model.cfg.n_classes), card)
+        batch = to_device(MoleculeStream(model.cfg.d_feat, model.cfg.n_classes, 16).next(),
+                          card)
     opt = adamw(lr=LR)
     one = make_train_step(functional_loss(model, common.loss_for(bundle.family, model)), opt)
     mesh = make_local_mesh(model_parallel, n_devices=data * model_parallel)
@@ -221,7 +223,7 @@ def test_sharded_step_on_card_matches_the_one_device_step(card, arch, data,
     assert all(t.is_cuda for s in leaves(got) for _, _, t in s.local())
     whole = gather_state(got, card)
     rows = plan_for(bundle.family, model)["rows"]
-    if rows == "lead" or (rows != "model" and data == 1):
+    if rows in ("split", "in_batch") and data == 1:
         assert _equal_bits(gm["loss"], wm["loss"])
         assert all(_equal_bits(x, y) for x, y in zip(leaves(whole), leaves(want)))
         return
@@ -331,3 +333,68 @@ def test_expert_parallel_routing_on_card_equals_one_device(card, shape):
     assert got["capacity_equal"] and got["ids_equal"] and got["loads_equal"]
     assert got["drops_equal"] and sum(got["drops"]) > 0
     assert got["out_bits_equal"], got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+@pytest.mark.parametrize("arch,changes", [
+    ("wide-deep", dict(vocab=65_536, n_sparse=4, embed_dim=8)), ("din", dict(vocab=65_536)),
+    ("two-tower-retrieval", {}), ("dlrm-rm2", {})], ids=["wide-deep", "din", "two-tower", "dlrm"])
+def test_split_tables_on_card_match_one_device(card, arch, changes, shape):
+    """The ``"split"`` / ``"in_batch"`` plans with every table the specs
+    split over "model" in its pieces on the card (float32 reduced models;
+    DIN's and Wide&Deep's single tables at 65,536 rows, where they split):
+    each lookup on each mesh device equal to the one-device lookup of its
+    rows bit for bit, the loss within 1e-5 relative and each gradient leaf
+    within 1e-4 of its largest (a leaf whose one-device gradient lies
+    further than that from a float64 copy's, DIN's last attention bias
+    whose exact gradient is 0, within 1e-4 of the tree's largest:
+    ``tests/test_torch_row_split.py``), every gradient in pieces, the
+    step's gradient twice bit for bit."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel.sharded_step import gather_state, sharded_step_for
+    from repro_torch.parallel.sharding import Placement, ShardedTensor
+
+    model, cfg, _ = get_arch(arch).make_reduced()
+    model = type(model)(dataclasses.replace(cfg, **changes))
+    model.init_params(torch.Generator(card).manual_seed(0), device=card)
+    batch = to_device(ClickStream(model.cfg, batch=64, seed=0).next(), card)
+    mesh = make_local_mesh(shape[1], n_devices=shape[0] * shape[1])
+    specs = model.param_specs(mesh)
+    placed = tree_map(lambda s, t: ShardedTensor.place(t, Placement(mesh, s)), specs,
+                      model.param_tree())
+    params = [tree_map(lambda st: st.gather_region(st.model_region(i), d), placed)
+              for i, d in enumerate(mesh.devices)]
+    step_rows = -(-64 // shape[0])
+    shards = [{k: v[s * step_rows:(s + 1) * step_rows] for k, v in batch.items()}
+              for s in range(shape[0])]
+    got = model.split_lookups(params, shards, mesh, specs)
+    for name, (key, ids) in model._lookup_ids().items():
+        table = getattr(model, key).detach()
+        for r, rows in enumerate(got[name]):
+            i = ids(shards[r // shape[1]])
+            want = R.embedding_lookup(table, i) if table.ndim == 3 else table[i.long()]
+            assert _equal_bits(rows, want), (name, r)
+    one = make_train_step(functional_loss(model, common.loss_for("recsys", model)), adamw(lr=LR))
+    loss, grads = one.grads(model.param_tree(), batch)
+    m64 = R.cast_model(model, torch.float64, card)
+    _, g64 = make_train_step(functional_loss(m64, common.loss_for("recsys", m64)),
+                             adamw(lr=LR)).grads(m64.param_tree(), batch)
+    step = sharded_step_for("recsys", model, adamw(lr=LR), mesh)
+    state = step.shard(init_state(tree_map(lambda t: t.clone(), model.param_tree()),
+                                  adamw(lr=LR)))
+    l_sh, g_sh = step.grads(state, batch)
+    l_again, g_again = step.grads(state, batch)
+    assert _equal_bits(l_sh, l_again)
+    assert all(isinstance(g, ShardedTensor) for g in leaves(g_sh))
+    assert abs(float(l_sh) - float(loss)) <= LOSS_REL * abs(float(loss))
+    g_sh, g_again = gather_state(g_sh, card), gather_state(g_again, card)
+    tree_top = max(float(g.abs().max()) for g in leaves(grads))
+    for (path, g), (_, x), (_, y), r in zip(leaves_with_paths(grads), leaves_with_paths(g_sh),
+                                            leaves_with_paths(g_again), leaves(g64)):
+        assert _equal_bits(x, y), path
+        gap = float((x - g).abs().max())
+        if gap <= 1e-4 * float(g.abs().max()):
+            continue
+        noise = float((g.double() - r).abs().max()) > 1e-4 * float(r.abs().max())
+        assert noise and gap <= 1e-4 * tree_top, path

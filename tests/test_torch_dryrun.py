@@ -158,3 +158,51 @@ def test_cli_reckons_every_cell_on_16x16(reference, tmp_path, capsys):
         _check_record(rec, reference[f"{arch}/{shape}"], mesh)
     rec = json.loads((tmp_path / "pna__ogb_products__singlepod.json").read_text())
     assert rec["plan"]["input_split"]["x"] == 256
+
+
+def test_ogb_products_reckons_the_halo():
+    """PNA's ``ogb_products`` train cell on 16 x 16 under the ``"node"``
+    plan: each device all-gathers ``h`` (N x 75 float32) once a layer,
+    255/256 of it, and reduce-scatters as much in the backward pass (~5.86
+    GB a step over 4 layers); the readout's all-reduces are a sum and a
+    count.  The halo is the step's activation collectives."""
+    mesh = make_production_mesh()
+    rec = dryrun.reckon_cell("pna", "ogb_products", mesh)
+    model = get_arch("pna").model_for("ogb_products")
+    n = get_arch("pna").cells["ogb_products"].inputs()["x"].shape[0]
+    halo = n * model.cfg.d_hidden * 4 * (mesh.n_devices - 1) / mesh.n_devices
+    assert rec["plan"]["port_step_rows"] == "node"
+    h = rec["plan"]["halo"]
+    assert h["all-gather per layer"] == h["reduce-scatter per layer"] == halo
+    assert 0 < h["all-reduce (readout)"] < 1e3
+    coll = rec["collective_bytes"]
+    layers = model.cfg.n_layers
+    assert coll["all-gather (activations)"] == coll["reduce-scatter (activations)"] == \
+        layers * halo
+    assert 5.8e9 < h["total"] < 5.9e9
+    assert rec["plan"]["compute_param_bytes"] == model.param_bytes()
+
+
+@pytest.mark.parametrize("arch", ["wide-deep", "din", "two-tower-retrieval", "dlrm-rm2"])
+def test_recsys_train_cells_compute_with_their_table_pieces(arch):
+    """A recsys ``train_batch`` cell on 16 x 16 is traced with each table
+    at its "model" piece (a sixteenth of its rows): the parameter bytes a
+    device computes with equal its pieces' (``per_device_bytes``), below
+    the whole model's; the lookups' combine over "model" is an activation
+    all-reduce, and the two tower all-gathers its item rows over the data
+    axes."""
+    mesh = make_production_mesh()
+    rec = dryrun.reckon_cell(arch, "train_batch", mesh)
+    model = get_arch(arch).model_for("train_batch")
+    specs = model.param_specs(mesh)
+    tables = [(n, s) for n, i, s in model._leaves() if i is None and "model" in specs[n].names()]
+    assert tables
+    for name, (shape, dt) in tables:
+        piece = Placement(mesh, specs[name]).device_bytes(shape, dt)
+        assert piece * 16 == math.prod(shape) * dt.itemsize, name
+    assert rec["plan"]["compute_param_bytes"] == rec["per_device_bytes"]["params"]
+    assert rec["per_device_bytes"]["params"] < model.param_bytes() / 8
+    assert rec["plan"]["port_step_rows"] == ("in_batch" if arch.startswith("two") else "split")
+    coll = rec["collective_bytes"]
+    assert coll["all-reduce (activations)"] > 0
+    assert (coll.get("all-gather (activations)", 0) > 0) == arch.startswith("two")

@@ -168,9 +168,12 @@ def test_sharded_engine_runs_with_jax_absent():
     """``repro_torch.parallel`` imports, a mesh-built index answers on CPU
     shards, the sharded train step steps the reduced Llama on a simulated
     (2, 2) mesh (``launch.simdevices``) with its layers split over "model"
-    (``parallel.collectives``), ``launch.mesh`` lays out the production
-    mesh and ``launch.dryrun`` reckons a serving and a train cell on it, in
-    a process where importing jax or ``repro`` fails."""
+    (``parallel.collectives``), the reduced PNA over node shards (the
+    ``"node"`` plan) and the reduced DLRM and two tower with their tables
+    in "model" pieces, ``launch.mesh`` lays out the production mesh and
+    ``launch.dryrun`` reckons PNA's and the two tower's train cells and an
+    LM serving and train cell on it, in a process where importing jax or
+    ``repro`` fails."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -201,11 +204,27 @@ def test_sharded_engine_runs_with_jax_absent():
         "state, m = step.step_(step.shard(init_state(model.param_tree(), adamw())),\n"
         "                      batch_fn(torch.Generator().manual_seed(1)))\n"
         "assert torch.isfinite(m['loss']) and step.rows == 'model'\n"
+        "from repro_torch.launch.train import MoleculeStream, train_model\n"
+        "from repro_torch.train.step import to_device\n"
+        "from repro_torch.data.pipeline import ClickStream\n"
+        "for arch, rows in (('pna', 'node'), ('dlrm-rm2', 'split'),\n"
+        "                   ('two-tower-retrieval', 'in_batch')):\n"
+        "    model, cfg = train_model(get_arch(arch), True)\n"
+        "    model.init_params(torch.Generator().manual_seed(0), device='cpu')\n"
+        "    b = (MoleculeStream(cfg.d_feat, cfg.n_classes, 16) if arch == 'pna'\n"
+        "         else ClickStream(cfg, batch=16)).next()\n"
+        "    family = 'gnn' if arch == 'pna' else 'recsys'\n"
+        "    step = sharded_step_for(family, model, adamw(), simdevices.simulated_mesh(\n"
+        "        4, (2, 2), ('data', 'model')))\n"
+        "    state, m = step.step_(step.shard(init_state(model.param_tree(), adamw())),\n"
+        "                          to_device(b, 'cpu'))\n"
+        "    assert torch.isfinite(m['loss']) and step.rows == rows, (arch, step.rows)\n"
         "import repro_torch.parallel.collectives\n"
-        "for shape in ('decode_32k', 'train_4k'):\n"
-        "    rec = dryrun.reckon_cell('llama3.2-1b', shape, mesh.make_production_mesh())\n"
+        "for arch, shape in (('pna', 'ogb_products'), ('two-tower-retrieval', 'train_batch'),\n"
+        "                    ('llama3.2-1b', 'decode_32k'), ('llama3.2-1b', 'train_4k')):\n"
+        "    rec = dryrun.reckon_cell(arch, shape, mesh.make_production_mesh())\n"
         "    assert rec['status'] == 'reckoned' and rec['n_devices'] == 256\n"
-        "assert rec['collective_bytes']['all-gather (activations)'] > 0\n"
+        "    assert shape == 'decode_32k' or rec['collective_bytes']['all-gather (activations)'] > 0\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -169,6 +169,33 @@ def test_unported_options_raise_naming_their_roadmap_items():
         RetrievalServer(x, metric="l2", index="tree", device="cpu")
 
 
+@pytest.mark.parametrize("metric", ["jsd", "l2"])
+def test_a_built_index_serves_as_a_fresh_build(metric):
+    """``built=``: an index the caller built over the corpus with the same
+    settings is served as it is (no second build) and answers as the
+    server that builds its own; one over another corpus or metric, for the
+    forest or for cosine (whose server builds over its normalised copy of
+    the corpus) is refused."""
+    from repro_torch.core import flat_index
+
+    x = _space(metric, 500, seed=2)
+    index = flat_index.build_bss(metric, x, device="cpu", **BUILD)
+    got = RetrievalServer(x, metric=metric, device="cpu", built=index, **BUILD)
+    assert got.index is index
+    want = RetrievalServer(x, metric=metric, device="cpu", **BUILD)
+    a, b = got.search(x[:9], "knn", k=4), want.search(x[:9], "knn", k=4)
+    np.testing.assert_array_equal(a.indices, b.indices)
+    np.testing.assert_array_equal(a.distances, b.distances)
+    with pytest.raises(ValueError, match="not over this"):
+        RetrievalServer(x[:400], metric=metric, device="cpu", built=index, **BUILD)
+    with pytest.raises(ValueError, match="not over this"):
+        RetrievalServer(x, metric="triangular", device="cpu", built=index, **BUILD)
+    with pytest.raises(ValueError, match="single-device BSS"):
+        RetrievalServer(x, metric=metric, index="forest", device="cpu", built=index)
+    with pytest.raises(ValueError, match="not cosine"):
+        RetrievalServer(x, metric="cosine", device="cpu", built=index, **BUILD)
+
+
 def test_device_none_needs_a_card(monkeypatch):
     """``device=None`` builds for the CUDA device and raises without one:
     no silent CPU fallback."""

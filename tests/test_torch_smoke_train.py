@@ -190,31 +190,36 @@ def _sharded_cfgs():
 # the bf16 meshes split over "model" take this bound; every other mesh
 # keeps SHARDED_LOSS_REL.
 SHARDED_SMALL = dict(chip_smoke.SHARDED_TRAIN, llama_batch=2, llama_seq=16, tt_batch=64,
-                     phi_batch=8, phi_seq=16, split_loss_rel=2e-4)
+                     phi_batch=8, phi_seq=16, dlrm_batch=64, split_loss_rel=2e-4)
 
 
 def _sharded_train(llama, phi, sizes=SHARDED_SMALL):
     from repro_torch.launch.simdevices import simulated_mesh
 
     _, tower, _ = get_arch("two-tower-retrieval").make_reduced()
+    _, dlrm, _ = get_arch("dlrm-rm2").make_reduced()
     failures, record = [], {}
     chip_smoke.sharded_train(
         torch, np, failures, record, CPU, sizes, llama_cfg=llama, tt_cfg=tower,
-        gnn_cell="molecule", phi_cfg=phi,
+        gnn_cell="molecule", phi_cfg=phi, dlrm_cfg=dataclasses.replace(dlrm, dtype=torch.bfloat16),
         mesh_fn=lambda d, m: simulated_mesh(d * m, (d, m), ("data", "model")))
     return failures, record
 
 
 def test_sharded_train_checks_pass_on_the_cpu():
     """The ``sharded train`` phase on the CPU at a reduced size (simulated
-    meshes): the in-place apply equal to the functional one, PNA's
-    lead-device mesh bit for bit, every mesh's gradient repeated bit for
-    bit, the model-split Llama meshes (1, 2), (1, 4), (2, 2) and the row
-    split S = 2 within the training bound (float32 Llama) and no worse
-    than the one-device step against the float32 copy's gradient (bf16),
-    the expert-parallel Phi on (1, 2) and (2, 2) likewise with its MoE
-    routing equal to one device's, the two tower's row splits (float64
-    over the whole batch)."""
+    meshes): the in-place apply equal to the functional one, every mesh's
+    gradient repeated bit for bit, the model-split Llama meshes (1, 2),
+    (1, 4), (2, 2) and the row split S = 2 within the training bound
+    (float32 Llama) and no worse than the one-device step against the
+    float32 copy's gradient (bf16), the expert-parallel Phi on (1, 2) and
+    (2, 2) likewise with its MoE routing equal to one device's, the two
+    tower's row splits and table splits (float64 over the whole batch; the
+    (1, 2) table split bit for bit, its lookups too), the reduced DLRM's
+    table splits (its float32 copy within the training bound), PNA's
+    molecule cell over node shards (2, 1) and (2, 2) (float64 within the
+    training bound, its halo counted) and the well-conditioned graph in
+    float32 within it."""
     llama, phi = _sharded_cfgs()
     failures, record = _sharded_train(llama, phi)
     assert failures == []
@@ -252,8 +257,25 @@ def test_sharded_train_checks_pass_on_the_cpu():
         gaps = record[f"sharded train {name}"]["S4"]["against_reference"]
         assert all(r["sharded"] <= r["bound"] for r in gaps.values())
     assert record["sharded train two tower"]["rows"] == "in_batch"
-    assert set(record["sharded train two tower"]) >= {"S2", "S4"}
-    assert record["sharded train pna"]["S2"]["differing_leaves"] == []
+    assert set(record["sharded train two tower"]) >= {"S2", "S4", "1x2", "2x2"}
+    for name in ("two tower", "dlrm"):
+        row = record[f"sharded train {name}"]
+        assert row["1x2"]["exact"] and row["1x2"]["differing_leaves"] == []
+        for label in ("1x2", "2x2"):
+            assert all(row[label]["lookups_bit_for_bit"].values()), (name, label)
+        assert row["1x2"]["compute_bytes"] == row["2x2"]["compute_bytes"]
+    tt = record["sharded train two tower"]
+    assert tt["1x2"]["compute_bytes"] < tt["S2"]["compute_bytes"]  # the table pieces
+    assert record["sharded train dlrm"]["rows"] == "split"
+    assert record["sharded train dlrm float32"]["2x2"]["strict"]
+    for tag in ("pna", "pna float64", "pna conditioned"):
+        row = record[f"sharded train {tag}"]
+        assert row["rows"] == "node" and set(row) >= {"S2", "2x2"}, tag
+        for label in ("S2", "2x2"):
+            m = row[label]
+            assert m["ok"] and not m["exact"] and m["halo_bytes"] > 0, (tag, label)
+            assert m["strict"] == (tag != "pna") and m["reference_held"] is False
+    assert record["sharded train pna"]["2x2"]["against_reference"]
 
 
 def test_sharded_train_checks_catch_a_dropped_partial(monkeypatch):

@@ -249,9 +249,14 @@ def _family_batch(bundle, model):
     if bundle.family == "recsys":
         return to_device(ClickStream(cfg, batch=16, seed=0).next(), "cpu")
     from repro_torch.data.pipeline import batched_molecules
+    from repro_torch.models.gnn import PNAModel
 
-    return to_device(batched_molecules(np.random.default_rng(0), 8, 10, 20, cfg.d_feat,
-                                       cfg.n_classes), "cpu")
+    # the dst-partitioned layout the node plan splits: 80 nodes in 8 blocks
+    flat = batched_molecules(np.random.default_rng(0), 8, 10, 20, cfg.d_feat, cfg.n_classes)
+    src, dstl, valid = PNAModel.partition_edges(flat["edge_src"], flat["edge_dst"], 80, 8)
+    part = {k: v for k, v in flat.items() if k not in ("edge_src", "edge_dst")}
+    part.update(edge_src=src, edge_dst_local=dstl, edge_valid=valid)
+    return to_device(part, "cpu")
 
 
 @pytest.mark.parametrize("shape,names", SHARDED_MESHES, ids=["2", "2x2", "1x2"])
@@ -259,12 +264,14 @@ def _family_batch(bundle, model):
 def test_sharded_step_matches_the_one_device_step(arch, shape, names):
     """Two steps of ``parallel.sharded_step`` on a simulated mesh against
     the one-device step from the same state: bit for bit in loss,
-    parameters and moments where one shard computes it all (data axes of 1
-    under the ``"split"`` plan, or PNA's ``"lead"``); loss within 1e-5
-    relative and each parameter within 2 * lr a step, at most 1% of a leaf
-    beyond 1e-5, where rows are split or an LM's layers are split over
-    ``"model"`` (the ``"model"`` plan sums partial products in another
-    order)."""
+    parameters and moments where one data shard computes it all (data axes
+    of 1 under the ``"split"`` and ``"in_batch"`` plans, the tables split
+    over ``"model"`` on (1, 2): each row has one owner and the replicated
+    weights' other copies add nothing); loss within 1e-5 relative and each
+    parameter within 2 * lr a step, at most 1% of a leaf beyond 1e-5, where
+    rows are split, an LM's layers are split over ``"model"`` or PNA's
+    nodes over every device (the ``"model"`` and ``"node"`` plans sum
+    partial products in another order)."""
     from repro_torch.launch.simdevices import simulated_mesh
     from repro_torch.parallel.sharded_step import gather_state, plan_for, sharded_step_for
 
@@ -281,7 +288,7 @@ def test_sharded_step_matches_the_one_device_step(arch, shape, names):
     want = init_state(_clone(model.param_tree()), opt)
     got = step.shard(init_state(_clone(model.param_tree()), opt))
     rows = plan_for(bundle.family, model)["rows"]
-    exact = rows == "lead" or (rows != "model" and mesh.size("data") == 1)
+    exact = rows in ("split", "in_batch") and mesh.size("data") == 1
     for i in range(2):
         want, wm = one(want, batch)
         got, gm = step.step_(got, batch)
@@ -375,9 +382,80 @@ _JAX_SHARDED_STEP = """
             out[key + "/loss"] = np.asarray(metrics["loss"])
             out.update({key + "/grad/" + k: np.asarray(v) for k, v in grads.items()})
             out.update({key + "/param/" + k: np.asarray(v) for k, v in state["params"].items()})
+%s
     np.savez(sys.argv[1], **out)
     print("JAX_SHARDED_OK")
-""" % (_SHARDED_CASES,)
+"""
+
+# the reduced PNA (node level, the dst-partitioned layout: 64 nodes in 8
+# blocks, nodes and blocks over every axis, batch_axes ("data", "model"),
+# as the GNN cells' partition lays them out) and the reduced DLRM (vocab
+# 1,000, so that "model" divides its tables' rows; rows over "data") on
+# (2, 2) with their param_specs, in the same subprocess; the leaves keyed
+# by their paths ("bot_w/0")
+_ROW_CASES = (("pna", "gnn"), ("dlrm-rm2", "recsys"))
+_JAX_ROW_SPLIT = """
+    from jax.tree_util import tree_flatten_with_path
+    from repro.models.gnn import PNAModel
+
+    def named(tree):
+        flat, _ = tree_flatten_with_path(tree)
+        return {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
+                np.asarray(v) for path, v in flat}
+
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape((2, 2)), ("data", "model"))
+    rng = np.random.default_rng(3)
+    for arch, family in %r:
+        model, cfg, batch_fn = registry()[arch].make_reduced()
+        if family == "gnn":
+            model = type(model)(dataclasses.replace(cfg, batch_axes=("data", "model")))
+            n, e = 64, 256
+            src, dstl, valid = PNAModel.partition_edges(rng.integers(0, n, e),
+                                                        rng.integers(0, n, e), n, 8)
+            batch = {"x": rng.normal(size=(n, cfg.d_feat)).astype(np.float32),
+                     "edge_src": src, "edge_dst_local": dstl, "edge_valid": valid,
+                     "labels": rng.integers(0, cfg.n_classes, n).astype(np.int32),
+                     "label_mask": (rng.random(n) < 0.75).astype(np.float32)}
+            rows = ("data", "model")
+        else:
+            model = type(model)(dataclasses.replace(cfg, vocab=1000, batch_axes=("data",)))
+            batch = {k: np.asarray(v) for k, v in batch_fn(jax.random.PRNGKey(1)).items()}
+            rows = "data"
+        bspec = {k: P(rows, *([None] * (v.ndim - 1))) for k, v in batch.items()}
+        params = model.init_params(jax.random.PRNGKey(0))
+        loss_fn = common.loss_for(family, model)
+        out.update({arch + "/batch/" + k: v for k, v in batch.items()})
+        out.update({arch + "/init/" + k: v for k, v in named(params).items()})
+        specs = model.param_specs(mesh)
+        with mesh:
+            p = jax.device_put(params, jax.tree.map(lambda s: NamedSharding(mesh, s), specs,
+                                                    is_leaf=lambda x: isinstance(x, P)))
+            b = jax.device_put(batch, {k: NamedSharding(mesh, s) for k, s in bspec.items()})
+            grads = jax.jit(jax.grad(loss_fn))(p, b)
+            step = jax.jit(make_train_step(loss_fn, adamw(lr=1e-3)), donate_argnums=(0,))
+            state, metrics = step(init_state(p, adamw(lr=1e-3)), b)
+        key = arch + "/2x2"
+        out[key + "/loss"] = np.asarray(metrics["loss"])
+        out.update({key + "/grad/" + k: v for k, v in named(grads).items()})
+        out.update({key + "/param/" + k: v for k, v in named(state["params"]).items()})
+""" % (_ROW_CASES,)
+_JAX_SHARDED_STEP = _JAX_SHARDED_STEP % (_SHARDED_CASES, _JAX_ROW_SPLIT)
+
+
+def _unflat(ref: dict, prefix: str) -> dict:
+    """The tree under ``prefix`` of the reference's path-keyed arrays."""
+    out: dict = {}
+    for k, v in ref.items():
+        if not k.startswith(prefix):
+            continue
+        name, *index = k[len(prefix):].split("/")
+        if index:
+            lst = out.setdefault(name, [])
+            lst.extend([None] * (int(index[0]) + 1 - len(lst)))
+            lst[int(index[0])] = v
+        else:
+            out[name] = v
+    return out
 
 
 def _held_to_reference(loss, grads, params, ref: dict, key: str) -> list:
@@ -415,7 +493,12 @@ def test_sharded_step_holds_to_the_reference_four_device_step(tmp_path):
     1e-5 relative, each gradient leaf within 1e-4 of its largest |value|,
     each new parameter within 2 lr, at most 1% of a leaf beyond 1e-5.  A
     copy of one gradient with 0.1% more on the piece one shard holds (the
-    piece with the leaf's largest value) must fail those checks."""
+    piece with the leaf's largest value) must fail those checks.  Then, on
+    (2, 2), the reduced PNA in the dst-partitioned layout under the
+    ``"node"`` plan (the nodes and blocks over every device, the halo
+    all-gathered a layer) and the reduced DLRM (vocab 1,000) under the
+    ``"split"`` plan with its tables in their "model" pieces, as GSPMD
+    partitions the reference's, within the same bounds."""
     from multidevice_shim import run_simulated_mesh
 
     from repro_torch.launch.simdevices import simulated_mesh
@@ -470,6 +553,24 @@ def test_sharded_step_holds_to_the_reference_four_device_step(tmp_path):
             params = gather_state(step.apply_(state, grads), "cpu")["params"]
             assert _held_to_reference(loss, whole, params, ref, f"{arch}/{name}") == []
     assert mutated == 1
+    mesh = simulated_mesh(4, (2, 2), ("data", "model"))
+    for arch, family in _ROW_CASES:
+        model, cfg, _ = registry()[arch].make_reduced()
+        changes = ({"batch_axes": ("data", "model")} if family == "gnn"
+                   else {"vocab": 1000, "batch_axes": ("data",)})
+        model = type(model)(dataclasses.replace(cfg, **changes))
+        load_jax_params(model, _unflat(ref, f"{arch}/init/"), device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in _unflat(ref, f"{arch}/batch/").items()}
+        step = make_sharded_train_step(functional_loss(model, common.loss_for(family, model)),
+                                       opt, mesh, model.param_specs(mesh), None,
+                                       **plan_for(family, model))
+        assert step.rows == {"gnn": "node", "recsys": "split"}[family]
+        state = step.shard(init_state(_clone(model.param_tree()), opt))
+        loss, grads = step.grads(state, batch)
+        assert all(isinstance(g, ShardedTensor) for g in leaves(grads))
+        whole = gather_state(grads, "cpu")
+        params = gather_state(step.apply_(state, grads), "cpu")["params"]
+        assert _held_to_reference(loss, whole, params, ref, f"{arch}/2x2") == []
 
 
 def test_launcher_trains_over_a_mesh_and_resumes_under_another(tmp_path, capsys):
