@@ -714,7 +714,7 @@ def bound_phase_alone(torch, index, queries, metric: str) -> dict:
             prof.step()
     kernels: dict = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep"):
+        if e.device_type == DeviceType.CUDA and not is_span(e):
             kernels[kernel_name(e.key)] = kernels.get(kernel_name(e.key), 0) + e.count
     out = dict(shape=list(lb.shape), launches=launches, trace_kernels_in_5_calls=kernels,
                device_ms=device_ms(torch, fn),
@@ -905,15 +905,22 @@ def kernel_name(name: str) -> str:
     return name if len(name) <= 60 else name.split("<")[0][:60]
 
 
+def is_span(e) -> bool:
+    """A ``record_function`` span's event (host or device side), the
+    profiler's step span among them: it covers work, it is none."""
+    return bool(getattr(e, "is_user_annotation", False)) or e.key.startswith("ProfilerStep")
+
+
 def trace_device(prof) -> tuple[dict, dict]:
     """Device ms and event count per kernel in a ``torch.profiler`` trace:
     the device's own events, so an operator and its kernel are not counted
-    twice; the profiler's step span is left out."""
+    twice; the device-side copies of spans (the engine's, the profiler's
+    step) are left out."""
     from torch.autograd import DeviceType
 
     device, launches = {}, {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
+        if e.device_type != DeviceType.CUDA or is_span(e):
             continue
         name = kernel_name(e.key)
         device[name] = device.get(name, 0.0) + e.self_device_time_total / 1e3
@@ -964,7 +971,7 @@ def profile_batches(torch, batch_fn, queries, n_batches: int = 4, **tags) -> dic
     device, launches = trace_device(prof)
     host = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
             if e.device_type != DeviceType.CUDA and e.self_cpu_time_total > 0
-            and not e.key.startswith("ProfilerStep")}
+            and not is_span(e)}
     port_events = sum(n for k, n in launches.items() if k.startswith(PORT_KERNELS))
     busy_ms = sum(device.values())
 
@@ -5025,7 +5032,7 @@ def profile_step(torch, step, state, batch) -> dict:
     device, launches = trace_device(prof)
     busy = sum(device.values())
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.device_type != DeviceType.CUDA and not e.key.startswith("ProfilerStep")),
+                   if e.device_type != DeviceType.CUDA and not is_span(e)),
                   key=lambda r: -r[1])[:5]
     return dict(traced_ms=ms, device_busy_ms=busy, device_idle_share=1.0 - busy / ms,
                 kernel_events=sum(launches.values()),

@@ -50,6 +50,14 @@ raises when there is none; the CPU is used only when the caller asks for
 it.  The living corpus (append, delete, compact) is ``repro_torch.index``.
 Power transforms keep the reference's rule: with no tile kernel their
 distances run as plain pairwise on either backend.
+
+Spans: while a ``torch.profiler`` session records, the single-device
+engine marks its phases with ``repro_torch.obs.record`` spans
+(``bss.range.bound``, ``.exact``, ``.copy``, ``.assemble``, ``.stats``;
+``bss.knn.bound``, ``.copy``, ``.sort``, ``.round`` with ``.exact``,
+``.top_k``, ``.copy``, ``.schedule``) and counts its reads to the host
+(``to_host``).  With no profiler recording they cost one flag
+check each and record nothing.
 """
 
 from __future__ import annotations
@@ -80,6 +88,7 @@ from repro_torch.kernels.pairwise_dist import (
 from repro_torch.kernels.planar_exclusion import planar_lower_bound_pairs_kernel_call
 from repro_torch.kernels.tiles import TILE_BQ
 from repro_torch.obs import schema as obs_schema
+from repro_torch.obs.record import span, to_host
 
 __all__ = [
     "BSSIndex",
@@ -699,9 +708,10 @@ def _cell_hits(hit: torch.Tensor, qidx: torch.Tensor, bidx: torch.Tensor,
     """Host (hit_q, hit_pos) of a (C, block) cell hit mask, row-major over
     (cell, offset) with cells sorted by (query, block), so a query's hits
     come in ascending position."""
-    pos = torch.nonzero(hit.reshape(-1)).squeeze(1)
-    cell = pos // block
-    return qidx[cell].cpu().numpy(), (bidx[cell] * block + pos % block).cpu().numpy()
+    with span("bss.range.copy"):
+        pos = torch.nonzero(hit.reshape(-1)).squeeze(1)
+        cell = pos // block
+        return to_host(qidx[cell]), to_host(bidx[cell] * block + pos % block)
 
 
 def _cells_exact_bf16(
@@ -778,16 +788,18 @@ def _query_batched(
     tile_mask (Qtiles, B)).  A tile survives when ANY of its queries has
     lb <= its own t, so no true hit of any query is pruned; per-query hits
     are re-filtered by d <= t afterwards."""
-    lb = _fused_lower_bounds(
-        metric_name, queries, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
-        backend=backend,
-    )  # (Q, B)
-    alive = lb <= t[:, None]
-    tile_mask = tile_survival(alive, bq)  # (Qtiles, B)
-    dist = _masked_exact_dists(
-        metric_name, queries, dev.data, dev.valid, tile_mask,
-        backend=backend, block=block, bq=bq,
-    )
+    with span("bss.range.bound"):
+        lb = _fused_lower_bounds(
+            metric_name, queries, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
+            backend=backend,
+        )  # (Q, B)
+        alive = lb <= t[:, None]
+        tile_mask = tile_survival(alive, bq)  # (Qtiles, B)
+    with span("bss.range.exact"):
+        dist = _masked_exact_dists(
+            metric_name, queries, dev.data, dev.valid, tile_mask,
+            backend=backend, block=block, bq=bq,
+        )
     return dist, alive, tile_mask
 
 
@@ -819,27 +831,29 @@ def _query_batched_bf16(
 
     Returns (hit (Q, n_pad) bool, alive (Q, B), tile_mask, recheck_tiles
     (0-d), band_counts (Q,) int32)."""
-    lb = _fused_lower_bounds(
-        metric_name, queries, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
-        backend=backend,
-    )
-    alive = lb <= t[:, None]
-    tile_mask = tile_survival(alive, bq)
-    d16 = _masked_exact_dists(
-        metric_name, queries, data16, dev.valid, tile_mask,
-        backend=backend, block=block, bq=bq,
-    )
-    t_col = t[:, None]
-    sure = d16 <= t_col - eps
-    band = (d16 <= t_col + eps) & ~sure
-    del d16  # the (Q, n_pad) block is freed before the re-check allocates its own
-    band_blocks = band.reshape(queries.shape[0], -1, block).any(dim=2)
-    recheck_mask = tile_survival(band_blocks, bq) & tile_mask
-    d32 = _masked_exact_dists(
-        metric_name, queries, dev.data, dev.valid, recheck_mask,
-        backend=backend, block=block, bq=bq,
-    )
-    hit = sure | (band & (d32 <= t_col))
+    with span("bss.range.bound"):
+        lb = _fused_lower_bounds(
+            metric_name, queries, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
+            backend=backend,
+        )
+        alive = lb <= t[:, None]
+        tile_mask = tile_survival(alive, bq)
+    with span("bss.range.exact"):
+        d16 = _masked_exact_dists(
+            metric_name, queries, data16, dev.valid, tile_mask,
+            backend=backend, block=block, bq=bq,
+        )
+        t_col = t[:, None]
+        sure = d16 <= t_col - eps
+        band = (d16 <= t_col + eps) & ~sure
+        del d16  # the (Q, n_pad) block is freed before the re-check allocates its own
+        band_blocks = band.reshape(queries.shape[0], -1, block).any(dim=2)
+        recheck_mask = tile_survival(band_blocks, bq) & tile_mask
+        d32 = _masked_exact_dists(
+            metric_name, queries, dev.data, dev.valid, recheck_mask,
+            backend=backend, block=block, bq=bq,
+        )
+        hit = sure | (band & (d32 <= t_col))
     return (
         hit, alive, tile_mask, recheck_mask.sum(),
         band.sum(dim=1, dtype=torch.int32),
@@ -981,30 +995,35 @@ def bss_query_batched(
         # the reference's jnp branch: the bound phase first, then the
         # realisation by the alive share, which reads only the fp32 bounds,
         # so both precisions take the same branch
-        lb = _fused_lower_bounds(
-            metric_eng, q_dev, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
-            backend=backend,
-        )
-        alive = lb <= t_dev[:, None]
-        alive_np = alive.cpu().numpy()
+        with span("bss.range.bound"):
+            lb = _fused_lower_bounds(
+                metric_eng, q_dev, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
+                backend=backend,
+            )
+            alive = lb <= t_dev[:, None]
+        with span("bss.range.copy"):
+            alive_np = to_host(alive)
         sparse = (opts.realisation != "dense"
                   and alive_np.mean() <= _DENSE_ALIVE_FRAC)
     if sparse:
-        hit_q, hit_pos, band_counts = _query_cells(
-            index, metric_eng, q_dev, t_dev, alive_np, eps)
-        tile_mask = tile_survival(alive, bq)
-    elif precision == "bf16":
+        with span("bss.range.exact"):
+            hit_q, hit_pos, band_counts = _query_cells(
+                index, metric_eng, q_dev, t_dev, alive_np, eps)
+            tile_mask = tile_survival(alive, bq)
+    elif precision == "bf16":  # the bound and exact spans are inside
         hit, alive, tile_mask, recheck_tiles, band_counts = _query_batched_bf16(
             metric_eng, q_dev, t_dev, dev, index.device_bf16,
             torch.tensor(eps, dtype=torch.float32, device=index.torch_device),
             block=index.block, bq=bq, backend=backend,
         )
-        band_counts = band_counts.cpu().numpy()
+        with span("bss.range.copy"):
+            band_counts = to_host(band_counts)
     elif backend == "torch":
-        hit = _dense_hit_mask(metric_eng, q_dev, dev.data, dev.valid, alive, t_dev,
-                              block=index.block)
-        tile_mask = tile_survival(alive, bq)
-    else:
+        with span("bss.range.exact"):
+            hit = _dense_hit_mask(metric_eng, q_dev, dev.data, dev.valid, alive, t_dev,
+                                  block=index.block)
+            tile_mask = tile_survival(alive, bq)
+    else:  # the bound and exact spans are inside
         dist, alive, tile_mask = _query_batched(
             metric_eng, q_dev, t_dev, dev, block=index.block, bq=bq,
             backend=backend,
@@ -1013,17 +1032,23 @@ def bss_query_batched(
     if hit_q is None:
         # hit extraction on the device; nonzero is row-major, so positions
         # ascend within each query — the oracle's order
-        pos = torch.nonzero(hit).cpu().numpy()
+        with span("bss.range.copy"):
+            pos = to_host(torch.nonzero(hit))
         hit_q, hit_pos = pos[:, 0], pos[:, 1]
-    orig = index.perm[hit_pos]
-    counts = np.bincount(hit_q, minlength=nq)
-    per_query = np.split(orig, np.cumsum(counts)[:-1])
-    results = [r.tolist() for r in per_query]
-    stats = _batched_stats(index, alive.cpu().numpy(), tile_mask.cpu().numpy())
-    stats["precision"] = "fp32"
-    if precision == "bf16":
-        _bf16_stats(stats, eps, int(recheck_tiles), band_counts)
-    return results, _finish_stats(stats, kind="range", backend=backend)
+    with span("bss.range.assemble"):
+        orig = index.perm[hit_pos]
+        counts = np.bincount(hit_q, minlength=nq)
+        per_query = np.split(orig, np.cumsum(counts)[:-1])
+        results = [r.tolist() for r in per_query]
+    with span("bss.range.copy"):
+        alive_np, tile_np = to_host(alive), to_host(tile_mask)
+    with span("bss.range.stats"):
+        stats = _batched_stats(index, alive_np, tile_np)
+        stats["precision"] = "fp32"
+        if precision == "bf16":
+            _bf16_stats(stats, eps, int(recheck_tiles), band_counts)
+        stats = _finish_stats(stats, kind="range", backend=backend)
+    return results, stats
 
 
 def _query_cells(index: BSSIndex, metric_name: str, queries: torch.Tensor,
@@ -1047,7 +1072,9 @@ def _query_cells(index: BSSIndex, metric_name: str, queries: torch.Tensor,
     hit_q, hit_pos = _cell_hits(sure, qidx, bidx, block)
     sel = torch.nonzero(band_cell).squeeze(1)
     if sel.numel():
-        q2, b2, v2 = _padded_cells(qidx[sel].cpu().numpy(), bidx[sel].cpu().numpy(), device)
+        with span("bss.range.copy"):
+            q_sel, b_sel = to_host(qidx[sel]), to_host(bidx[sel])
+        q2, b2, v2 = _padded_cells(q_sel, b_sel, device)
         hit = _cells_exact(metric_name, queries, dev.data, dev.valid, q2, b2, v2, t,
                            block=block)
         rq, rp = _cell_hits(hit, q2, b2, block)
@@ -1055,7 +1082,8 @@ def _query_cells(index: BSSIndex, metric_name: str, queries: torch.Tensor,
         hit_pos = np.concatenate([hit_pos, rp])
         order = np.lexsort((hit_pos, hit_q))
         hit_q, hit_pos = hit_q[order], hit_pos[order]
-    return hit_q, hit_pos, band_counts.cpu().numpy()
+    with span("bss.range.copy"):
+        return hit_q, hit_pos, to_host(band_counts)
 
 
 # ---------------------------------------------------------------------------
@@ -1125,7 +1153,8 @@ def _round_top_k(dist: torch.Tensor, radii: torch.Tensor, alive: torch.Tensor,
     """A round's top-k of ``dist`` (``_top_k_smallest``) and its ``done``
     test: (cand_idx, cand_dist, kth, done).  Both precisions select through
     it, so ties fall alike."""
-    cand_idx, cand_dist = _top_k_smallest(dist, k)
+    with span("bss.knn.top_k", device=dist.device):
+        cand_idx, cand_dist = _top_k_smallest(dist, k)
     kth = cand_dist[:, -1]
     done = torch.isfinite(kth) & ((kth <= radii) | alive.all(dim=1))
     return cand_idx, cand_dist, kth, done
@@ -1210,7 +1239,8 @@ def _knn_round_cells(
     d, pvalid = _gather_cell_dists(metric_name, queries, data, valid, qidx, bidx, block)
     d = torch.where(pvalid & cell_valid[:, None], d, torch.inf)
     dense = _scatter_cells(d, qidx, bidx, queries.shape[0], data.shape[0] // block)
-    return _top_k_smallest(dense, k)
+    with span("bss.knn.top_k", device=dense.device):
+        return _top_k_smallest(dense, k)
 
 
 def _knn_round_cells_bf16(
@@ -1375,18 +1405,21 @@ def bss_knn_batched(
         eps_dev = torch.tensor(eps, dtype=torch.float32, device=index.torch_device)
     recheck_pq = np.zeros(nq, np.int64)
     recheck_tiles_total = 0
-    lb_dev = _fused_lower_bounds(
-        metric_eng, q_dev, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
-        backend=backend,
-    )
-    lb_np = lb_dev.cpu().numpy()
-    lb_sorted = np.sort(lb_np, axis=1)
-    n_blocks = index.n_blocks
-    if r0 is None:
-        j0 = min(n_blocks - 1, max(0, math.ceil(2 * k / index.block) - 1))
-        radii = lb_sorted[:, j0].astype(np.float32)
-    else:
-        radii = np.full(nq, float(r0), np.float32)
+    with span("bss.knn.bound"):
+        lb_dev = _fused_lower_bounds(
+            metric_eng, q_dev, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
+            backend=backend,
+        )
+    with span("bss.knn.copy"):
+        lb_np = to_host(lb_dev)
+    with span("bss.knn.sort"):
+        lb_sorted = np.sort(lb_np, axis=1)
+        n_blocks = index.n_blocks
+        if r0 is None:
+            j0 = min(n_blocks - 1, max(0, math.ceil(2 * k / index.block) - 1))
+            radii = lb_sorted[:, j0].astype(np.float32)
+        else:
+            radii = np.full(nq, float(r0), np.float32)
 
     valid_pb = _valid_per_block(index)
     total_exact = np.zeros(nq, np.int64)
@@ -1397,78 +1430,87 @@ def bss_knn_batched(
     cand_dist = np.full((nq, k_run), np.inf, np.float32)
     rounds = 0
     for rounds in range(1, max_rounds + 2):
-        if rounds == max_rounds + 1:
-            # exhaustive fallback for stragglers: radius inf computes every
-            # block, so this round is final for them
-            radii = np.where(done, radii, np.inf).astype(np.float32)
-        radii_dev = torch.as_tensor(radii, device=index.torch_device)
-        alive_host = lb_np <= radii[:, None]  # the device test's cells
-        if (backend == "torch" and opts.realisation != "dense"
-                and alive_host.mean() <= _DENSE_ALIVE_FRAC):
-            # a sparse round: the alive cells only (the branch reads only
-            # the fp32 bounds, so both precisions take it alike); bf16 picks
-            # the band cells and the fp32 round runs over just those
-            qidx, bidx, cell_valid = _padded_cells(*np.nonzero(alive_host),
-                                                   index.torch_device)
-            if bf16:
-                band_cell, band_counts = _knn_round_cells_bf16(
-                    metric_eng, q_dev, data16, dev.valid, qidx, bidx, cell_valid,
-                    eps_dev, k=k_run, block=index.block,
+        with span("bss.knn.round", round=rounds):
+            if rounds == max_rounds + 1:
+                # exhaustive fallback for stragglers: radius inf computes every
+                # block, so this round is final for them
+                radii = np.where(done, radii, np.inf).astype(np.float32)
+            radii_dev = torch.as_tensor(radii, device=index.torch_device)
+            alive_host = lb_np <= radii[:, None]  # the device test's cells
+            if (backend == "torch" and opts.realisation != "dense"
+                    and alive_host.mean() <= _DENSE_ALIVE_FRAC):
+                # a sparse round: the alive cells only (the branch reads only
+                # the fp32 bounds, so both precisions take it alike); bf16 picks
+                # the band cells and the fp32 round runs over just those
+                qidx, bidx, cell_valid = _padded_cells(*np.nonzero(alive_host),
+                                                       index.torch_device)
+                if bf16:
+                    with span("bss.knn.exact"):
+                        band_cell, band_counts = _knn_round_cells_bf16(
+                            metric_eng, q_dev, data16, dev.valid, qidx, bidx, cell_valid,
+                            eps_dev, k=k_run, block=index.block,
+                        )
+                    with span("bss.knn.copy"):
+                        recheck_pq += np.where(~done, to_host(band_counts), 0)
+                        sel = torch.nonzero(band_cell).squeeze(1)
+                        q_sel, b_sel = to_host(qidx[sel]), to_host(bidx[sel])
+                    qidx, bidx, cell_valid = _padded_cells(q_sel, b_sel, index.torch_device)
+                with span("bss.knn.exact"):
+                    out = _knn_round_cells(
+                        metric_eng, q_dev, dev.data, dev.valid, qidx, bidx, cell_valid,
+                        k=k_run, block=index.block,
+                    )
+                with span("bss.knn.copy"):
+                    ci, cd = (to_host(a) for a in out)
+                kth = cd[:, -1]
+                dn = np.isfinite(kth) & ((kth <= radii) | alive_host.all(axis=1))
+                alive = alive_host
+            elif bf16:
+                with span("bss.knn.exact"):
+                    out = _knn_round_bf16(
+                        metric_eng, q_dev, radii_dev, lb_dev, dev, data16, eps_dev,
+                        k=k_run, block=index.block, bq=bq, backend=backend,
+                    )
+                with span("bss.knn.copy"):
+                    ci, cd, kth, dn, alive, rtiles, band_counts = (to_host(a) for a in out)
+                recheck_tiles_total += int(rtiles)
+                recheck_pq += np.where(~done, band_counts, 0)
+            else:
+                with span("bss.knn.exact"):
+                    out = _knn_round(
+                        metric_eng, q_dev, radii_dev, lb_dev, dev,
+                        k=k_run, block=index.block, bq=bq, backend=backend,
+                    )
+                with span("bss.knn.copy"):
+                    ci, cd, kth, dn, alive = (to_host(a) for a in out)
+            with span("bss.knn.schedule"):
+                upd = ~done  # finished queries are frozen
+                cand_idx[upd] = ci[upd]
+                cand_dist[upd] = cd[upd]
+                total_exact[upd] += alive[upd].astype(np.int64) @ valid_pb
+                excl_pq[upd] += n_blocks - alive[upd].sum(axis=1)
+                tiles_total += _tiles_computed(alive, bq)
+                done = done | dn
+                if done.all():
+                    break
+                # widen to the radius that at least doubles the surviving blocks,
+                # tighten to the kth so far where k candidates are held
+                n_alive = alive.sum(axis=1)
+                j_next = np.minimum(
+                    n_blocks - 1,
+                    np.maximum(np.maximum(2 * n_alive, n_alive + 1), 1),
                 )
-                recheck_pq += np.where(~done, band_counts.cpu().numpy(), 0)
-                sel = torch.nonzero(band_cell).squeeze(1)
-                qidx, bidx, cell_valid = _padded_cells(
-                    qidx[sel].cpu().numpy(), bidx[sel].cpu().numpy(), index.torch_device)
-            ci, cd = (a.cpu().numpy() for a in _knn_round_cells(
-                metric_eng, q_dev, dev.data, dev.valid, qidx, bidx, cell_valid,
-                k=k_run, block=index.block,
-            ))
-            kth = cd[:, -1]
-            dn = np.isfinite(kth) & ((kth <= radii) | alive_host.all(axis=1))
-            alive = alive_host
-        elif bf16:
-            ci, cd, kth, dn, alive, rtiles, band_counts = (
-                a.cpu().numpy() for a in _knn_round_bf16(
-                    metric_eng, q_dev, radii_dev, lb_dev, dev, data16, eps_dev,
-                    k=k_run, block=index.block, bq=bq, backend=backend,
+                widened = np.maximum(lb_sorted[np.arange(nq), j_next], radii * growth)
+                # finished queries get a negative radius: lb >= 0, so their rows
+                # leave the remaining rounds
+                radii = np.where(
+                    done, np.float32(-1.0),
+                    np.where(np.isfinite(kth), np.minimum(kth, widened), widened),
+                ).astype(np.float32)
+                # most blocks already alive: finish exhaustively
+                radii = np.where(
+                    ~done & (n_alive > n_blocks // 2), np.float32(np.inf), radii
                 )
-            )
-            recheck_tiles_total += int(rtiles)
-            recheck_pq += np.where(~done, band_counts, 0)
-        else:
-            ci, cd, kth, dn, alive = (
-                a.cpu().numpy() for a in _knn_round(
-                    metric_eng, q_dev, radii_dev, lb_dev, dev,
-                    k=k_run, block=index.block, bq=bq, backend=backend,
-                )
-            )
-        upd = ~done  # finished queries are frozen
-        cand_idx[upd] = ci[upd]
-        cand_dist[upd] = cd[upd]
-        total_exact[upd] += alive[upd].astype(np.int64) @ valid_pb
-        excl_pq[upd] += n_blocks - alive[upd].sum(axis=1)
-        tiles_total += _tiles_computed(alive, bq)
-        done = done | dn
-        if done.all():
-            break
-        # widen to the radius that at least doubles the surviving blocks,
-        # tighten to the kth so far where k candidates are held
-        n_alive = alive.sum(axis=1)
-        j_next = np.minimum(
-            n_blocks - 1,
-            np.maximum(np.maximum(2 * n_alive, n_alive + 1), 1),
-        )
-        widened = np.maximum(lb_sorted[np.arange(nq), j_next], radii * growth)
-        # finished queries get a negative radius: lb >= 0, so their rows
-        # leave the remaining rounds
-        radii = np.where(
-            done, np.float32(-1.0),
-            np.where(np.isfinite(kth), np.minimum(kth, widened), widened),
-        ).astype(np.float32)
-        # most blocks already alive: finish exhaustively
-        radii = np.where(
-            ~done & (n_alive > n_blocks // 2), np.float32(np.inf), radii
-        )
 
     n_pivots = index.pivots.shape[0]
     stats = {

@@ -29,6 +29,8 @@ Layout
 - ``fold`` — stats -> registry after each engine call; kernel-library
   build counters
 - ``export`` — snapshot files + exposition round-trip checks
+- ``record`` — the engines' spans and host-read counter, on only while a
+  ``torch.profiler`` session records (the port's own; import it by name)
 
 ``registry``, ``buckets``, ``schema``, ``spans``, ``trace`` and ``export``
 are copies of the JAX package's modules (``tests/test_torch_copies.py``).

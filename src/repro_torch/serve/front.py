@@ -73,8 +73,9 @@ Engine knobs ride one frozen :class:`~repro_torch.core.backends.EngineOpts`
 Without ``opts=`` the front runs ``EngineOpts(realisation="dense")``.
 ``profile_dir=`` wraps every dispatch in
 a ``torch.profiler`` trace (CPU and, on the card, CUDA activities) written
-there as Chrome trace JSON, with the engine call inside a
-``record_function`` named after the dispatch.
+there as Chrome trace JSON.  While a profiler records, the engine call runs
+inside a ``repro_torch.obs.record`` span named after the dispatch, the root
+of the engine's own spans.
 
 An encoded forest (``repro_torch.forest``) serves range requests only:
 kNN on a forest raises ``FOREST_KNN_ERROR`` at ``submit`` and the forest
@@ -111,6 +112,7 @@ from repro_torch.forest import (
 from repro_torch.index import maintain as index_maintain
 from repro_torch.kernels import _build
 from repro_torch.kernels.pairwise_dist import KERNEL_METRICS, kernel_source
+from repro_torch.obs import record as obs_record
 from repro_torch.obs.fold import (
     fold_engine_stats,
     fold_mutation,
@@ -552,7 +554,8 @@ class ServingFront:
         unless the front was built with ``profile_dir=``): CPU activities,
         and CUDA ones for an index on the card, written to ``profile_dir``
         as one Chrome trace file per dispatch.  Host-side only — it wraps
-        the engine call and changes nothing in it."""
+        the engine call and changes nothing in it.  The spans it records
+        are in that file, so the span ring is cleared when it closes."""
         if self.profile_dir is None:
             yield
             return
@@ -563,24 +566,12 @@ class ServingFront:
             acts.append(ProfilerActivity.CUDA)
         with profile(activities=acts) as prof:
             yield
+        obs_record.clear()
         out = Path(self.profile_dir)
         out.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(
             str(out / f"dispatch-{next(self._profiles):06d}.json")
         )
-
-    def _annotate(self, name: str):
-        """Opt-in ``torch.profiler.record_function`` around the engine call.
-
-        The name carries the dispatch's span timestamp on the serving
-        clock, so the device-side profile and the host trace
-        (``export_trace``) can be lined up on one timeline even though the
-        profiler keeps its own epoch."""
-        if self.profile_dir is None:
-            return contextlib.nullcontext()
-        from torch.profiler import record_function
-
-        return record_function(name)
 
     def _dispatch(self, group: list[Request]) -> None:
         """One engine call for one compatible micro-batch: pad to the
@@ -619,11 +610,14 @@ class ServingFront:
         # one EngineOpts per dispatch: the front's base knobs with this
         # group's precision overlaid (precisions never share a batch)
         eng_opts = dataclasses.replace(self.opts, precision=head.precision)
+        # the span's name carries the dispatch's timestamp on the serving
+        # clock, so the profile and the host trace (``export_trace``) line up
+        # on one timeline although the profiler keeps its own epoch
         ann = (
             f"serve/engine kind={head.kind} bucket={bucket} "
             f"gen={generation} t_dispatch={t_wait:.6f}"
         )
-        with self._profiler(index.torch_device), self._annotate(ann):
+        with self._profiler(index.torch_device), obs_record.span(ann):
             if head.kind == "range" and self._engine == "bss":
                 t_vec = np.array(
                     [r.t for r in group] + [-1.0] * pad, np.float32
@@ -690,7 +684,6 @@ class ServingFront:
                 # bucket artefact, not precision cost
                 self._n["bf16_rows"] += n
                 self._n["recheck_points"] += int(recheck[:n].sum())
-        trace_evs: list[dict] = []
         for i, r in enumerate(group):
             wait = t_wait - r.t_submit
             durs = None
@@ -698,7 +691,10 @@ class ServingFront:
                 r.span.mark("demux")
                 durs = r.span.durations()
                 if self.metrics_enabled:
-                    trace_evs.extend(span_events(
+                    # in the trace before the future resolves, so a caller
+                    # that exports the trace once it has its result finds
+                    # the request's spans there
+                    self._trace.extend(span_events(
                         r.span, tid=int(r.trace_id[1:]),
                         args={"kind": r.kind, "generation": generation},
                     ))
@@ -770,7 +766,7 @@ class ServingFront:
                 "engine": str(stats.get("engine", self._engine)),
                 "n_dists": int(per_q[:n].sum()),
             }
-            trace_evs.extend([
+            self._trace.extend([
                 complete_event("dispatch/assemble", t_batch,
                                t_wait - t_batch, tid=0, cat="dispatch",
                                args=args),
@@ -779,7 +775,6 @@ class ServingFront:
                 complete_event("dispatch/demux", t_engine, now() - t_engine,
                                tid=0, cat="dispatch", args=args),
             ])
-            self._trace.extend(trace_evs)
 
     # ------------------------------------------------------------ mutations
 

@@ -75,6 +75,7 @@ from repro_torch.core.npdist import pairwise_np
 from repro_torch.forest import encode_tree, forest_range_search
 from repro_torch.index import maintain as index_maintain
 from repro_torch.obs.fold import fold_engine_stats, fold_mutation
+from repro_torch.obs.record import span
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.serve.queue import now
 
@@ -233,48 +234,51 @@ class RetrievalServer:
         overrides the server's engine knobs for this call only.  The
         result carries the engine stats dict and the index ``generation``
         it was served on — after a mutation, results from the old snapshot
-        are distinguishable by that field alone."""
-        eng = self.opts if opts is None else resolve_engine_opts(opts)
-        # the BSS engines map cosine queries onto the unit sphere themselves
-        # (mapping them here too would round them twice, and a front, which
-        # feeds the engines raw rows, would differ from this call); the
-        # forest walks a tree built on the normalised corpus, so its
-        # queries are mapped here
-        q = (self._prep(queries) if self.index_kind == "forest"
-             else np.asarray(queries, np.float32))
-        if kind == "range":
-            if t is None:
-                raise ValueError("range search needs t= (a metric distance)")
-            t0 = now()
-            if self.index_kind == "forest":
-                hits, s = forest_range_search(
-                    self.index, q, float(t), self.forest_mechanism, opts=eng,
+        are distinguishable by that field alone.  While a profiler records,
+        the call is the root span ``retrieval.search`` of the engine's spans
+        (``repro_torch.obs.record``)."""
+        with span("retrieval.search", kind=kind, n=len(queries)):
+            eng = self.opts if opts is None else resolve_engine_opts(opts)
+            # the BSS engines map cosine queries onto the unit sphere themselves
+            # (mapping them here too would round them twice, and a front, which
+            # feeds the engines raw rows, would differ from this call); the
+            # forest walks a tree built on the normalised corpus, so its
+            # queries are mapped here
+            q = (self._prep(queries) if self.index_kind == "forest"
+                 else np.asarray(queries, np.float32))
+            if kind == "range":
+                if t is None:
+                    raise ValueError("range search needs t= (a metric distance)")
+                t0 = now()
+                if self.index_kind == "forest":
+                    hits, s = forest_range_search(
+                        self.index, q, float(t), self.forest_mechanism, opts=eng,
+                    )
+                else:
+                    hits, s = flat_index.bss_query_batched(
+                        self.index, q, float(t), opts=eng,
+                    )
+                self._account(len(q), s, t0)
+                return SearchResult(
+                    kind="range", hits=hits, stats=s,
+                    generation=int(s.get("generation", 0)),
                 )
-            else:
-                hits, s = flat_index.bss_query_batched(
-                    self.index, q, float(t), opts=eng,
+            if kind == "knn":
+                if k is None or int(k) <= 0:
+                    raise ValueError(f"knn search needs a positive k, got {k}")
+                if self.index_kind == "forest":
+                    raise NotImplementedError(FOREST_KNN_ERROR)
+                t0 = now()
+                idx, dists, s = flat_index.bss_knn_batched(
+                    self.index, q, int(k), r0=r0, max_rounds=max_rounds,
+                    opts=eng,
                 )
-            self._account(len(q), s, t0)
-            return SearchResult(
-                kind="range", hits=hits, stats=s,
-                generation=int(s.get("generation", 0)),
-            )
-        if kind == "knn":
-            if k is None or int(k) <= 0:
-                raise ValueError(f"knn search needs a positive k, got {k}")
-            if self.index_kind == "forest":
-                raise NotImplementedError(FOREST_KNN_ERROR)
-            t0 = now()
-            idx, dists, s = flat_index.bss_knn_batched(
-                self.index, q, int(k), r0=r0, max_rounds=max_rounds,
-                opts=eng,
-            )
-            self._account(len(q), s, t0)
-            return SearchResult(
-                kind="knn", indices=idx, distances=dists, stats=s,
-                generation=int(s.get("generation", 0)),
-            )
-        raise ValueError(f"kind must be range|knn, got {kind!r}")
+                self._account(len(q), s, t0)
+                return SearchResult(
+                    kind="knn", indices=idx, distances=dists, stats=s,
+                    generation=int(s.get("generation", 0)),
+                )
+            raise ValueError(f"kind must be range|knn, got {kind!r}")
 
     def range_query(self, user_embeddings: np.ndarray, min_score: float):
         """All items with dot-score >= min_score — exact, one fused pass.

@@ -13,6 +13,7 @@ exports.  The mirror of ``tests/test_obs.py``'s serving half.
 from __future__ import annotations
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -267,6 +268,26 @@ def test_front_exposition_and_trace_export(tmp_path):
     first = json.loads(files[0].read_text())
     assert any(str(e.get("name", "")).startswith("serve/engine kind=range")
                for e in first["traceEvents"])
+
+
+def test_request_spans_are_in_the_trace_once_its_result_is(tmp_path, monkeypatch):
+    """The driver puts a request's stage spans in the trace before it
+    resolves the request's future: a caller that exports the trace as soon
+    as it holds the result finds them, however slowly the driver goes on."""
+    resolve = ServingFront._resolve
+
+    def slow(fut, res):
+        done = resolve(fut, res)
+        time.sleep(0.2)  # the driver lags behind the caller
+        return done
+
+    monkeypatch.setattr(ServingFront, "_resolve", staticmethod(slow))
+    idx, _, q, t = _built()
+    with ServingFront(idx, buckets=(8,), max_delay_s=0.01) as front:
+        r = front.submit(q[0], "range", t=t).result(timeout=120)
+        evs = load_trace(front.export_trace(tmp_path / "trace.json"))["traceEvents"]
+    mine = {e["name"] for e in evs if e.get("tid") == int(r.trace_id[1:]) and e["ph"] == "X"}
+    assert mine == {"queue", "batch", "engine", "demux"}
 
 
 def test_explain_and_spans_survive_generation_swap():
