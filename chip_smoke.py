@@ -2834,7 +2834,7 @@ def sharded_range(torch, np, failures: list, record: dict, queries, metric: str,
             w_hits, w_stats = single["fp32"][t]
             # the first batch's alive mask straight from the sharded pass
             alive = _range_pass(sidx, metric, q_first, np.full(len(q_first), t, np.float32),
-                                bq=TILE_BQ, backend="cuda")[1][:, :nb]
+                                bq=TILE_BQ, backend="cuda")[1][:, :nb].cpu().numpy()
             equal = dict(hits=hits == w_hits, lower_bounds=lb_equal,
                          alive_first_batch=bool(np.array_equal(
                              alive, single["lb"][:BATCH] <= np.float32(t))),

@@ -13,8 +13,10 @@ build:  ``build_bss`` is the reference's host numpy build, carried over as
 query:  ``bss_query_batched`` runs one pass per batch on the device:
         query -> pivot distances, the planar lower bound per (query,
         block), tile survival per (query tile, block), and exact distances
-        only in the surviving cells.  The hit test runs on the device and
-        only the (query, position) pairs of the hits come back to the host.
+        only in the surviving cells.  The hit test, the hits' ends per
+        query and the paper's stats are reduced on the device, and one read
+        brings them and the hits' positions to the host
+        (``_range_epilogue``).
         With ``backend="cuda"`` the three steps are the hand-written
         kernels; with ``"torch"`` the same math in plain torch ops, whose
         exact phase follows ``realisation`` as the reference's jnp backend
@@ -696,22 +698,23 @@ def _cells_exact(
 ):
     """The exact phase over an explicit alive-cell list (the reference's
     ``_cells_exact_jit``): the (C, block) hit mask of the gathered cells,
-    each against its own query's radius ``t[q]``.  The caller reads the hits
-    off it on the host (``_cell_hits``), as it reads the reference's
-    fixed-capacity hit list: nothing in here waits for the host."""
+    each against its own query's radius ``t[q]``.  The caller lists the hits
+    off it (``_cell_hits``), as it reads the reference's fixed-capacity hit
+    list: nothing in here waits for the host."""
     d, pvalid = _gather_cell_dists(metric_name, queries, data, valid, qidx, bidx, block)
     return (d <= t[qidx][:, None]) & pvalid & cell_valid[:, None]
 
 
 def _cell_hits(hit: torch.Tensor, qidx: torch.Tensor, bidx: torch.Tensor,
-               block: int) -> tuple[np.ndarray, np.ndarray]:
-    """Host (hit_q, hit_pos) of a (C, block) cell hit mask, row-major over
-    (cell, offset) with cells sorted by (query, block), so a query's hits
-    come in ascending position."""
+               block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hit_q, hit_pos) of a (C, block) cell hit mask, on its device,
+    row-major over (cell, offset) with cells sorted by (query, block), so a
+    query's hits come in ascending position.  ``nonzero`` reads its size
+    from the device: the copy span holds that wait."""
     with span("bss.range.copy"):
         pos = torch.nonzero(hit.reshape(-1)).squeeze(1)
-        cell = pos // block
-        return to_host(qidx[cell]), to_host(bidx[cell] * block + pos % block)
+    cell = pos // block
+    return qidx[cell], bidx[cell] * block + pos % block
 
 
 def _cells_exact_bf16(
@@ -860,31 +863,98 @@ def _query_batched_bf16(
     )
 
 
-def _batched_stats(index: BSSIndex, alive: np.ndarray, tile_mask: np.ndarray) -> dict:
-    """The paper's figure of merit for a fused pass: each query's own
-    surviving blocks weighted by their VALID point counts;
-    ``tiles_computed`` counts the tiles the exact phase ran."""
-    n_pivots = index.pivots.shape[0]
-    exact = _exact_counts(index, alive)
-    mean_exact = float(exact.mean()) if exact.size else 0.0
-    return {
-        "pivot_dists_per_query": float(n_pivots),
-        "exact_dists_per_query": mean_exact,
-        "dists_per_query": float(n_pivots) + mean_exact,
-        "per_query_dists": n_pivots + exact,
-        "block_exclusion_rate": float(1.0 - alive.mean()) if alive.size else 1.0,
-        "tiles_computed": int(tile_mask.sum()),
-        "tile_exclusion_rate": (
-            float(1.0 - tile_mask.mean()) if tile_mask.size else 1.0
-        ),
-        "n_blocks": int(index.n_blocks),
-        "generation": int(index.generation),
-        # every block BSS excludes is excluded by the planar four-point
-        # bound — the Hilbert mechanism
-        "excluded": {
-            "hilbert": (index.n_blocks - alive.sum(axis=1)).astype(np.int64),
-        },
-    }
+def _range_epilogue(
+    index: BSSIndex,
+    hits,
+    alive: torch.Tensor,
+    tile_mask: torch.Tensor,
+    *,
+    perm: np.ndarray,
+    vpb: torch.Tensor,
+    backend: str,
+    eps: float | None = None,
+    recheck_tiles: torch.Tensor | None = None,
+    band_counts: torch.Tensor | None = None,
+    extra: dict | None = None,
+    engine: str = "bss",
+) -> tuple[list[list[int]], dict]:
+    """Everything of a range call between the exact phase and the returned
+    (hit lists, stats), for every realisation, precision and the sharded
+    engine.
+
+    Where ``alive`` lives (the card, or the CPU), the paper's figure of
+    merit is reduced to a few integer vectors: each query's exact
+    distances (its own surviving blocks weighted by their VALID rows,
+    ``vpb``) and excluded blocks, the sums of ``alive`` and ``tile_mask``,
+    bf16's re-checked tiles and band points, and the ``extra`` (name ->
+    (n,) integer tensor) stats keys.  They and the hits' (query, position)
+    pairs come to the host in one read (``nonzero`` of a mask reads its
+    size first: it cannot know it otherwise).  The host maps positions to
+    original ids through ``perm``, cuts each query's list out of one flat
+    list where the query column steps, and builds the stats dict from the
+    sums: integer sums are exact, so every key equals the numpy reduction
+    of the host masks.
+
+    ``hits`` is the (Q, n_pad) hit mask, whose ``nonzero`` is row-major, so
+    positions ascend within each query (the oracle's order), or a gathered
+    pass's (hit_q, hit_pos) in that order already.  ``eps`` marks a bf16
+    call."""
+    nq, nb = alive.shape
+    with span("bss.range.exact"):
+        alive_q = alive.sum(dim=1)
+        parts = {
+            "exact": (alive * vpb).sum(dim=1),
+            "excluded": nb - alive_q,
+            "alive": alive_q.sum(),
+            "tiles": tile_mask.sum(),
+        }
+        if eps is not None:
+            parts["recheck_tiles"], parts["band"] = recheck_tiles, band_counts
+        parts.update(extra or {})
+        flat = [p.reshape(-1).to(torch.int64) for p in parts.values()]
+    with span("bss.range.copy"):
+        # the (N, 2) (query, position) pairs; nothing is launched between
+        # nonzero's wait for its size and the read but the concatenation
+        pairs = (torch.nonzero(hits) if isinstance(hits, torch.Tensor)
+                 else torch.stack(hits, dim=1))
+        buf = to_host(torch.cat(flat + [pairs.reshape(-1)]))
+    *values, pairs = np.split(buf, np.cumsum([p.numel() for p in flat]))
+    host = dict(zip(parts, values))
+    with span("bss.range.assemble"):
+        hit_q, pos = pairs.reshape(-1, 2).T
+        ends = np.searchsorted(hit_q, np.arange(1, nq + 1)).tolist()
+        ids = perm[pos].tolist()
+        results = [ids[a:b] for a, b in zip([0] + ends[:-1], ends)]
+    with span("bss.range.stats"):
+        n_pivots = index.pivots.shape[0]
+        exact = host["exact"]
+        mean_exact = float(exact.mean()) if nq else 0.0
+        # ``x.mean()`` of a bool array is its float64 sum over its size
+        stats = {
+            "pivot_dists_per_query": float(n_pivots),
+            "exact_dists_per_query": mean_exact,
+            "dists_per_query": float(n_pivots) + mean_exact,
+            "per_query_dists": n_pivots + exact,
+            "block_exclusion_rate": (
+                float(1.0 - host["alive"][0] / alive.numel()) if alive.numel() else 1.0
+            ),
+            "tiles_computed": int(host["tiles"][0]),
+            "tile_exclusion_rate": (
+                float(1.0 - host["tiles"][0] / tile_mask.numel())
+                if tile_mask.numel() else 1.0
+            ),
+            "n_blocks": int(index.n_blocks),
+            "generation": int(index.generation),
+            # every block BSS excludes is excluded by the planar four-point
+            # bound — the Hilbert mechanism
+            "excluded": {"hilbert": host["excluded"]},
+            "precision": "fp32",
+        }
+        if eps is not None:
+            _bf16_stats(stats, eps, int(host["recheck_tiles"][0]), host["band"])
+        stats.update((name, host[name]) for name in extra or {})
+        stats = _finish_stats(stats, kind="range", backend=backend, engine=engine)
+    return results, stats
 
 
 def _bf16_stats(stats: dict, eps: float, recheck_tiles: int,
@@ -973,23 +1043,20 @@ def bss_query_batched(
     metric_eng = _engine_metric(index.metric_name)
     queries = _engine_queries(index.metric_name, np.asarray(queries, np.float32))
     nq = queries.shape[0]
-    if nq == 0:
-        stats = _batched_stats(
-            index,
-            np.zeros((0, index.n_blocks), bool),
-            np.zeros((0, index.n_blocks), bool),
+    eps = index.bf16_margin() if precision == "bf16" else None
+    if nq == 0:  # nothing for the device: the epilogue over empty host tensors
+        none = torch.zeros(0, dtype=torch.int64)
+        empty = torch.zeros((0, index.n_blocks), dtype=torch.bool)
+        vpb = torch.from_numpy(index.valid).reshape(index.n_blocks, index.block).sum(dim=1)
+        return _range_epilogue(
+            index, (none, none), empty, empty, perm=index.perm, vpb=vpb, backend=backend,
+            eps=eps, recheck_tiles=none.sum(), band_counts=none,
         )
-        stats["precision"] = precision
-        if precision == "bf16":
-            _bf16_stats(stats, index.bf16_margin(), 0, np.zeros(0, np.int64))
-        return [], _finish_stats(stats, kind="range", backend=backend)
     t_vec = _per_query_t(t, nq)
     dev = index.device
     t_dev = torch.as_tensor(t_vec, device=index.torch_device)
     q_dev = torch.as_tensor(queries, device=index.torch_device)
-    eps = index.bf16_margin() if precision == "bf16" else None
-    hit_q = band_counts = None
-    recheck_tiles = 0
+    recheck_tiles = band_counts = None
     sparse = False
     if backend == "torch" and (precision == "fp32" or opts.realisation != "dense"):
         # the reference's jnp branch: the bound phase first, then the
@@ -1001,54 +1068,37 @@ def bss_query_batched(
                 backend=backend,
             )
             alive = lb <= t_dev[:, None]
-        with span("bss.range.copy"):
-            alive_np = to_host(alive)
-        sparse = (opts.realisation != "dense"
-                  and alive_np.mean() <= _DENSE_ALIVE_FRAC)
+        if opts.realisation != "dense":
+            with span("bss.range.copy"):
+                alive_np = to_host(alive)
+            sparse = alive_np.mean() <= _DENSE_ALIVE_FRAC
     if sparse:
         with span("bss.range.exact"):
-            hit_q, hit_pos, band_counts = _query_cells(
-                index, metric_eng, q_dev, t_dev, alive_np, eps)
+            hits, band_counts = _query_cells(index, metric_eng, q_dev, t_dev, alive_np, eps)
             tile_mask = tile_survival(alive, bq)
+            recheck_tiles = alive.new_zeros((), dtype=torch.int64)
     elif precision == "bf16":  # the bound and exact spans are inside
-        hit, alive, tile_mask, recheck_tiles, band_counts = _query_batched_bf16(
+        hits, alive, tile_mask, recheck_tiles, band_counts = _query_batched_bf16(
             metric_eng, q_dev, t_dev, dev, index.device_bf16,
             torch.tensor(eps, dtype=torch.float32, device=index.torch_device),
             block=index.block, bq=bq, backend=backend,
         )
-        with span("bss.range.copy"):
-            band_counts = to_host(band_counts)
     elif backend == "torch":
         with span("bss.range.exact"):
-            hit = _dense_hit_mask(metric_eng, q_dev, dev.data, dev.valid, alive, t_dev,
-                                  block=index.block)
+            hits = _dense_hit_mask(metric_eng, q_dev, dev.data, dev.valid, alive, t_dev,
+                                   block=index.block)
             tile_mask = tile_survival(alive, bq)
     else:  # the bound and exact spans are inside
         dist, alive, tile_mask = _query_batched(
             metric_eng, q_dev, t_dev, dev, block=index.block, bq=bq,
             backend=backend,
         )
-        hit = dist <= t_dev[:, None]
-    if hit_q is None:
-        # hit extraction on the device; nonzero is row-major, so positions
-        # ascend within each query — the oracle's order
-        with span("bss.range.copy"):
-            pos = to_host(torch.nonzero(hit))
-        hit_q, hit_pos = pos[:, 0], pos[:, 1]
-    with span("bss.range.assemble"):
-        orig = index.perm[hit_pos]
-        counts = np.bincount(hit_q, minlength=nq)
-        per_query = np.split(orig, np.cumsum(counts)[:-1])
-        results = [r.tolist() for r in per_query]
-    with span("bss.range.copy"):
-        alive_np, tile_np = to_host(alive), to_host(tile_mask)
-    with span("bss.range.stats"):
-        stats = _batched_stats(index, alive_np, tile_np)
-        stats["precision"] = "fp32"
-        if precision == "bf16":
-            _bf16_stats(stats, eps, int(recheck_tiles), band_counts)
-        stats = _finish_stats(stats, kind="range", backend=backend)
-    return results, stats
+        hits = dist <= t_dev[:, None]
+    return _range_epilogue(
+        index, hits, alive, tile_mask, perm=index.perm,
+        vpb=dev.valid.reshape(index.n_blocks, index.block).sum(dim=1), backend=backend,
+        eps=eps, recheck_tiles=recheck_tiles, band_counts=band_counts,
+    )
 
 
 def _query_cells(index: BSSIndex, metric_name: str, queries: torch.Tensor,
@@ -1058,14 +1108,15 @@ def _query_cells(index: BSSIndex, metric_name: str, queries: torch.Tensor,
     ``_cells_exact_bf16_jit``): only the alive (query, block) cells are
     evaluated.  bf16: the sure hits of the cells without a band point, then
     every band cell re-checked through the fp32 ``_cells_exact``.  Returns
-    host (hit_q, hit_pos) in (query, position) order, and the band points
-    per query (bf16; None for fp32)."""
+    the ``_range_epilogue`` hits (hit_q, hit_pos) on the device in (query,
+    position) order, and the band points per query (bf16; None for
+    fp32)."""
     dev, device, block = index.device, index.torch_device, index.block
     qidx, bidx, cell_valid = _padded_cells(*np.nonzero(alive), device)
     if eps is None:
         hit = _cells_exact(metric_name, queries, dev.data, dev.valid, qidx, bidx,
                            cell_valid, t, block=block)
-        return (*_cell_hits(hit, qidx, bidx, block), None)
+        return _cell_hits(hit, qidx, bidx, block), None
     sure, band_cell, band_counts = _cells_exact_bf16(
         metric_name, queries, index.device_bf16, dev.valid, qidx, bidx, cell_valid, t,
         torch.tensor(eps, dtype=torch.float32, device=device), block=block)
@@ -1073,17 +1124,15 @@ def _query_cells(index: BSSIndex, metric_name: str, queries: torch.Tensor,
     sel = torch.nonzero(band_cell).squeeze(1)
     if sel.numel():
         with span("bss.range.copy"):
-            q_sel, b_sel = to_host(qidx[sel]), to_host(bidx[sel])
+            q_sel, b_sel = to_host(torch.stack([qidx[sel], bidx[sel]]))
         q2, b2, v2 = _padded_cells(q_sel, b_sel, device)
         hit = _cells_exact(metric_name, queries, dev.data, dev.valid, q2, b2, v2, t,
                            block=block)
         rq, rp = _cell_hits(hit, q2, b2, block)
-        hit_q = np.concatenate([hit_q, rq])
-        hit_pos = np.concatenate([hit_pos, rp])
-        order = np.lexsort((hit_pos, hit_q))
+        hit_q, hit_pos = torch.cat([hit_q, rq]), torch.cat([hit_pos, rp])
+        order = torch.argsort(hit_q * dev.data.shape[0] + hit_pos)  # keys are distinct
         hit_q, hit_pos = hit_q[order], hit_pos[order]
-    with span("bss.range.copy"):
-        return hit_q, hit_pos, to_host(band_counts)
+    return (hit_q, hit_pos), band_counts
 
 
 # ---------------------------------------------------------------------------

@@ -17,9 +17,10 @@ and ``all_gather`` concatenate:
 * ``sharded_query_batched`` — range search.  Each shard runs the pass the
   single-device engine runs (``_query_batched``, ``_query_batched_bf16``,
   or on ``"torch"`` the dense hit mask) over its blocks; the per-shard hit
-  masks, ``alive`` and tile masks are concatenated in corpus order, and
-  the hits are read and the stats computed as on one device, over the REAL
-  blocks.
+  masks, ``alive`` and tile masks are concatenated in corpus order on the
+  lead device, and the single-device epilogue (``_range_epilogue``) reads
+  the hits and the stats over the REAL blocks, the shard work beside
+  them.
 * ``sharded_knn_batched`` — radius-deepening kNN.  Every round each shard
   computes its masked exact distances and a per-shard top-k of
   ``min(k, rows_per_shard)``, positions made global (``+ shard *
@@ -69,7 +70,6 @@ from repro_torch.core.flat_index import (
     _DEFAULT_BQ,
     BSSDeviceArrays,
     BSSIndex,
-    _batched_stats,
     _bf16_stats,
     _dense_hit_mask,
     _engine_metric,
@@ -81,6 +81,7 @@ from repro_torch.core.flat_index import (
     _per_query_t,
     _query_batched,
     _query_batched_bf16,
+    _range_epilogue,
     _tiles_computed,
     _top_k_smallest,
     _valid_per_block,
@@ -189,15 +190,17 @@ class ShardedBSSIndex:
         lead = self.mesh.lead
         return torch.cat([p.to(lead) for p in parts], dim=1)
 
-    def shard_work(self, alive_pad: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """(shard_dists, shard_blocks) of a (Q, n_blocks_pad) survival
-        matrix: each shard's valid rows over its surviving blocks, and its
-        surviving non-empty blocks."""
+    def shard_work(self, alive_pad: torch.Tensor,
+                   vpb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(shard_dists, shard_blocks) int64 of a (Q, n_blocks_pad) survival
+        matrix, where it lives: each shard's valid rows over its surviving
+        blocks, and its surviving non-empty blocks.  ``vpb`` is
+        ``valid_per_block()`` on the same device."""
         nq = alive_pad.shape[0]
-        vpb = self.valid_per_block().reshape(self.n_shards, self.blocks_per_shard)
+        vpb = vpb.reshape(self.n_shards, self.blocks_per_shard)
         alive = alive_pad.reshape(nq, self.n_shards, self.blocks_per_shard)
-        sdist = (alive * vpb[None]).sum(axis=(0, 2), dtype=np.int64)
-        sblk = (alive & (vpb > 0)[None]).sum(axis=(0, 2), dtype=np.int64)
+        sdist = (alive * vpb[None]).sum(dim=(0, 2))
+        sblk = (alive & (vpb > 0)[None]).sum(dim=(0, 2))
         return sdist, sblk
 
     # --------------------------------------------------- living-corpus hooks
@@ -327,9 +330,9 @@ def _range_pass(sidx: ShardedBSSIndex, metric: str, queries: np.ndarray, t_vec: 
     """Every shard's range pass, merged.  Each shard runs what the
     single-device engine runs for a dense batch: ``_query_batched`` on
     ``"cuda"``, the bound phase and ``_dense_hit_mask`` on ``"torch"``,
-    ``_query_batched_bf16`` for bf16.  Returns (hit (Q, n_pad) on the lead
-    device, alive (Q, n_blocks_pad) and tile_mask host arrays,
-    recheck_tiles, band_counts (Q,) or None)."""
+    ``_query_batched_bf16`` for bf16.  Returns, on the lead device, (hit
+    (Q, n_pad), alive (Q, n_blocks_pad), tile_mask, and for bf16
+    recheck_tiles (0-d) and band_counts (Q,), else None)."""
     block = sidx.index.block
     q_by, t_by = sidx.per_device(queries), sidx.per_device(t_vec)
     eps_by = None if eps is None else sidx.per_device(np.float32(eps))
@@ -358,10 +361,10 @@ def _range_pass(sidx: ShardedBSSIndex, metric: str, queries: np.ndarray, t_vec: 
         tmasks.append(tmask)
     recheck = band_counts = None
     if eps is not None:
-        recheck = int(sum(int(r) for r in rtiles))
-        band_counts = sidx.merged(bands).sum(dim=1).cpu().numpy()
-    return (sidx.merged(hits), sidx.merged(alives).cpu().numpy(),
-            sidx.merged(tmasks).cpu().numpy(), recheck, band_counts)
+        recheck = sum(r.to(sidx.mesh.lead) for r in rtiles)
+        band_counts = sidx.merged(bands).sum(dim=1)
+    return (sidx.merged(hits), sidx.merged(alives), sidx.merged(tmasks), recheck,
+            band_counts)
 
 
 def _shard_stats(stats: dict, sidx: ShardedBSSIndex, sdist, sblk) -> dict:
@@ -402,33 +405,26 @@ def sharded_query_batched(
     metric_eng = _engine_metric(index.metric_name)
     queries = _engine_queries(index.metric_name, np.asarray(queries, np.float32))
     nq = queries.shape[0]
-    if nq == 0:
-        empty = np.zeros((0, index.n_blocks), bool)
-        stats = _batched_stats(index, empty, empty)
-        stats["precision"] = precision
-        zero = np.zeros(sidx.n_shards, np.int64)
-        _shard_stats(stats, sidx, zero, zero)
-        if precision == "bf16":
-            _bf16_stats(stats, index.bf16_margin(), 0, np.zeros(0, np.int64))
-        return [], _finish_stats(stats, kind="range", backend=backend, engine="sharded")
-    t_vec = _per_query_t(t, nq)
     eps = index.bf16_margin() if precision == "bf16" else None
-    hit, alive, tmask, recheck, band_counts = _range_pass(
-        sidx, metric_eng, queries, t_vec, bq=bq, backend=backend, eps=eps)
-    # nonzero is row-major: positions ascend within each query, the
-    # oracle's order
-    pos = torch.nonzero(hit).cpu().numpy()
-    orig = sidx.perm[pos[:, 1]]
-    counts = np.bincount(pos[:, 0], minlength=nq)
-    results = [r.tolist() for r in np.split(orig, np.cumsum(counts)[:-1])]
+    if nq == 0:  # nothing for the devices: the epilogue over empty host tensors
+        none = torch.zeros(0, dtype=torch.int64)
+        hit, recheck, band_counts = (none, none), none.sum(), none
+        alive = tmask = torch.zeros((0, sidx.n_blocks_pad), dtype=torch.bool)
+    else:
+        hit, alive, tmask, recheck, band_counts = _range_pass(
+            sidx, metric_eng, queries, _per_query_t(t, nq), bq=bq, backend=backend,
+            eps=eps)
+    vpb = torch.as_tensor(sidx.valid_per_block(), device=alive.device)
+    sdist, sblk = sidx.shard_work(alive, vpb)
     # padding columns survive no finite radius; the stats read the real ones
     nb = index.n_blocks
-    stats = _batched_stats(index, alive[:, :nb], tmask[:, :nb])
-    stats["precision"] = "fp32"
-    _shard_stats(stats, sidx, *sidx.shard_work(alive))
-    if precision == "bf16":
-        _bf16_stats(stats, eps, recheck, band_counts)
-    return results, _finish_stats(stats, kind="range", backend=backend, engine="sharded")
+    results, stats = _range_epilogue(
+        index, hit, alive[:, :nb], tmask[:, :nb], perm=sidx.perm, vpb=vpb[:nb],
+        backend=backend, eps=eps, recheck_tiles=recheck, band_counts=band_counts,
+        extra={"shard_dists": sdist, "shard_blocks": sblk}, engine="sharded",
+    )
+    stats["n_shards"] = sidx.n_shards
+    return results, stats
 
 
 # ---------------------------------------------------------------------------
@@ -578,6 +574,7 @@ def sharded_knn_batched(
     # survive no block and the shard sums agree with the frozen tallies
     shard_dists = np.zeros(sidx.n_shards, np.int64)
     shard_blocks = np.zeros(sidx.n_shards, np.int64)
+    vpb_pad = torch.from_numpy(sidx.valid_per_block())
     tiles_total = 0
     recheck_pq = np.zeros(nq, np.int64)
     recheck_tiles_total = 0
@@ -596,9 +593,9 @@ def sharded_knn_batched(
         if bf16:
             recheck_tiles_total += int(rtiles)
             recheck_pq += np.where(~done, band_counts.cpu().numpy(), 0)
-        sdist, sblk = sidx.shard_work(alive_pad)
-        shard_dists += sdist
-        shard_blocks += sblk
+        sdist, sblk = sidx.shard_work(torch.from_numpy(alive_pad), vpb_pad)
+        shard_dists += sdist.numpy()
+        shard_blocks += sblk.numpy()
         # the real columns: the single-device alive set (padding survives
         # only the radius-inf round, and holds no valid row)
         alive = alive_pad[:, :n_blocks]

@@ -79,5 +79,5 @@ def test_spans_on_card(card, kind):
             assert 0 < t.device_ms < (rnd.t1 - rnd.t0) * 1e3
     else:
         assert on.hits == off.hits
-        assert root.reads == 3
+        assert root.reads == 1
     assert _same(on.stats, off.stats)

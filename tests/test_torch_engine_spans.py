@@ -136,15 +136,14 @@ def test_spans_nest_under_one_root(server, data, kind, real, prec):
 
 @pytest.mark.parametrize("kind,prec", [(k, p) for k in ("range", "knn") for p in ("fp32", "bf16")])
 def test_root_counts_the_reads_to_the_host(server, data, kind, prec):
-    """The dense realisation's reads: range, the hit positions, ``alive``
-    and ``tile_mask`` (fp32 also the bound's ``alive`` first, which picks
-    the realisation; bf16 the band counts); kNN, the bounds once, then
-    ``ci``, ``cd``, ``kth``, ``dn`` and ``alive`` a round (bf16 also the
-    re-checked tiles and the band counts)."""
+    """The dense realisation's reads: range, one (the hit positions beside
+    the hit counts and the stats' sums, bf16's band counts too); kNN, the
+    bounds once, then ``ci``, ``cd``, ``kth``, ``dn`` and ``alive`` a round
+    (bf16 also the re-checked tiles and the band counts)."""
     res, _ = _profiled(lambda: _call(server, data, kind, "dense", prec))
     (root,) = [r for r in record.spans() if r.parent is None]
     if kind == "range":
-        assert root.reads == 4
+        assert root.reads == 1
     else:
         assert root.reads == 1 + (5 if prec == "fp32" else 7) * res.stats["rounds"]
     assert all(r.reads is None for r in record.spans() if r.parent is not None)

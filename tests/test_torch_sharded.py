@@ -100,7 +100,7 @@ def _alive(index, q, t, *, sharded=None, bq=8):
     if sharded is not None:
         _, alive, _, _, _ = shard_index._range_pass(sharded, metric, queries, t_vec, bq=bq,
                                                     backend="torch")
-        return alive[:, :index.n_blocks]
+        return alive[:, :index.n_blocks].numpy()
     _, alive, _ = t_flat._query_batched(metric, torch.from_numpy(queries),
                                         torch.from_numpy(t_vec), index.device,
                                         block=index.block, bq=bq, backend="torch")
