@@ -58,8 +58,10 @@ engine marks its phases with ``repro_torch.obs.record`` spans
 (``bss.range.bound``, ``.exact``, ``.copy``, ``.assemble``, ``.stats``;
 ``bss.knn.bound``, ``.copy``, ``.sort``, ``.round`` with ``.exact``,
 ``.top_k``, ``.copy``, ``.schedule``) and counts its reads to the host
-(``to_host``).  With no profiler recording they cost one flag
-check each and record nothing.
+(``to_host``).  On a card, the range bound phase and the fused pass's
+exact phase (``_query_batched``, ``_query_batched_bf16``) and the kNN
+rounds' ``.top_k`` also carry a CUDA event pair: their device ms.  With no
+profiler recording they cost one flag check each and record nothing.
 """
 
 from __future__ import annotations
@@ -791,14 +793,14 @@ def _query_batched(
     tile_mask (Qtiles, B)).  A tile survives when ANY of its queries has
     lb <= its own t, so no true hit of any query is pruned; per-query hits
     are re-filtered by d <= t afterwards."""
-    with span("bss.range.bound"):
+    with span("bss.range.bound", device=queries.device):
         lb = _fused_lower_bounds(
             metric_name, queries, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
             backend=backend,
         )  # (Q, B)
         alive = lb <= t[:, None]
         tile_mask = tile_survival(alive, bq)  # (Qtiles, B)
-    with span("bss.range.exact"):
+    with span("bss.range.exact", device=queries.device):
         dist = _masked_exact_dists(
             metric_name, queries, dev.data, dev.valid, tile_mask,
             backend=backend, block=block, bq=bq,
@@ -834,14 +836,14 @@ def _query_batched_bf16(
 
     Returns (hit (Q, n_pad) bool, alive (Q, B), tile_mask, recheck_tiles
     (0-d), band_counts (Q,) int32)."""
-    with span("bss.range.bound"):
+    with span("bss.range.bound", device=queries.device):
         lb = _fused_lower_bounds(
             metric_name, queries, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
             backend=backend,
         )
         alive = lb <= t[:, None]
         tile_mask = tile_survival(alive, bq)
-    with span("bss.range.exact"):
+    with span("bss.range.exact", device=queries.device):
         d16 = _masked_exact_dists(
             metric_name, queries, data16, dev.valid, tile_mask,
             backend=backend, block=block, bq=bq,
@@ -1062,7 +1064,7 @@ def bss_query_batched(
         # the reference's jnp branch: the bound phase first, then the
         # realisation by the alive share, which reads only the fp32 bounds,
         # so both precisions take the same branch
-        with span("bss.range.bound"):
+        with span("bss.range.bound", device=q_dev.device):
             lb = _fused_lower_bounds(
                 metric_eng, q_dev, dev.pivots, dev.pairs, dev.deltas, dev.boxes,
                 backend=backend,

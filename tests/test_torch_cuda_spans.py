@@ -1,9 +1,10 @@
 """The engine's spans on the card (``repro_torch.obs.record``): the kNN
 rounds' ``bss.knn.top_k`` spans resolve their CUDA event pairs to device
-ms inside their round, and a ``"cuda"`` call counts its reads to the host:
-kNN the bounds once and five arrays a round, range the hit positions,
-``alive`` and ``tile_mask``.  Results and stats are the same with the
-profiler on.  The file imports no jax; on the card it runs as
+ms inside their round, the range bound and exact phases resolve theirs
+inside the call, and a ``"cuda"`` call counts its reads to the host: kNN
+the bounds once and five arrays a round, range one (the hit positions
+beside the counts and the stats' sums).  Results and stats are the same
+with the profiler on.  The file imports no jax; on the card it runs as
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_spans.py
 """
@@ -80,4 +81,41 @@ def test_spans_on_card(card, kind):
     else:
         assert on.hits == off.hits
         assert root.reads == 1
+        _check_range_phases(recs, root)
+    assert _same(on.stats, off.stats)
+
+
+def _check_range_phases(recs, root):
+    """One bound and one exact span with device ms each, inside the call."""
+    bound = [r for r in recs if r.name == "bss.range.bound"]
+    exact = [r for r in recs if r.name == "bss.range.exact" and r.device_ms is not None]
+    assert len(bound) == len(exact) == 1
+    for r in bound + exact:
+        assert 0 < r.device_ms < (root.t1 - root.t0) * 1e3, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["fp32", "bf16"])
+def test_l2_range_phases_on_card(card, prec):
+    """The l2 range pass over points uniform in [0,1)^10: the bound and
+    exact spans carry device ms, and hits and every stats key are the
+    same with the profiler on and off."""
+    rng = np.random.default_rng(11)
+    x = rng.random((20_480, 10)).astype(np.float32)
+    server = RetrievalServer(x[:20_000], metric="l2", n_pivots=16, n_pairs=24, block=128,
+                             seed=0, device=card,
+                             opts=EngineOpts(backend="cuda", realisation="dense", precision=prec))
+
+    def call():
+        return server.search(x[20_000:], "range", t=0.3)
+
+    off = call()
+    record.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        on = call()
+    recs = record.spans()
+    record.clear()
+    (root,) = [r for r in recs if r.parent is None]
+    assert on.hits == off.hits and sum(map(len, on.hits)) > 0
+    _check_range_phases(recs, root)
     assert _same(on.stats, off.stats)

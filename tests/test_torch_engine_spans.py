@@ -14,6 +14,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.core import flat_index
 from repro_torch.core.backends import EngineOpts
 from repro_torch.obs import record
 from repro_torch.serve.front import ServingFront
@@ -147,6 +148,65 @@ def test_root_counts_the_reads_to_the_host(server, data, kind, prec):
     else:
         assert root.reads == 1 + (5 if prec == "fp32" else 7) * res.stats["rounds"]
     assert all(r.reads is None for r in record.spans() if r.parent is not None)
+
+
+# the range phases that carry a CUDA event pair (device ms on a card):
+# every bound span, and the exact span of the fused pass (bf16's dense
+# pass here; ``"cuda"``'s everywhere)
+DEVICE_SPANS = {"bss.range.bound", "bss.range.exact"}
+RANGE_CASES = [(real, prec) for real in ("dense", "adaptive") for prec in ("fp32", "bf16")]
+
+
+@pytest.mark.parametrize("real,prec", RANGE_CASES, ids=["-".join(c) for c in RANGE_CASES])
+def test_range_phase_spans_carry_the_device(server, data, real, prec, monkeypatch):
+    """Every range bound span, and the fused bf16 pass's exact span, is
+    opened with the queries' device; on the CPU its record has no device
+    ms, and the call's results and stats are those of the profiler off."""
+    opened = []
+
+    def spy(name, device=None, **args):
+        opened.append((name, device))
+        return record.span(name, device=device, **args)
+
+    monkeypatch.setattr(flat_index, "span", spy)
+    off = _call(server, data, "range", real, prec)
+    opened.clear()
+    on, _ = _profiled(lambda: _call(server, data, "range", real, prec))
+    for field in ("hits", "stats", "generation"):
+        assert _same(getattr(off, field), getattr(on, field)), field
+    with_device = [(n, d) for n, d in opened if d is not None]
+    assert {n for n, _ in with_device} <= DEVICE_SPANS
+    assert all(d == torch.device("cpu") for _, d in with_device)
+    assert [d for n, d in opened if n == "bss.range.bound"] == [torch.device("cpu")]
+    fused = real == "dense" and prec == "bf16"
+    assert (("bss.range.exact", torch.device("cpu")) in with_device) == fused
+    recs = record.spans()
+    for name in DEVICE_SPANS:
+        assert any(r.name == name for r in recs)
+    assert all(r.device_ms is None and r.events is None for r in recs)
+
+
+def test_fused_pass_spans_record_on_the_cpu(server, data):
+    """``_query_batched``, the pass ``"cuda"`` runs, on the plain backend:
+    its bound and exact spans record under a profiler with no device ms,
+    and its outputs are those of the profiler off, bit for bit."""
+    index = server.index
+    _, q, t = data
+    q_dev = torch.as_tensor(q)
+    t_dev = torch.full((len(q),), t, dtype=torch.float32)
+
+    def run():
+        return flat_index._query_batched("l2", q_dev, t_dev, index.device, block=index.block,
+                                         bq=16, backend="torch")
+
+    off = run()
+    assert record.spans() == []
+    on, _ = _profiled(run)
+    for a, b in zip(off, on):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    recs = record.spans()
+    assert [r.name for r in recs] == ["bss.range.bound", "bss.range.exact"]
+    assert all(r.parent is None and r.device_ms is None for r in recs)
 
 
 def test_ring_drops_and_counts(server, data, monkeypatch):
